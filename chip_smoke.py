@@ -9,8 +9,9 @@ It imports only torch, numpy and ``katsdpsigproc_tpu_torch`` (never jax),
 builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: builds the kernels and prints the build time and nvcc's
-   register report;
+2. build: builds the three kernel libraries with one ``nvcc`` each, all
+   started together, and prints the build time and nvcc's register
+   report;
 3. each kernel against its plain PyTorch version on the card, exact on
    the uint8 flags: K1 in every flag mode at several shapes, with
    n_windows 4 and 6, flag_value 1 and 3, a row holding NaN; K2 on the
@@ -20,7 +21,16 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
 5. the main path at full size: the MeerKAT 4-pol dump (32768 channels x
    2016 baselines x 4 pols = 8064 rows, channel-major planar float32)
    through ``flag_dump`` (K1), the plain version and the hybrid engine
-   (K2), which must agree flag for flag, then CUDA-event timings.
+   (K2), which must agree flag for flag, then CUDA-event timings;
+6. the ops path: K4 (percentile5) and K5 (transpose) against their plain
+   versions, exact, at every size below; the plain ops (Fill, MaskedSum,
+   HReduce) against numpy float64 at bench configs 2 and 3; a forced
+   tuner search for each autotuned template; both Operation call styles;
+   then configs 2 and 3 and the 4000 x 5000 percentile run through the
+   templates with the launch counts read, and CUDA-event timings;
+7. ``FlaggerDevice`` (median background, transposed MAD noise,
+   SumThreshold as an ``OperationSequence``) over the whole dump as
+   complex64, whose flags must equal K1's on the same rows.
 
 Any failure raises and exits non-zero before the result lines.  The
 second-to-last line is a JSON record of each kernel; the last line is
@@ -29,9 +39,11 @@ second-to-last line is a JSON record of each kernel; the last line is
 
 import json
 import statistics
+import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -39,10 +51,17 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 CHANNELS, BASELINES, POLS = 32768, 2016, 4
-SOURCE = "katsdpsigproc_tpu_torch/csrc/fused_flagger.cu"
+SOURCES = {
+    "flagger": "katsdpsigproc_tpu_torch/csrc/fused_flagger.cu",
+    "madnz_threshold": "katsdpsigproc_tpu_torch/csrc/fused_flagger.cu",
+    "percentile5": "katsdpsigproc_tpu_torch/csrc/percentile.cu",
+    "transpose": "katsdpsigproc_tpu_torch/csrc/transpose.cu",
+}
 REPLACES = {
     "flagger": "katsdpsigproc_tpu/models/rfi/pallas_flagger.py:643",
     "madnz_threshold": "katsdpsigproc_tpu/models/rfi/pallas_flagger.py:762",
+    "percentile5": "katsdpsigproc_tpu/ops/percentile.py:157",
+    "transpose": "katsdpsigproc_tpu/ops/transpose.py:42",
 }
 
 
@@ -50,7 +69,27 @@ class Check:
     """Kernel-against-plain comparisons, with the largest error per kernel."""
 
     def __init__(self):
-        self.max_abs_err = {"flagger": 0, "madnz_threshold": 0}
+        self.max_abs_err = {name: 0 for name in SOURCES}
+
+    def exact(self, kernel: str, label: str, got, want) -> None:
+        """Bit-for-bit equality of two tensors (NaN equal to NaN of the same bits)."""
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{label}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
+        g, w = got.contiguous(), want.contiguous()
+        if g.is_complex():
+            g, w = torch.view_as_real(g), torch.view_as_real(w)
+        if g.dtype.is_floating_point:
+            both = torch.isfinite(g) & torch.isfinite(w)
+            err = float((g - w).abs()[both].max()) if bool(both.any()) else 0.0
+            bits = {4: torch.int32, 8: torch.int64}[g.element_size()]
+            g, w = g.view(bits), w.view(bits)
+        else:
+            err = float((g.to(torch.int16) - w.to(torch.int16)).abs().max()) if g.numel() else 0.0
+        bad = int((g != w).sum())
+        self.max_abs_err[kernel] = max(self.max_abs_err[kernel], err)
+        print(f"  {label}: {bad} mismatching elements of {got.numel()}")
+        if bad:
+            raise AssertionError(f"{label}: {bad} mismatching elements")
 
     def flags(self, kernel: str, label: str, got, want) -> None:
         if got.shape != want.shape or got.dtype != want.dtype:
@@ -117,11 +156,16 @@ def phase_device() -> str:
     return card
 
 
-def phase_build(ff, kernels) -> None:
+def phase_build(ff, pct, tr, kernels) -> None:
     t0 = time.perf_counter()
-    ff._library(13)
+    with ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(ff._library, 13), pool.submit(pct._library),
+                  pool.submit(tr._library)]
+        for b in builds:
+            b.result()
     print(f"build: kernels ready in {time.perf_counter() - t0:.1f} s")
-    for info in kernels.build_info.values():
+    for key, info in kernels.build_info.items():
+        print(f"  {key}: nvcc {info['seconds']:.1f} s")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"  nvcc: {line.strip()}")
@@ -250,22 +294,254 @@ def phase_main(ff, device, vis_np: np.ndarray, card: str, check: Check) -> dict:
     }
 
 
+def plain_ops_check(label: str, got, want: np.ndarray, rtol: float, atol: float) -> None:
+    """A plain op on the card against numpy float64, within the JAX tests' tolerance."""
+    got = got.cpu().numpy()
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shape {got.shape} vs {want.shape}")
+    err = float(np.max(np.abs(got - want))) if got.size else 0.0
+    print(f"  {label}: max |err| {err:.3g} (rtol {rtol}, atol {atol})")
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=label)
+
+
+def phase_ops(pct, tr, vis_np: np.ndarray, card: str, check: Check) -> dict:
+    from katsdpsigproc_tpu_torch.models.rfi import device
+    from katsdpsigproc_tpu_torch.ops import fill, maskedsum, reduce as hreduce, wgreduce
+    from katsdpsigproc_tpu_torch.utils import backend, tune
+
+    ctx = backend.create_some_context()
+    if ctx.device.type != "cuda":
+        raise AssertionError(f"the context is on {ctx.device}, not CUDA")
+    dev = ctx.device
+    print(f"ops path on {ctx.device} ({ctx.device_kind}):")
+
+    # K4 against its plain version, bit for bit.
+    print(f"  K4 holds rows of up to {pct.max_shared_columns()} columns in shared memory")
+    rs = np.random.RandomState(seed=1)
+    cases = []
+    for cols in (7, 241, 500):
+        x = rs.uniform(0.01, 100.0, (37, cols)).astype(np.float32)
+        x[3, ::3] = np.nan  # NaN is absent
+        x[5] = np.nan  # an all-NaN row
+        cases.append((f"37x{cols} with NaN rows", torch.from_numpy(x).to(dev)))
+    cfg2 = torch.from_numpy(np.abs(np.random.RandomState(seed=1).standard_normal(
+        (64, 4096))).astype(np.float32)).to(dev)
+    big_np = np.abs(np.random.RandomState(seed=1).standard_normal((4000, 5000))).astype(np.float32)
+    big = torch.from_numpy(big_np).to(dev)
+    wide = torch.from_numpy(np.abs(rs.standard_normal((8, 65536))).astype(np.float32)).to(dev)
+    if wide.shape[1] <= pct.max_shared_columns():
+        raise AssertionError("the wide case no longer exceeds K4's shared memory")
+    cases += [("64x4096 (bench config 2)", cfg2), ("4000x5000 (percentiletest)", big),
+              ("4000x5000[:, 100:4100] column-range view", big[:, 100:4100]),
+              ("8x65536, read from device memory every round", wide)]
+    for label, x in cases:
+        check.exact("percentile5", f"K4 {label}", pct.percentile5_cuda(x),
+                    pct.percentile5_plain(x))
+    expected = np.r_[[big_np.min(axis=1), big_np.max(axis=1)],
+                     np.percentile(big_np, [25, 75, 50], axis=1, method="lower")].astype(np.float32)
+    got = pct.percentile5_cuda(big).cpu().numpy()
+    bad = int((got != expected).sum())
+    print(f"  K4 4000x5000 vs np.percentile(method='lower'): {bad} mismatching elements")
+    if bad:
+        raise AssertionError("K4 disagrees with numpy's lower percentiles")
+
+    # K5 against its plain version, bit for bit.
+    for shape in ((53, 7), (73, 521), (130, 260)):
+        for kind in ("float32", "uint8", "complex64", "planar"):
+            if kind == "planar":
+                x = rs.uniform(0, 100, shape + (2,)).astype(np.float32)
+            elif kind == "complex64":
+                x = rs.standard_normal(shape) + 1j * rs.standard_normal(shape)
+                x = x.astype(np.complex64)
+            else:
+                x = rs.uniform(0, 100, shape).astype(kind)
+            x = torch.from_numpy(x).to(dev)
+            check.exact("transpose", f"K5 {kind} {shape}", tr.transpose_cuda(x),
+                        tr.transpose_plain(x))
+    cfg3_np = np.random.RandomState(seed=1).standard_normal((8192, 2016, 2)).astype(np.float32)
+    cfg3 = torch.view_as_complex(torch.from_numpy(cfg3_np).to(dev))
+    check.exact("transpose", "K5 complex64 8192x2016 (bench config 3)", tr.transpose_cuda(cfg3),
+                tr.transpose_plain(cfg3))
+    corner = torch.from_numpy(device.to_planar(vis_np)).to(dev)  # (32768, 8064, 2)
+    check.exact("transpose", "K5 planar 32768x8064x2 (the main path's corner turn)",
+                tr.transpose_cuda(corner), tr.transpose_plain(corner))
+
+    # Plain ops against numpy float64 at the config 2 and 3 shapes.
+    ms_src_np = (rs.standard_normal((4096, 64)) + 1j * rs.standard_normal((4096, 64))).astype(
+        np.complex64)
+    mask_np = rs.random_sample(4096).astype(np.float32)
+    ms_src, mask = torch.from_numpy(ms_src_np).to(dev), torch.from_numpy(mask_np).to(dev)
+    for amps in (False, True):
+        op = maskedsum.MaskedSumTemplate(ctx, amps).instantiate(None, (4096, 64))
+        terms = ms_src_np.astype(np.complex128)
+        terms = np.abs(terms) if amps else terms
+        plain_ops_check(f"MaskedSum 4096x64 use_amplitudes={amps}",
+                        op(src=ms_src, mask=mask)["dest"],
+                        (mask_np[:, None] * terms).sum(axis=0), 1e-5, 1e-4)
+    amp_np = np.hypot(cfg3_np[..., 0], cfg3_np[..., 1]).astype(np.float32)
+    amp = torch.from_numpy(amp_np).to(dev)
+    for name, np_fn in (("plus", np.sum), ("max", np.max), ("min", np.min)):
+        op = hreduce.HReduceTemplate(ctx, np.float32, op=name).instantiate(
+            None, amp.shape, (7, 2000))
+        plain_ops_check(f"HReduce {name} 8192x2016[:, 7:2000]", op(src=amp)["dest"],
+                        np_fn(amp_np[:, 7:2000].astype(np.float64), axis=1), 1e-5, 1e-4)
+    for dtype, shape in ((np.float32, (64, 4096)), (np.complex64, (8192, 2016))):
+        op = fill.FillTemplate(ctx, dtype).instantiate(None, shape)
+        op.set_value(4)
+        op.ensure_all_bound()
+        op()
+        plain_ops_check(f"Fill {np.dtype(dtype).name} {shape}", op.buffer("data"),
+                        np.full(shape, 4, np.float64), 0, 0)
+
+    # One forced tuner search per autotuned template; the picks are the
+    # H100 records of the port's tuning table.
+    print("forced tuner searches:")
+    picks = {}
+    saved = tune.autotuner_impl
+    tune.autotuner_impl = tune.force_autotuner
+    try:
+        for label, make in (
+                ("Percentile5Template(5000, True)",
+                 lambda: pct.Percentile5Template(ctx, 5000, True)),
+                ("TransposeTemplate(complex64)",
+                 lambda: tr.TransposeTemplate(ctx, np.complex64)),
+                ("TransposeTemplate(float32)", lambda: tr.TransposeTemplate(ctx, np.float32)),
+                ("BackgroundMedianFilterDeviceTemplate(13)",
+                 lambda: device.BackgroundMedianFilterDeviceTemplate(ctx, 13)),
+                ("NoiseEstMADTDeviceTemplate(32768)",
+                 lambda: device.NoiseEstMADTDeviceTemplate(ctx, 32768)),
+                ("NoiseEstMADDeviceTemplate()", lambda: device.NoiseEstMADDeviceTemplate(ctx))):
+            t0 = time.perf_counter()
+            tmpl = make()
+            picks[label] = {k: getattr(tmpl, k) for k in ("engine", "radix_bits")
+                            if hasattr(tmpl, k)}
+            print(f"  {label}: {picks[label]} ({time.perf_counter() - t0:.1f} s)")
+    finally:
+        tune.autotuner_impl = saved
+    print(f"  tuning picks on {ctx.device_kind}: {json.dumps(picks, sort_keys=True)}")
+
+    # Both Operation call styles.
+    k4 = pct.Percentile5Template(ctx, 5000, True, tuning={"engine": "cuda"})
+    op = k4.instantiate(None, tuple(big.shape), (100, 4100))
+    functional = op(src=big)["dest"]
+    op.bind(src=big)
+    op()
+    check.exact("percentile5", "Percentile5 op, bound vs functional call", op.buffer("dest"),
+                functional)
+    check.exact("percentile5", "Percentile5 op column_range vs K4 on the view", functional,
+                pct.percentile5_cuda(big[:, 100:4100]))
+    k5 = tr.TransposeTemplate(ctx, np.complex64, tuning={"engine": "cuda"})
+    op = k5.instantiate(None, tuple(cfg3.shape))
+    op.bind(src=cfg3)
+    op()
+    check.exact("transpose", "Transpose op, bound vs functional call", op.buffer("dest"),
+                op(src=cfg3)["dest"])
+
+    # The ops path: configs 2 and 3 and the percentiletest run through the
+    # templates, with the launch counts set to 0 just before and read just after.
+    ms_planar = torch.view_as_real(ms_src)
+    pct.launches["percentile5"] = 0
+    tr.launches["transpose"] = 0
+    pct_op = k4.instantiate(None, tuple(cfg2.shape))
+    out2 = pct_op(src=cfg2)["dest"]
+    summed = maskedsum.maskedsum(ms_planar, mask)
+    big_out = k4.instantiate(None, tuple(big.shape))(src=big)["dest"]
+    planar3 = torch.view_as_real(cfg3)  # bench config 3 turns the planar pairs
+    turned = tr.transpose(planar3, k5)
+    rowsum = wgreduce.reduce(amp, wgreduce.plus, axis=1)
+    torch.cuda.synchronize()
+    launches = {"percentile5": pct.launches["percentile5"], "transpose": tr.launches["transpose"]}
+    print(f"  launches during the ops path: {launches}")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"kernel {name} was not launched on the ops path")
+    for label, t, shape in (("percentile5 64x4096", out2, (5, 64)),
+                            ("maskedsum 4096x64", summed, (64, 2)),
+                            ("percentile5 4000x5000", big_out, (5, 4000)),
+                            ("transpose 8192x2016x2", turned, (2016, 8192, 2)),
+                            ("hreduce 8192x2016", rowsum, (8192,))):
+        if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{label}: shape {tuple(t.shape)} or non-finite values")
+    if not torch.equal(big_out.cpu(), torch.from_numpy(expected)):
+        raise AssertionError("the ops path's 4000x5000 percentiles disagree with numpy")
+    if not torch.equal(turned, planar3.transpose(0, 1)):
+        raise AssertionError("the ops path's corner turn disagrees")
+
+    print(f"timings (CUDA events, 2 warm-ups, median of 10) on {card}:")
+    times = {
+        "K4 percentile5 4000x5000": cuda_time_ms(lambda: pct.percentile5_cuda(big)),
+        "K4 plain 4000x5000": cuda_time_ms(lambda: pct.percentile5_plain(big)),
+        "K4 percentile5 64x4096": cuda_time_ms(lambda: pct.percentile5_cuda(cfg2)),
+        "K4 plain 64x4096": cuda_time_ms(lambda: pct.percentile5_plain(cfg2)),
+        "K5 transpose 32768x8064x2": cuda_time_ms(lambda: tr.transpose_cuda(corner)),
+        "K5 plain 32768x8064x2": cuda_time_ms(lambda: tr.transpose_plain(corner)),
+        "K5 transpose c64 8192x2016": cuda_time_ms(lambda: tr.transpose_cuda(cfg3)),
+        "K5 plain c64 8192x2016": cuda_time_ms(lambda: tr.transpose_plain(cfg3)),
+        "rank engine 4000x5000": cuda_time_ms(lambda: pct.percentile5(big, "rank")),
+        "sort engine 4000x5000": cuda_time_ms(lambda: pct.percentile5(big, "sort")),
+    }
+    for name, ms in times.items():
+        print(f"  {name}: {ms:.3f} ms [{card}]")
+    corner_bytes = 2 * corner.numel() * corner.element_size()
+    print(f"  K5 corner turn: {corner_bytes / times['K5 transpose 32768x8064x2'] / 1e6:.1f} GB/s "
+          f"of {corner_bytes / 1e9:.2f} GB moved [{card}]")
+    return {
+        "percentile5": (launches["percentile5"], times["K4 percentile5 4000x5000"],
+                        times["K4 plain 4000x5000"]),
+        "transpose": (launches["transpose"], times["K5 transpose 32768x8064x2"],
+                      times["K5 plain 32768x8064x2"]),
+    }
+
+
+def phase_flagger_device(ff, vis_np: np.ndarray, card: str, check: Check) -> None:
+    from katsdpsigproc_tpu_torch.models.rfi import device
+    from katsdpsigproc_tpu_torch.utils import backend
+
+    ctx = backend.create_some_context()
+    channels, rows = vis_np.shape
+    print(f"FlaggerDevice on {channels} channels x {rows} rows, complex64:")
+    template = device.FlaggerDeviceTemplate(
+        device.BackgroundMedianFilterDeviceTemplate(ctx, 13),
+        device.NoiseEstMADTDeviceTemplate(ctx),
+        device.ThresholdSumDeviceTemplate(ctx))
+    flagger = template.instantiate(None, channels, rows, threshold_args={"n_sigma": 11.0})
+    print(f"  stages: {[name for name, _ in flagger.operations]}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    vis = torch.from_numpy(vis_np).cuda()
+    flags = flagger(vis=vis)["flags"]
+    torch.cuda.synchronize()
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    vis_t = torch.view_as_real(vis).transpose(0, 1).contiguous()  # (rows, C, 2)
+    k1 = ff.flag_transposed(vis_t, width=13, n_sigma=11.0)
+    check.flags("flagger", "FlaggerDevice vs K1 on the same rows", flags.T.contiguous(), k1)
+    ms = cuda_time_ms(lambda: flagger(vis=vis))
+    print(f"  FlaggerDevice (plain stages, two corner turns): {ms:.3f} ms, "
+          f"{vis.numel() / ms / 1e6:.3f} Gvis/s [{card}]")
+
+
 def main() -> None:
     card = phase_device()
     sys.path.insert(0, str(ROOT))
+    # Tuning results stay inside the checkout.
+    os.environ["KATSDPSIGPROC_TPU_TORCH_TUNE_DB"] = str(
+        ROOT / "build" / "katsdpsigproc_tpu_torch" / "tuning.json")
     from katsdpsigproc_tpu_torch.models.rfi import device, fused_flagger as ff, host
+    from katsdpsigproc_tpu_torch.ops import percentile as pct, transpose as tr
     from katsdpsigproc_tpu_torch.utils import kernels
 
     check = Check()
-    phase_build(ff, kernels)
+    phase_build(ff, pct, tr, kernels)
     phase_kernels(ff, device, check)
     t0 = time.perf_counter()
     vis_np = meerkat_dump(CHANNELS, BASELINES * POLS)
     print(f"dump generated on the host in {time.perf_counter() - t0:.1f} s")
     phase_oracle(ff, device, host, vis_np, check)
     results = phase_main(ff, device, vis_np, card, check)
+    results.update(phase_ops(pct, tr, vis_np, card, check))
+    phase_flagger_device(ff, vis_np, card, check)
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+        {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches, "max_abs_err": check.max_abs_err[name], "ms": ms,
          "plain_ms": plain_ms}
         for name, (launches, ms, plain_ms) in results.items()]}))

@@ -12,8 +12,12 @@ on first use (:mod:`.utils.kernels`).  Each kernel wrapper takes its
 plain PyTorch version for a tensor on the CPU and launches the kernel
 for a tensor on the card.
 
-Ported so far: the 1-D RFI flagger's main path (``models.rfi``) and the
-rank-statistic library (``ops.rank``).
+Ported so far: the 1-D RFI flagger's main path and its stage templates
+with the composed ``FlaggerDevice`` (``models.rfi``); the operation
+framework (``ops.base``) and the primitive ops (``ops``: fill, masked
+sum, row reduction, named reductions and scans, rank statistics,
+percentile5 and transpose); device contexts, the tuning table and shape
+helpers (``utils``).
 """
 
 __version__ = "0.5.0"

@@ -1,9 +1,10 @@
 """The RFI flagging stages as PyTorch tensor code.
 
-Port of ``katsdpsigproc_tpu/models/rfi/device.py:50-565`` (the functional
-stages and ``make_flagger_fn``; the stage templates and operation
-framework come in a later port).  Every function takes and returns
-tensors on the caller's device.
+Port of ``katsdpsigproc_tpu/models/rfi/device.py``: the functional stages
+and ``make_flagger_fn`` (:50-565), then the stage templates, the composed
+``FlaggerDevice`` and the ``*HostFromDevice`` wrappers (:573-1169) on the
+operation framework of :mod:`...ops.base`.  Every function takes and
+returns tensors on the caller's device.
 
 * **Background median filter**: a vectorized windowed median over the
   ``width`` shifted copies of the amplitude array, through the same
@@ -19,13 +20,14 @@ These stages are also the plain versions that the CUDA kernels of
 """
 
 import enum
-from typing import Optional
+from typing import Any, Mapping, Optional, Type, Union
 
 import numpy as np
 import torch
 
-from ...ops import rank as rank_ops
-from . import MAD_NORMAL
+from ...ops import base, rank as rank_ops, transpose as transpose_ops
+from ...utils import backend, numerics, tune
+from . import MAD_NORMAL, host
 
 
 class BackgroundFlags(enum.Enum):
@@ -127,30 +129,20 @@ def masked_median_filter(amp, width: int, engine: str = "network",
     return torch.where(n > 0, med, torch.nan), n
 
 
-def _sqrt_rn(x):
-    """Correctly rounded float32 square root.
-
-    PyTorch's vectorized CPU ``sqrt`` for float32 is not correctly rounded
-    (about 0.7% of random inputs differ by one ulp), while XLA's and the
-    CUDA kernel's ``sqrtf`` are; the float64 root rounded to float32 is
-    the correctly rounded float32 root on every device.
-    """
-    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
-
-
 def amplitude(vis):
     """|vis| for complex or planar (trailing-pair float32) visibilities.
 
-    Port of ``katsdpsigproc_tpu/models/rfi/device.py::amplitude``.
-    ``re*re + im*im`` is rounded after each operation, as the CUDA kernel
-    and the TPU kernel compute it.
+    Port of ``katsdpsigproc_tpu/models/rfi/device.py::amplitude``.  For
+    planar input ``re*re + im*im`` is rounded after each operation, as the
+    CUDA kernel and the TPU kernel compute it; complex input is rounded as
+    XLA's ``abs`` rounds it (:func:`..utils.numerics.complex_abs`).
     """
     if vis.is_complex():
-        return vis.abs().to(torch.float32)
+        return numerics.complex_abs(vis)
     if vis.shape[-1] == 2:
         re = vis[..., 0].to(torch.float32)
         im = vis[..., 1].to(torch.float32)
-        return _sqrt_rn(re * re + im * im)
+        return numerics.sqrt_rn(re * re + im * im)
     raise TypeError("expected complex input or a trailing (re, im) pair axis")
 
 
@@ -354,3 +346,572 @@ def make_flagger_fn(
         return out
 
     return flagger
+
+
+# ---------------------------------------------------------------------------
+# Stage templates / operations
+# ---------------------------------------------------------------------------
+
+
+class AbstractBackgroundDevice(base.Operation):
+    """Instance-level background-stage contract."""
+
+
+class AbstractNoiseEstDevice(base.Operation):
+    """Instance-level noise-estimate contract."""
+
+
+class AbstractThresholdDevice(base.Operation):
+    """Instance-level threshold contract."""
+
+
+class AbstractBackgroundDeviceTemplate:
+    use_flags: BackgroundFlags
+    host_class: Type[host.AbstractBackgroundHost]
+
+    def instantiate(self, command_queue, channels, baselines, allocator=None):
+        raise NotImplementedError  # pragma: nocover
+
+
+class AbstractNoiseEstDeviceTemplate:
+    transposed: bool
+    host_class: Type[host.AbstractNoiseEstHost]
+
+    def instantiate(self, command_queue, channels, baselines, allocator=None):
+        raise NotImplementedError  # pragma: nocover
+
+
+class AbstractThresholdDeviceTemplate:
+    transposed: bool
+    host_class: Type[host.AbstractThresholdHost]
+
+    def instantiate(self, command_queue, channels, baselines, n_sigma, *, allocator=None):
+        raise NotImplementedError  # pragma: nocover
+
+
+class BackgroundMedianFilterDeviceTemplate(AbstractBackgroundDeviceTemplate):
+    """Background stage: windowed median filter per baseline, by amplitude.
+
+    Port of ``katsdpsigproc_tpu/models/rfi/device.py::BackgroundMedianFilterDeviceTemplate``.
+    The tuning knob is the windowed median's ``engine``, selection
+    ``"network"`` or compare-``"count"`` (see :func:`masked_median_filter`).
+
+    Parameters
+    ----------
+    context
+        Placement context (:class:`...utils.backend.DeviceContext`), or
+        ``None`` for the CPU.
+    width
+        The window width (odd).
+    is_amplitude
+        If true, inputs are float32 amplitudes rather than complex64
+        visibilities.
+    use_flags
+        NONE / CHANNEL / FULL input-flag mode (a bool is accepted: True
+        means CHANNEL).
+    """
+
+    host_class = host.BackgroundMedianFilterHost
+    autotune_version = 1
+
+    def __init__(self, context, width: int, is_amplitude: bool = False,
+                 use_flags: Union[BackgroundFlags, bool] = BackgroundFlags.NONE, tuning=None):
+        self.context = context
+        self.width = width
+        self.is_amplitude = is_amplitude
+        if use_flags is True:
+            use_flags = BackgroundFlags.CHANNEL
+        elif use_flags is False:
+            use_flags = BackgroundFlags.NONE
+        if not isinstance(use_flags, BackgroundFlags):
+            raise TypeError("use_flags must be an instance of BackgroundFlags or bool")
+        self.use_flags = use_flags
+        if tuning is None:
+            tuning = self.autotune(context, width)
+        self.engine = tuning.get("engine", "network")
+
+    @classmethod
+    @tune.autotuner(test={"engine": "network"})
+    def autotune(cls, context, width) -> Mapping[str, Any]:
+        rs = np.random.RandomState(2021)
+        amp = torch.from_numpy(np.abs(rs.standard_normal((4096, 512))).astype(np.float32))
+        amp = amp.to(backend.context_device(context))
+
+        def generate(engine):
+            return tune.make_measure(
+                lambda a: masked_median_filter(a, width, engine=engine), amp)
+
+        return tune.autotune(generate, engine=["network", "count"])
+
+    def instantiate(self, command_queue=None, channels=0, baselines=0, allocator=None):
+        return BackgroundMedianFilterDevice(self, channels, baselines)
+
+
+class BackgroundMedianFilterDevice(AbstractBackgroundDevice):
+    """Concrete background stage.
+
+    .. rubric:: Slots
+
+    **vis** : (channels, baselines) complex64, or float32 amplitudes
+    **flags** : (channels, baselines) or (channels,) uint8, only with use_flags
+    **deviations** : (channels, baselines) float32, output
+    """
+
+    def __init__(self, template: BackgroundMedianFilterDeviceTemplate, channels, baselines):
+        super().__init__(backend.context_device(template.context))
+        self.template = template
+        self.channels = channels
+        self.baselines = baselines
+        vis_type = torch.float32 if template.is_amplitude else torch.complex64
+        shape = (channels, baselines)
+        self.slots["vis"] = base.Slot(shape, vis_type, base.Direction.IN)
+        self.slots["deviations"] = base.Slot(shape, torch.float32, base.Direction.OUT)
+        if template.use_flags == BackgroundFlags.FULL:
+            self.slots["flags"] = base.Slot(shape, torch.uint8, base.Direction.IN)
+        elif template.use_flags == BackgroundFlags.CHANNEL:
+            self.slots["flags"] = base.Slot((channels,), torch.uint8, base.Direction.IN)
+
+    def _run(self, vis, flags=None):
+        deviations = background_median_filter(
+            vis, flags, self.template.width, self.template.is_amplitude,
+            self.template.use_flags, self.template.engine)
+        return {"deviations": deviations}
+
+    def parameters(self) -> Mapping[str, Any]:
+        return {
+            "width": self.template.width,
+            "use_flags": self.template.use_flags.name,
+            "channels": self.channels,
+            "baselines": self.baselines,
+        }
+
+
+def _madnz_radix_search(context, axis: int, channels: int,
+                        baselines: int = 128) -> Mapping[str, Any]:
+    """Measured ``radix_bits`` search shared by the noise-estimate templates."""
+    rs = np.random.RandomState(2021)
+    shape = (baselines, channels) if axis == -1 else (channels, baselines)
+    dev = torch.from_numpy(np.abs(rs.standard_normal(shape)).astype(np.float32))
+    dev = dev.to(backend.context_device(context))
+
+    def generate(radix_bits):
+        return tune.make_measure(lambda d: madnz(d, axis=axis, radix_bits=radix_bits), dev)
+
+    return tune.autotune(generate, radix_bits=[1, 2, 4, 8])
+
+
+class NoiseEstMADTDeviceTemplate(AbstractNoiseEstDeviceTemplate):
+    """Transposed-layout (baseline-major) MAD noise estimator.
+
+    Port of ``katsdpsigproc_tpu/models/rfi/device.py::NoiseEstMADTDeviceTemplate``.
+    The tuning knob is the rank search's ``radix_bits`` (every width gives
+    the same value); ``max_channels`` bounds an instance's channels.
+    """
+
+    host_class = host.NoiseEstMADHost
+    transposed = True
+    autotune_version = 1
+
+    def __init__(self, context, max_channels: int = 32768, tuning=None):
+        self.context = context
+        self.max_channels = max_channels
+        if tuning is None:
+            tuning = self.autotune(context, max_channels)
+        self.radix_bits = tuning.get("radix_bits", 4)
+
+    @classmethod
+    @tune.autotuner(test={"radix_bits": 4})
+    def autotune(cls, context, max_channels) -> Mapping[str, Any]:
+        return _madnz_radix_search(context, axis=-1, channels=min(max_channels, 8192))
+
+    def instantiate(self, command_queue=None, channels=0, baselines=0, allocator=None):
+        if channels > self.max_channels:
+            raise ValueError("channels exceeds max_channels")
+        return NoiseEstMADTDevice(self, channels, baselines)
+
+
+class NoiseEstMADTDevice(AbstractNoiseEstDevice):
+    """.. rubric:: Slots
+
+    **deviations** : (baselines, channels) float32 (transposed layout)
+    **noise** : (baselines,) float32, output
+    """
+
+    transposed = True
+
+    def __init__(self, template, channels, baselines):
+        super().__init__(backend.context_device(template.context))
+        self.template = template
+        self.channels = channels
+        self.baselines = baselines
+        self.slots["deviations"] = base.Slot((baselines, channels), torch.float32,
+                                             base.Direction.IN)
+        self.slots["noise"] = base.Slot((baselines,), torch.float32, base.Direction.OUT)
+
+    def _run(self, deviations):
+        return {"noise": madnz(deviations, radix_bits=self.template.radix_bits)}
+
+    def parameters(self) -> Mapping[str, Any]:
+        return {"channels": self.channels, "baselines": self.baselines, "transposed": True}
+
+
+class NoiseEstMADDeviceTemplate(AbstractNoiseEstDeviceTemplate):
+    """Straight-layout (channel-major) MAD noise estimator.
+
+    Port of ``katsdpsigproc_tpu/models/rfi/device.py::NoiseEstMADDeviceTemplate``:
+    the same arithmetic along axis 0.  Tuning knob: ``radix_bits``.
+    """
+
+    host_class = host.NoiseEstMADHost
+    transposed = False
+    autotune_version = 1
+
+    def __init__(self, context, tuning=None):
+        self.context = context
+        if tuning is None:
+            tuning = self.autotune(context)
+        self.radix_bits = tuning.get("radix_bits", 4)
+
+    @classmethod
+    @tune.autotuner(test={"radix_bits": 4})
+    def autotune(cls, context) -> Mapping[str, Any]:
+        return _madnz_radix_search(context, axis=0, channels=8192)
+
+    def instantiate(self, command_queue=None, channels=0, baselines=0, allocator=None):
+        return NoiseEstMADDevice(self, channels, baselines)
+
+
+class NoiseEstMADDevice(AbstractNoiseEstDevice):
+    """.. rubric:: Slots
+
+    **deviations** : (channels, baselines) float32
+    **noise** : (baselines,) float32, output
+    """
+
+    transposed = False
+
+    def __init__(self, template, channels, baselines):
+        super().__init__(backend.context_device(template.context))
+        self.template = template
+        self.channels = channels
+        self.baselines = baselines
+        self.slots["deviations"] = base.Slot((channels, baselines), torch.float32,
+                                             base.Direction.IN)
+        self.slots["noise"] = base.Slot((baselines,), torch.float32, base.Direction.OUT)
+
+    def _run(self, deviations):
+        return {"noise": madnz(deviations, axis=0, radix_bits=self.template.radix_bits)}
+
+    def parameters(self) -> Mapping[str, Any]:
+        return {"channels": self.channels, "baselines": self.baselines, "transposed": False}
+
+
+class ThresholdSimpleDeviceTemplate(AbstractThresholdDeviceTemplate):
+    """Elementwise threshold.
+
+    Port of ``katsdpsigproc_tpu/models/rfi/device.py::ThresholdSimpleDeviceTemplate``.
+    One comparison: no autotune, and ``tuning`` is accepted for signature
+    parity and ignored.
+    """
+
+    host_class = host.ThresholdSimpleHost
+
+    def __init__(self, context, transposed: bool = False, flag_value: int = 1, tuning=None):
+        self.context = context
+        self.transposed = transposed
+        self.flag_value = flag_value
+
+    def instantiate(self, command_queue=None, channels=0, baselines=0, n_sigma=11.0, *,
+                    allocator=None):
+        return ThresholdSimpleDevice(self, channels, baselines, n_sigma)
+
+
+class ThresholdSimpleDevice(AbstractThresholdDevice):
+    """.. rubric:: Slots
+
+    **deviations** : (channels, baselines) float32, or (baselines, channels) if transposed
+    **noise** : (baselines,) float32
+    **flags** : the shape of deviations, uint8, output
+    """
+
+    def __init__(self, template, channels, baselines, n_sigma):
+        super().__init__(backend.context_device(template.context))
+        self.template = template
+        self.transposed = template.transposed
+        self.channels = channels
+        self.baselines = baselines
+        self.n_sigma = n_sigma
+        shape = (baselines, channels) if template.transposed else (channels, baselines)
+        self.slots["deviations"] = base.Slot(shape, torch.float32, base.Direction.IN)
+        self.slots["noise"] = base.Slot((baselines,), torch.float32, base.Direction.IN)
+        self.slots["flags"] = base.Slot(shape, torch.uint8, base.Direction.OUT)
+
+    def _run(self, deviations, noise):
+        return {"flags": threshold_simple(deviations, noise, self.n_sigma,
+                                          self.template.flag_value, self.transposed)}
+
+    def parameters(self) -> Mapping[str, Any]:
+        return {"n_sigma": self.n_sigma, "flag_value": self.template.flag_value,
+                "transposed": self.transposed}
+
+
+class ThresholdSumDeviceTemplate(AbstractThresholdDeviceTemplate):
+    """SumThreshold on transposed (baseline-major) deviations.
+
+    Port of ``katsdpsigproc_tpu/models/rfi/device.py::ThresholdSumDeviceTemplate``.
+
+    Parameters
+    ----------
+    n_windows
+        Number of power-of-two window sizes.
+    threshold_falloff
+        Per-window thresholds are ``n_sigma * threshold_falloff**-i``.
+    tuning
+        Accepted for signature parity and ignored: the window sums are
+        pinned to the oracle's order.
+    """
+
+    host_class = host.ThresholdSumHost
+    transposed = True
+
+    def __init__(self, context, n_windows: int = 4, threshold_falloff: float = 1.2,
+                 flag_value: int = 1, tuning=None):
+        self.context = context
+        self.n_windows = n_windows
+        self.threshold_falloff = threshold_falloff
+        self.flag_value = flag_value
+
+    def instantiate(self, command_queue=None, channels=0, baselines=0, n_sigma=11.0, *,
+                    allocator=None):
+        return ThresholdSumDevice(self, channels, baselines, n_sigma)
+
+
+class ThresholdSumDevice(AbstractThresholdDevice):
+    """.. rubric:: Slots
+
+    **deviations** : (baselines, channels) float32 (transposed layout)
+    **noise** : (baselines,) float32
+    **flags** : (baselines, channels) uint8, output
+    """
+
+    transposed = True
+
+    def __init__(self, template, channels, baselines, n_sigma):
+        super().__init__(backend.context_device(template.context))
+        self.template = template
+        self.channels = channels
+        self.baselines = baselines
+        self.n_sigma = n_sigma
+        shape = (baselines, channels)
+        self.slots["deviations"] = base.Slot(shape, torch.float32, base.Direction.IN)
+        self.slots["noise"] = base.Slot((baselines,), torch.float32, base.Direction.IN)
+        self.slots["flags"] = base.Slot(shape, torch.uint8, base.Direction.OUT)
+
+    def _run(self, deviations, noise):
+        flags = threshold_sum(deviations, noise, self.n_sigma, self.template.n_windows,
+                              self.template.threshold_falloff, self.template.flag_value)
+        return {"flags": flags}
+
+    def parameters(self) -> Mapping[str, Any]:
+        return {
+            "n_sigma": self.n_sigma,
+            "n_windows": self.template.n_windows,
+            "threshold_falloff": self.template.threshold_falloff,
+            "flag_value": self.template.flag_value,
+        }
+
+
+# ---------------------------------------------------------------------------
+# Composed flagger
+# ---------------------------------------------------------------------------
+
+
+class FlaggerDeviceTemplate:
+    """Compose background, noise estimation and thresholding stages.
+
+    Port of ``katsdpsigproc_tpu/models/rfi/device.py::FlaggerDeviceTemplate``.
+    Corner turns are inserted where the stages' ``transposed`` attributes
+    disagree; each is a materialized copy (eager PyTorch has no compiler
+    to fold it into the next stage).
+    """
+
+    def __init__(self, background: BackgroundMedianFilterDeviceTemplate,
+                 noise_est: AbstractNoiseEstDeviceTemplate,
+                 threshold: AbstractThresholdDeviceTemplate):
+        self.background = background
+        self.noise_est = noise_est
+        self.threshold = threshold
+
+    def instantiate(self, command_queue=None, channels: int = 0, baselines: int = 0,
+                    background_args: Mapping[str, Any] = {},
+                    noise_est_args: Mapping[str, Any] = {},
+                    threshold_args: Mapping[str, Any] = {}, allocator=None):
+        return FlaggerDevice(self, channels, baselines, background_args, noise_est_args,
+                             threshold_args)
+
+
+class FlaggerDevice(base.OperationSequence):
+    """Concrete composed flagger, an :class:`...ops.base.OperationSequence`.
+
+    Port of ``katsdpsigproc_tpu/models/rfi/device.py::FlaggerDevice``.
+
+    .. rubric:: Slots
+
+    **vis** : (channels, baselines) input visibilities
+    **input_flags** : input flags (only when the background uses flags)
+    **flags** : (channels, baselines) uint8 output flags
+    """
+
+    def __init__(self, template, channels, baselines, background_args={},
+                 noise_est_args={}, threshold_args={}):
+        self.template = template
+        self.channels = channels
+        self.baselines = baselines
+
+        background = template.background.instantiate(None, channels, baselines,
+                                                     **dict(background_args))
+        noise_est = template.noise_est.instantiate(None, channels, baselines,
+                                                   **dict(noise_est_args))
+        threshold = template.threshold.instantiate(None, channels, baselines,
+                                                   **dict(threshold_args))
+        # The corner turns stay plain torch copies: the JAX package's are
+        # XLA transposes, not its Pallas kernel.
+        plain = {"engine": "torch"}
+        context = template.background.context
+        corner_turn = transpose_ops.TransposeTemplate(context, torch.float32, tuning=plain)
+        flags_turn = transpose_ops.TransposeTemplate(context, torch.uint8, tuning=plain)
+
+        noise_t = getattr(noise_est, "transposed", template.noise_est.transposed)
+        thresh_t = getattr(threshold, "transposed", template.threshold.transposed)
+
+        operations = [("background", background)]
+        compounds = {"vis": ["background:vis"], "deviations": ["background:deviations"]}
+        if template.background.use_flags:
+            compounds["input_flags"] = ["background:flags"]
+
+        if noise_t or thresh_t:
+            operations.append(("transpose_deviations",
+                               corner_turn.instantiate(None, (channels, baselines))))
+            compounds["deviations"].append("transpose_deviations:src")
+            compounds["deviations_t"] = ["transpose_deviations:dest"]
+
+        operations.append(("noise_est", noise_est))
+        dev_name = "deviations_t" if noise_t else "deviations"
+        compounds[dev_name] = compounds.get(dev_name, []) + ["noise_est:deviations"]
+        compounds["noise"] = ["noise_est:noise"]
+
+        operations.append(("threshold", threshold))
+        dev_name = "deviations_t" if thresh_t else "deviations"
+        compounds[dev_name] = compounds.get(dev_name, []) + ["threshold:deviations"]
+        compounds["noise"].append("threshold:noise")
+
+        if thresh_t:
+            compounds["flags_t"] = ["threshold:flags"]
+            operations.append(("transpose_flags",
+                               flags_turn.instantiate(None, (baselines, channels))))
+            compounds["flags_t"].append("transpose_flags:src")
+            compounds["flags"] = ["transpose_flags:dest"]
+        else:
+            compounds["flags"] = ["threshold:flags"]
+
+        super().__init__(operations, compounds)
+
+    def parameters(self) -> Mapping[str, Any]:
+        return {
+            "channels": self.channels,
+            "baselines": self.baselines,
+            # The stages' parameters; the corner turns carry none in the JAX package.
+            **{f"{name}:{k}": v for name, op in self.operations
+               if name in ("background", "noise_est", "threshold")
+               for k, v in op.parameters().items()},
+        }
+
+
+# ---------------------------------------------------------------------------
+# Host-interface wrappers (the oracle adapters of the parity tests)
+# ---------------------------------------------------------------------------
+
+
+def _to_device(template, array: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(array)).to(
+        device=backend.context_device(template.context), dtype=dtype)
+
+
+class BackgroundHostFromDevice(host.AbstractBackgroundHost):
+    """The host API over a device background template.
+
+    Port of ``katsdpsigproc_tpu/models/rfi/device.py::BackgroundHostFromDevice``.
+    """
+
+    def __init__(self, template: AbstractBackgroundDeviceTemplate, command_queue=None):
+        self.template = template
+        self.command_queue = command_queue
+
+    def __call__(self, vis: np.ndarray, flags: Optional[np.ndarray] = None) -> np.ndarray:
+        if flags is not None and not self.template.use_flags:
+            raise TypeError("flags were provided but not included in the template")
+        if flags is None and self.template.use_flags:
+            raise TypeError("flags were expected but not provided")
+        channels, baselines = vis.shape
+        fn = self.template.instantiate(self.command_queue, channels, baselines)
+        inputs = {"vis": _to_device(self.template, vis, fn.slots["vis"].dtype)}
+        if flags is not None:
+            inputs["flags"] = _to_device(self.template, flags.astype(np.uint8), torch.uint8)
+        return fn(**inputs)["deviations"].cpu().numpy()
+
+
+class NoiseEstHostFromDevice(host.AbstractNoiseEstHost):
+    """Port of ``katsdpsigproc_tpu/models/rfi/device.py::NoiseEstHostFromDevice``."""
+
+    def __init__(self, template: AbstractNoiseEstDeviceTemplate, command_queue=None):
+        self.template = template
+
+    def __call__(self, deviations: np.ndarray) -> np.ndarray:
+        channels, baselines = deviations.shape
+        fn = self.template.instantiate(None, channels, baselines)
+        dev = deviations.astype(np.float32)
+        if self.template.transposed:
+            dev = dev.T
+        return fn(deviations=_to_device(self.template, dev, torch.float32))["noise"].cpu().numpy()
+
+
+class ThresholdHostFromDevice(host.AbstractThresholdHost):
+    """Port of ``katsdpsigproc_tpu/models/rfi/device.py::ThresholdHostFromDevice``."""
+
+    def __init__(self, template: AbstractThresholdDeviceTemplate, command_queue=None, **kwargs):
+        self.template = template
+        self.kwargs = kwargs
+
+    def __call__(self, deviations: np.ndarray, noise: np.ndarray) -> np.ndarray:
+        channels, baselines = deviations.shape
+        fn = self.template.instantiate(None, channels, baselines, **self.kwargs)
+        dev = deviations.astype(np.float32)
+        if self.template.transposed:
+            dev = dev.T
+        out = fn(deviations=_to_device(self.template, dev, torch.float32),
+                 noise=_to_device(self.template, noise, torch.float32))["flags"].cpu().numpy()
+        return out.T if self.template.transposed else out
+
+
+class FlaggerHostFromDevice(host.AbstractFlaggerHost):
+    """Port of ``katsdpsigproc_tpu/models/rfi/device.py::FlaggerHostFromDevice``."""
+
+    def __init__(self, template: FlaggerDeviceTemplate, command_queue=None,
+                 background_args: Mapping[str, Any] = {},
+                 noise_est_args: Mapping[str, Any] = {},
+                 threshold_args: Mapping[str, Any] = {}):
+        self.template = template
+        self.background_args = dict(background_args)
+        self.noise_est_args = dict(noise_est_args)
+        self.threshold_args = dict(threshold_args)
+
+    def __call__(self, vis: np.ndarray, input_flags: Optional[np.ndarray] = None) -> np.ndarray:
+        channels, baselines = vis.shape
+        fn = self.template.instantiate(None, channels, baselines, self.background_args,
+                                       self.noise_est_args, self.threshold_args)
+        background = self.template.background
+        inputs = {"vis": _to_device(background, vis, fn.slots["vis"].dtype)}
+        if input_flags is not None:
+            inputs["input_flags"] = _to_device(background, input_flags.astype(np.uint8),
+                                               torch.uint8)
+        return fn(**inputs)["flags"].cpu().numpy()

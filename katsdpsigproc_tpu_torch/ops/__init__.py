@@ -1,5 +1,11 @@
-"""Primitive operations (port of ``katsdpsigproc_tpu.ops``; rank only so far)."""
+"""Primitive operations (port of ``katsdpsigproc_tpu.ops``).
 
-from . import rank  # noqa: F401
+``base`` is the operation framework; ``percentile`` and ``transpose``
+wrap the hand-written CUDA kernels K4 and K5; ``fill``, ``maskedsum``,
+``reduce``, ``wgreduce`` and ``rank`` are plain PyTorch, as the JAX
+package leaves them to XLA.
+"""
 
-__all__ = ["rank"]
+from . import base, fill, maskedsum, percentile, rank, reduce, transpose, wgreduce  # noqa: F401
+
+__all__ = ["base", "fill", "maskedsum", "percentile", "rank", "reduce", "transpose", "wgreduce"]

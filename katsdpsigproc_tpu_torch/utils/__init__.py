@@ -1,1 +1,3 @@
-"""Support code for the port (the kernel builder and loader)."""
+"""Support code for the port: nvcc builds and ctypes loading of the
+kernels, device contexts, the tuning table, shapes and pinned float32
+arithmetic."""

@@ -8,6 +8,8 @@ keyed by a hash of the sources, the generated headers and the flags, so
 a changed source or header is rebuilt and an unchanged one is reused.
 The library is written under a temporary name and renamed into place,
 so processes that build the same key at once cannot see a partial file.
+Builds of different libraries may run at once from several threads (each
+key has its own lock), so a caller can start every ``nvcc`` together.
 
 Nothing here runs at import time.
 """
@@ -32,7 +34,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _key_locks
+_key_locks: Dict[str, threading.Lock] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
 # Per build key: nvcc's messages (register and shared-memory use) and the
 # seconds the build took (0 when an existing library was reused).
@@ -73,6 +76,8 @@ def load(name: str, sources: Sequence[str], headers: Dict[str, str]) -> ctypes.C
         digest.update(hname.encode() + b"\0" + headers[hname].encode() + b"\0")
     key = f"{name}-{digest.hexdigest()[:16]}"
     with _lock:
+        key_lock = _key_locks.setdefault(key, threading.Lock())
+    with key_lock:
         lib = _loaded.get(key)
         if lib is not None:
             return lib

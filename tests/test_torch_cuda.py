@@ -92,3 +92,95 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         ff.flag_transposed(vis_t, torch.zeros((4, 64), dtype=torch.uint8))
     with pytest.raises(ValueError, match="limit"):
         ff.madnz_threshold(torch.zeros((1, 50000), device=cuda))
+
+
+# K4 (percentile5) and K5 (transpose): exact against their plain versions.
+
+
+@pytest.mark.parametrize("rows,cols", [(37, 7), (37, 241), (37, 500), (64, 4096), (3, 60000)])
+def test_percentile5_matches_plain(cuda, rows, cols):
+    from katsdpsigproc_tpu_torch.ops import percentile as pct
+
+    rs = np.random.RandomState(rows + cols)
+    x = rs.uniform(0.01, 100.0, (rows, cols)).astype(np.float32)
+    x[1, ::5] = np.nan
+    x[2] = np.nan
+    x = torch.from_numpy(x).to(cuda)
+    got, want = pct.percentile5_cuda(x), pct.percentile5_plain(x)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_percentile5_column_range_view_and_count(cuda):
+    from katsdpsigproc_tpu_torch.ops import percentile as pct
+
+    x = torch.from_numpy(np.abs(np.random.RandomState(3).standard_normal((50, 300))).astype(
+        np.float32)).to(cuda)
+    before = pct.launches["percentile5"]
+    op = pct.Percentile5Template(None, 300, True, tuning={"engine": "cuda"}).instantiate(
+        None, (50, 300), (13, 277))
+    got = op(src=x)["dest"]
+    torch.cuda.synchronize()
+    assert pct.launches["percentile5"] == before + 1
+    assert torch.equal(got, pct.percentile5_plain(x[:, 13:277].contiguous()))
+    with pytest.raises(ValueError, match="contiguous"):
+        pct.percentile5_cuda(x.T)
+    with pytest.raises(TypeError, match="float32"):
+        pct.percentile5_cuda(x.double())
+
+
+@pytest.mark.parametrize("shape", [(53, 7), (73, 521), (130, 260), (1, 33), (33, 1)])
+@pytest.mark.parametrize("kind", ["float32", "uint8", "complex64", "planar"])
+def test_transpose_matches_plain(cuda, shape, kind):
+    from katsdpsigproc_tpu_torch.ops import transpose as tr
+
+    rs = np.random.RandomState(sum(shape))
+    if kind == "planar":
+        x = rs.uniform(0, 100, shape + (2,)).astype(np.float32)
+    elif kind == "complex64":
+        x = (rs.standard_normal(shape) + 1j * rs.standard_normal(shape)).astype(np.complex64)
+    else:
+        x = rs.uniform(0, 100, shape).astype(kind)
+    x = torch.from_numpy(x).to(cuda)
+    assert torch.equal(tr.transpose_cuda(x), tr.transpose_plain(x))
+
+
+class _FailingLibrary:
+    """Stands in for a kernel library whose every launch returns an error."""
+
+    def __getattr__(self, name):
+        if name.endswith("error_string"):
+            return lambda err: b"injected failure"
+        return lambda *args: 98  # cudaErrorInvalidDeviceFunction
+
+
+@pytest.mark.parametrize("which", ["percentile5", "transpose"])
+def test_search_raises_when_the_kernel_fails(cuda, which, monkeypatch, tmp_path):
+    """A cuda candidate that fails to launch raises out of the tuner's
+    search; it is not skipped in favour of a plain engine, and nothing is
+    saved."""
+    from katsdpsigproc_tpu_torch.ops import percentile as pct, transpose as tr
+    from katsdpsigproc_tpu_torch.utils import backend
+
+    db = tmp_path / "tuning.json"
+    monkeypatch.setenv("KATSDPSIGPROC_TPU_TORCH_TUNE_DB", str(db))
+    module = pct if which == "percentile5" else tr
+    monkeypatch.setattr(module, "_library", lambda: _FailingLibrary())
+    ctx = backend.DeviceContext(cuda)
+    with pytest.raises(RuntimeError, match=f"{which} launch failed"):
+        if which == "percentile5":
+            pct.Percentile5Template(ctx, 64, True)  # no record: searched
+        else:
+            tr.TransposeTemplate(ctx, "uint8")  # no record: searched
+    assert not db.exists()
+
+
+def test_transpose_row_stride_and_errors(cuda):
+    from katsdpsigproc_tpu_torch.ops import transpose as tr
+
+    x = torch.arange(40 * 70, dtype=torch.float32, device=cuda).reshape(40, 70)
+    view = x[:, 5:60]
+    assert torch.equal(tr.transpose_cuda(view), view.T.contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        tr.transpose_cuda(x.T)
+    with pytest.raises(TypeError, match="byte"):
+        tr.transpose_cuda(x.half())
