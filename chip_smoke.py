@@ -9,7 +9,7 @@ It imports only torch, numpy and ``katsdpsigproc_tpu_torch`` (never jax),
 builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: builds the three kernel libraries with one ``nvcc`` each, all
+2. build: builds the four kernel libraries with one ``nvcc`` each, all
    started together, and prints the build time and nvcc's register
    report;
 3. each kernel against its plain PyTorch version on the card, exact on
@@ -30,7 +30,17 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
    templates with the launch counts read, and CUDA-event timings;
 7. ``FlaggerDevice`` (median background, transposed MAD noise,
    SumThreshold as an ``OperationSequence``) over the whole dump as
-   complex64, whose flags must equal K1's on the same rows.
+   complex64, whose flags must equal K1's on the same rows;
+8. K1's stage probes (``csrc/flagger_probe.cu``): each variant's launch
+   configuration against K1's, as the two libraries report them (1024
+   threads, K1's shared memory, one CTA per SM); every variant against
+   its plain version, exact, at several shapes and on 512 rows of the
+   dump; on the whole dump, ``full``, ``rank_pair``, ``zeros_fold`` and
+   ``shfl_median`` against K1, every ``stage_ablate`` variant against its
+   plain version, and ``amp_pairs`` in both layouts against the plain
+   amplitude; then the profiling path, the
+   four probe tools' ``run`` on the whole dump with the launch counts
+   read, which prints the stage costs; and the plain versions' times.
 
 Any failure raises and exits non-zero before the result lines.  The
 second-to-last line is a JSON record of each kernel; the last line is
@@ -38,7 +48,6 @@ second-to-last line is a JSON record of each kernel; the last line is
 """
 
 import json
-import statistics
 import os
 import subprocess
 import sys
@@ -56,12 +65,20 @@ SOURCES = {
     "madnz_threshold": "katsdpsigproc_tpu_torch/csrc/fused_flagger.cu",
     "percentile5": "katsdpsigproc_tpu_torch/csrc/percentile.cu",
     "transpose": "katsdpsigproc_tpu_torch/csrc/transpose.cu",
+    "stage_ablate": "katsdpsigproc_tpu_torch/csrc/flagger_probe.cu",
+    "rankpair": "katsdpsigproc_tpu_torch/csrc/flagger_probe.cu",
+    "rollchain": "katsdpsigproc_tpu_torch/csrc/flagger_probe.cu",
+    "deinterleave": "katsdpsigproc_tpu_torch/csrc/flagger_probe.cu",
 }
 REPLACES = {
     "flagger": "katsdpsigproc_tpu/models/rfi/pallas_flagger.py:643",
     "madnz_threshold": "katsdpsigproc_tpu/models/rfi/pallas_flagger.py:762",
     "percentile5": "katsdpsigproc_tpu/ops/percentile.py:157",
     "transpose": "katsdpsigproc_tpu/ops/transpose.py:42",
+    "stage_ablate": "scripts/stage_ablate.py:52",
+    "rankpair": "scripts/rankpair_ab.py:47",
+    "rollchain": "scripts/rollchain_ab.py:81",
+    "deinterleave": "scripts/deinterleave_probe.py:41",
 }
 
 
@@ -115,32 +132,6 @@ def test_dump(channels: int, rows: int, seed: int):
     return vis.astype(np.complex64), flags
 
 
-def meerkat_dump(channels: int, rows: int) -> np.ndarray:
-    """The benchmark's seed-1 dump (bench.py:361-366), (channels, rows) complex64."""
-    rs = np.random.RandomState(seed=1)
-    shape = (channels, rows)
-    vis_np = (rs.standard_normal(shape) + 1j * rs.standard_normal(shape)).astype(np.complex64)
-    spikes = rs.random_sample(shape) < 1.0 / 64.0
-    vis_np += spikes * (rs.random_sample(shape) * 20.0 + 50.0)
-    return vis_np
-
-
-def cuda_time_ms(fn, warmup: int = 2, iters: int = 10) -> float:
-    """Median over `iters` runs of `fn()`, each timed with CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
-
-
 def phase_device() -> str:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this check runs only on a GPU")
@@ -156,11 +147,11 @@ def phase_device() -> str:
     return card
 
 
-def phase_build(ff, pct, tr, kernels) -> None:
+def phase_build(ff, pct, tr, fp, kernels) -> None:
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         builds = [pool.submit(ff._library, 13), pool.submit(pct._library),
-                  pool.submit(tr._library)]
+                  pool.submit(tr._library), pool.submit(fp._library, 13)]
         for b in builds:
             b.result()
     print(f"build: kernels ready in {time.perf_counter() - t0:.1f} s")
@@ -223,6 +214,8 @@ def phase_oracle(ff, device, host, vis_np: np.ndarray, check: Check) -> None:
 
 
 def phase_main(ff, device, vis_np: np.ndarray, card: str, check: Check) -> dict:
+    from katsdpsigproc_tpu_torch.utils.profiling import time_fn
+
     rows = vis_np.shape[1]
     n_vis = vis_np.size
     print(f"main path: {vis_np.shape[0]} channels x {rows} rows")
@@ -276,13 +269,13 @@ def phase_main(ff, device, vis_np: np.ndarray, card: str, check: Check) -> dict:
 
     print(f"timings (CUDA events, 2 warm-ups, median of 10) on {card}:")
     times = {
-        "K1 flag_dump, corner turn excluded": cuda_time_ms(lambda: ff.flag_dump(vis_t)),
-        "K1 flag_dump, corner turn included": cuda_time_ms(
+        "K1 flag_dump, corner turn excluded": time_fn(lambda: ff.flag_dump(vis_t)),
+        "K1 flag_dump, corner turn included": time_fn(
             lambda: ff.flag_dump(vis.transpose(0, 1).contiguous())),
-        "K1 plain (flag_transposed_plain)": cuda_time_ms(plain_k1),
-        "hybrid engine (plain background + K2)": cuda_time_ms(lambda: hybrid_fn(vis)),
-        "K2 madnz_threshold": cuda_time_ms(lambda: ff.madnz_threshold(dev_t)),
-        "K2 plain (madnz_threshold_plain)": cuda_time_ms(plain_k2),
+        "K1 plain (flag_transposed_plain)": time_fn(plain_k1),
+        "hybrid engine (plain background + K2)": time_fn(lambda: hybrid_fn(vis)),
+        "K2 madnz_threshold": time_fn(lambda: ff.madnz_threshold(dev_t)),
+        "K2 plain (madnz_threshold_plain)": time_fn(plain_k2),
     }
     for name, ms in times.items():
         print(f"  {name}: {ms:.3f} ms, {n_vis / ms / 1e6:.3f} Gvis/s [{card}]")
@@ -308,6 +301,7 @@ def phase_ops(pct, tr, vis_np: np.ndarray, card: str, check: Check) -> dict:
     from katsdpsigproc_tpu_torch.models.rfi import device
     from katsdpsigproc_tpu_torch.ops import fill, maskedsum, reduce as hreduce, wgreduce
     from katsdpsigproc_tpu_torch.utils import backend, tune
+    from katsdpsigproc_tpu_torch.utils.profiling import time_fn
 
     ctx = backend.create_some_context()
     if ctx.device.type != "cuda":
@@ -469,16 +463,16 @@ def phase_ops(pct, tr, vis_np: np.ndarray, card: str, check: Check) -> dict:
 
     print(f"timings (CUDA events, 2 warm-ups, median of 10) on {card}:")
     times = {
-        "K4 percentile5 4000x5000": cuda_time_ms(lambda: pct.percentile5_cuda(big)),
-        "K4 plain 4000x5000": cuda_time_ms(lambda: pct.percentile5_plain(big)),
-        "K4 percentile5 64x4096": cuda_time_ms(lambda: pct.percentile5_cuda(cfg2)),
-        "K4 plain 64x4096": cuda_time_ms(lambda: pct.percentile5_plain(cfg2)),
-        "K5 transpose 32768x8064x2": cuda_time_ms(lambda: tr.transpose_cuda(corner)),
-        "K5 plain 32768x8064x2": cuda_time_ms(lambda: tr.transpose_plain(corner)),
-        "K5 transpose c64 8192x2016": cuda_time_ms(lambda: tr.transpose_cuda(cfg3)),
-        "K5 plain c64 8192x2016": cuda_time_ms(lambda: tr.transpose_plain(cfg3)),
-        "rank engine 4000x5000": cuda_time_ms(lambda: pct.percentile5(big, "rank")),
-        "sort engine 4000x5000": cuda_time_ms(lambda: pct.percentile5(big, "sort")),
+        "K4 percentile5 4000x5000": time_fn(lambda: pct.percentile5_cuda(big)),
+        "K4 plain 4000x5000": time_fn(lambda: pct.percentile5_plain(big)),
+        "K4 percentile5 64x4096": time_fn(lambda: pct.percentile5_cuda(cfg2)),
+        "K4 plain 64x4096": time_fn(lambda: pct.percentile5_plain(cfg2)),
+        "K5 transpose 32768x8064x2": time_fn(lambda: tr.transpose_cuda(corner)),
+        "K5 plain 32768x8064x2": time_fn(lambda: tr.transpose_plain(corner)),
+        "K5 transpose c64 8192x2016": time_fn(lambda: tr.transpose_cuda(cfg3)),
+        "K5 plain c64 8192x2016": time_fn(lambda: tr.transpose_plain(cfg3)),
+        "rank engine 4000x5000": time_fn(lambda: pct.percentile5(big, "rank")),
+        "sort engine 4000x5000": time_fn(lambda: pct.percentile5(big, "sort")),
     }
     for name, ms in times.items():
         print(f"  {name}: {ms:.3f} ms [{card}]")
@@ -496,6 +490,7 @@ def phase_ops(pct, tr, vis_np: np.ndarray, card: str, check: Check) -> dict:
 def phase_flagger_device(ff, vis_np: np.ndarray, card: str, check: Check) -> None:
     from katsdpsigproc_tpu_torch.models.rfi import device
     from katsdpsigproc_tpu_torch.utils import backend
+    from katsdpsigproc_tpu_torch.utils.profiling import time_fn
 
     ctx = backend.create_some_context()
     channels, rows = vis_np.shape
@@ -515,9 +510,119 @@ def phase_flagger_device(ff, vis_np: np.ndarray, card: str, check: Check) -> Non
     vis_t = torch.view_as_real(vis).transpose(0, 1).contiguous()  # (rows, C, 2)
     k1 = ff.flag_transposed(vis_t, width=13, n_sigma=11.0)
     check.flags("flagger", "FlaggerDevice vs K1 on the same rows", flags.T.contiguous(), k1)
-    ms = cuda_time_ms(lambda: flagger(vis=vis))
+    ms = time_fn(lambda: flagger(vis=vis))
     print(f"  FlaggerDevice (plain stages, two corner turns): {ms:.3f} ms, "
           f"{vis.numel() / ms / 1e6:.3f} Gvis/s [{card}]")
+
+
+def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) -> dict:
+    from katsdpsigproc_tpu_torch.scripts import (deinterleave_probe, rankpair_ab, rollchain_ab,
+                                                 stage_ablate)
+    from katsdpsigproc_tpu_torch.utils.profiling import time_fn
+
+    probe_of = {v: name for name, variants in fp.PROBES.items() for v in variants}
+    channels, rows = vis_np.shape
+    print("K1's stage probes (csrc/flagger_probe.cu):")
+
+    # Every variant launches as K1 does, as both libraries report it: 1024
+    # threads, K1's dynamic shared memory, one CTA per SM.
+    k1_cfg = ff.launch_config(channels)
+    for v, cfg in [("K1", k1_cfg)] + [(v, fp.launch_config(v, channels))
+                                      for v in fp.VARIANTS + ("amp_pairs",)]:
+        print(f"  launch {v} at {channels} channels: {cfg['threads']} threads, "
+              f"{cfg['smem_bytes']} B dynamic shared memory, {cfg['ctas_per_sm']} CTA per SM")
+        if cfg != k1_cfg:
+            raise AssertionError(f"{v} does not launch as K1 does ({k1_cfg}): {cfg}")
+    if k1_cfg["threads"] != 1024 or k1_cfg["ctas_per_sm"] != 1:
+        raise AssertionError(f"K1 no longer launches 1024 threads, one CTA per SM: {k1_cfg}")
+
+    # Every variant against its plain version, exact.
+    cases = []
+    for i, (c, r) in enumerate([(128, 16), (257, 8), (99, 8), (32768, 64)]):
+        vis, _ = test_dump(c, r, seed=300 + i)
+        cases.append((f"C={c} rows={r}", device.to_planar(vis.T)))
+    cases.append(("seed-1 dump, 512 rows", device.to_planar(vis_np[:, :512].T)))
+    for label, planar in cases:
+        vis_t = torch.from_numpy(planar.copy()).cuda()  # (rows, C, 2)
+        for v in fp.VARIANTS:
+            check.flags(probe_of[v], f"{v} vs plain, {label}", fp.probe(vis_t, v),
+                        fp.probe_plain(vis_t, v))
+        vis_c = vis_t.transpose(0, 1).contiguous()
+        check.exact("deinterleave", f"amp_pairs baseline-major vs plain, {label}",
+                    fp.amp_pairs(vis_t), fp.amp_pairs_plain(vis_t))
+        check.exact("deinterleave", f"amp_pairs channel-major vs plain, {label}",
+                    fp.amp_pairs(vis_c, channel_major=True),
+                    fp.amp_pairs_plain(vis_c, channel_major=True))
+
+    # The whole dump: the bit-exact variants against K1, every stage_ablate
+    # variant against its plain version, K12 against the plain amplitude.
+    vis = torch.from_numpy(device.to_planar(vis_np)).cuda()  # (C, rows, 2), channel-major
+    vis_t = vis.transpose(0, 1).contiguous()
+
+    def slabs(fn):
+        """`fn` over the whole dump in slabs of rows, to bound the plain versions' memory."""
+        def run():
+            out = torch.empty((rows, channels), dtype=torch.uint8, device=vis.device)
+            for s in range(0, rows, 2016):
+                out[s:s + 2016] = fn(vis_t[s:s + 2016])
+            return out
+        return run
+
+    plain_fns = {v: slabs(lambda x, v=v: fp.probe_plain(x, v)) for v in fp.STAGE_ABLATE}
+    k1 = ff.flag_dump(vis_t)
+    for v in fp.EXACT:
+        check.flags(probe_of[v], f"full dump: {v} vs K1", fp.probe(vis_t, v), k1)
+    del k1
+    for v in fp.STAGE_ABLATE:
+        check.flags(probe_of[v], f"full dump: {v} vs plain", fp.probe(vis_t, v), plain_fns[v]())
+    amp = fp.amp_pairs_plain(vis_t)
+    check.exact("deinterleave", "full dump: amp_pairs baseline-major vs plain",
+                fp.amp_pairs(vis_t), amp)
+    check.exact("deinterleave", "full dump: amp_pairs channel-major vs plain",
+                fp.amp_pairs(vis, channel_major=True), amp)
+    del amp
+
+    # The profiling path: the four probe tools on the whole dump, with the
+    # launch counts set to 0 just before and read just after.
+    print(f"the probe tools on the whole dump, interleaved, 5 rounds of 3 calls, on {card}:")
+    for name in fp.launches:
+        fp.launches[name] = 0
+    stage_ms, stages = stage_ablate.run(vis_t, iters=3, reps=5, card=card)
+    rank_ms = rankpair_ab.run(vis_t, iters=3, reps=5, card=card)
+    roll_ms = rollchain_ab.run(vis_t, iters=3, reps=5, card=card)
+    dein_ms = deinterleave_probe.run(vis, iters=3, reps=5, card=card)
+    torch.cuda.synchronize()
+    counts = {name: sum(fp.launches[v] for v in variants) for name, variants in fp.PROBES.items()}
+    print(f"  launches during the profiling path: {dict(fp.launches)}")
+    for v, count in fp.launches.items():
+        if count < 1:
+            raise AssertionError(f"probe kernel {v} was not launched on the profiling path")
+
+    # The plain versions on the whole dump.
+    plain = {v: time_fn(fn, warmup=1, iters=3) for v, fn in plain_fns.items()}
+    plain["amp_pairs"] = time_fn(lambda: fp.amp_pairs_plain(vis_t), warmup=1, iters=3)
+    plain["amp_pairs channel-major"] = time_fn(
+        lambda: fp.amp_pairs_plain(vis, channel_major=True), warmup=1, iters=3)
+    kernel = {**stage_ms, "rank_pair": rank_ms["rank_pair"], "zeros_fold": rank_ms["zeros_fold"],
+              "shfl_median": roll_ms["shfl"], "amp_pairs": dein_ms["baseline-major"],
+              "amp_pairs channel-major": dein_ms["channel-major"]}
+    print(f"kernel vs plain on the whole dump (plain: 1 warm-up, median of 3) on {card}:")
+    for v, ms in kernel.items():
+        p = plain.get(v, plain["full"])  # the bit-exact variants' plain version is K1's
+        print(f"  {v}: {ms:.3f} ms vs plain {p:.3f} ms [{card}]")
+    print(f"  stage costs (full less the stand-in): "
+          + ", ".join(f"{k} {ms:.3f} ms" for k, ms in stages.items())
+          + f"; skeleton {stage_ms['skeleton']:.3f} ms against the 0.71 ms traffic floor [{card}]")
+    for v, name in (("rank_pair", "binary"), ("zeros_fold", "binary")):
+        print(f"  {v} - full: {rank_ms[v] - rank_ms[name]:+.3f} ms [{card}]")
+    print(f"  shfl_median - full: {roll_ms['shfl'] - roll_ms['direct']:+.3f} ms [{card}]")
+    return {
+        "stage_ablate": (counts["stage_ablate"], stage_ms["full"], plain["full"]),
+        "rankpair": (counts["rankpair"], rank_ms["rank_pair"], plain["full"]),
+        "rollchain": (counts["rollchain"], roll_ms["shfl"], plain["full"]),
+        "deinterleave": (counts["deinterleave"], dein_ms["channel-major"],
+                         plain["amp_pairs channel-major"]),
+    }
 
 
 def main() -> None:
@@ -526,12 +631,14 @@ def main() -> None:
     # Tuning results stay inside the checkout.
     os.environ["KATSDPSIGPROC_TPU_TORCH_TUNE_DB"] = str(
         ROOT / "build" / "katsdpsigproc_tpu_torch" / "tuning.json")
-    from katsdpsigproc_tpu_torch.models.rfi import device, fused_flagger as ff, host
+    from katsdpsigproc_tpu_torch.models.rfi import device, flagger_probe as fp
+    from katsdpsigproc_tpu_torch.models.rfi import fused_flagger as ff, host
     from katsdpsigproc_tpu_torch.ops import percentile as pct, transpose as tr
+    from katsdpsigproc_tpu_torch.scripts.common import meerkat_dump
     from katsdpsigproc_tpu_torch.utils import kernels
 
     check = Check()
-    phase_build(ff, pct, tr, kernels)
+    phase_build(ff, pct, tr, fp, kernels)
     phase_kernels(ff, device, check)
     t0 = time.perf_counter()
     vis_np = meerkat_dump(CHANNELS, BASELINES * POLS)
@@ -540,6 +647,7 @@ def main() -> None:
     results = phase_main(ff, device, vis_np, card, check)
     results.update(phase_ops(pct, tr, vis_np, card, check))
     phase_flagger_device(ff, vis_np, card, check)
+    results.update(phase_probes(fp, ff, device, vis_np, card, check))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches, "max_abs_err": check.max_abs_err[name], "ms": ms,

@@ -63,6 +63,12 @@ def _network_header(width: int) -> str:
     )
 
 
+# The out-parameters of a library's launch-configuration query: threads
+# per CTA, dynamic shared memory in bytes, CTAs per SM.
+_LAUNCH_CONFIG_OUT = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong),
+                      ctypes.POINTER(ctypes.c_int)]
+
+
 @functools.lru_cache(maxsize=None)
 def _library(width: int) -> ctypes.CDLL:
     from ...utils import kernels
@@ -73,6 +79,8 @@ def _library(width: int) -> ctypes.CDLL:
     lib.ff_max_channels.restype = ctypes.c_int
     lib.ff_error_string.argtypes = [ctypes.c_int]
     lib.ff_error_string.restype = ctypes.c_char_p
+    lib.ff_launch_config.argtypes = [ctypes.c_int] + _LAUNCH_CONFIG_OUT
+    lib.ff_launch_config.restype = ctypes.c_int
     lib.ff_flagger.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -126,6 +134,27 @@ def _raise_on(lib, err: int, kernel: str) -> None:
     if err != 0:
         raise RuntimeError(
             f"{kernel} launch failed: cudaError {err} ({lib.ff_error_string(err).decode()})")
+
+
+def _query_launch_config(lib, query, *args) -> dict:
+    """Call a library's launch-configuration `query` with `args` and its out-parameters."""
+    threads, smem, ctas = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_int()
+    err = query(*args, ctypes.byref(threads), ctypes.byref(smem), ctypes.byref(ctas))
+    if err != 0:
+        raise RuntimeError(f"no launch configuration for {args}: cudaError {err} "
+                           f"({lib.ff_error_string(err).decode()})")
+    return {"threads": threads.value, "smem_bytes": smem.value, "ctas_per_sm": ctas.value}
+
+
+def launch_config(channels: int) -> dict:
+    """How K1 launches at `channels`, from the library itself.
+
+    ``threads`` per CTA, ``smem_bytes`` of dynamic shared memory and
+    ``ctas_per_sm``, the CTAs the occupancy calculator fits on one SM.
+    Needs a CUDA device.
+    """
+    lib = _library(13)  # the network header's width does not change the launch
+    return _query_launch_config(lib, lib.ff_launch_config, channels)
 
 
 def flag_transposed_plain(vis_t, input_flags=None, *, width: int = 13, n_sigma: float = 11.0,

@@ -4,8 +4,9 @@ Each kernel library is compiled by ``nvcc`` on first use into a shared
 library with a plain C interface, then loaded with :mod:`ctypes` (no
 PyTorch headers are compiled, so a build takes seconds).  The build goes
 to ``build/katsdpsigproc_tpu_torch/<name>-<hash>/`` beside the package,
-keyed by a hash of the sources, the generated headers and the flags, so
-a changed source or header is rebuilt and an unchanged one is reused.
+keyed by a hash of the sources, the shared headers under ``csrc/``, the
+generated headers and the flags (:func:`build_key`), so a changed source
+or header is rebuilt and an unchanged one is reused.
 The library is written under a temporary name and renamed into place,
 so processes that build the same key at once cannot see a partial file.
 Builds of different libraries may run at once from several threads (each
@@ -59,6 +60,25 @@ def _write_atomic(path: Path, data: bytes) -> None:
     os.replace(tmp, path)
 
 
+def build_key(name: str, sources: Sequence[str], headers: Dict[str, str]) -> str:
+    """The build directory's name: `name` and a hash of all the build reads.
+
+    The hash covers the flags, the listed sources, every ``*.cuh`` and
+    ``*.h`` under ``csrc/`` (any source may include any of them) and the
+    generated headers.
+    """
+    shared = sorted(p.relative_to(CSRC_DIR).as_posix() for p in CSRC_DIR.rglob("*")
+                    if p.suffix in (".cuh", ".h") and p.is_file())
+    digest = hashlib.sha256()
+    for part in (name, *NVCC_FLAGS):
+        digest.update(part.encode() + b"\0")
+    for src in (*sources, *shared):
+        digest.update(src.encode() + b"\0" + (CSRC_DIR / src).read_bytes() + b"\0")
+    for hname in sorted(headers):
+        digest.update(hname.encode() + b"\0" + headers[hname].encode() + b"\0")
+    return f"{name}-{digest.hexdigest()[:16]}"
+
+
 def load(name: str, sources: Sequence[str], headers: Dict[str, str]) -> ctypes.CDLL:
     """Build (if needed) and load ``lib<name>.so`` from ``csrc/`` sources.
 
@@ -67,14 +87,7 @@ def load(name: str, sources: Sequence[str], headers: Dict[str, str]) -> ctypes.C
     first on the include path.  Raises ``RuntimeError`` with nvcc's
     output if the build fails.
     """
-    digest = hashlib.sha256()
-    for part in (name, *NVCC_FLAGS):
-        digest.update(part.encode() + b"\0")
-    for src in sources:
-        digest.update(src.encode() + b"\0" + (CSRC_DIR / src).read_bytes() + b"\0")
-    for hname in sorted(headers):
-        digest.update(hname.encode() + b"\0" + headers[hname].encode() + b"\0")
-    key = f"{name}-{digest.hexdigest()[:16]}"
+    key = build_key(name, sources, headers)
     with _lock:
         key_lock = _key_locks.setdefault(key, threading.Lock())
     with key_lock:

@@ -184,3 +184,103 @@ def test_transpose_row_stride_and_errors(cuda):
         tr.transpose_cuda(x.T)
     with pytest.raises(TypeError, match="byte"):
         tr.transpose_cuda(x.half())
+
+
+# K1's stage probes (K9, K11, K12, K13): exact against their plain versions
+# and, for the bit-exact variants, against K1.
+
+
+def _probe():
+    from katsdpsigproc_tpu_torch.models.rfi import flagger_probe
+
+    return flagger_probe
+
+
+@pytest.mark.parametrize("channels,rows", [(99, 8), (300, 8), (2048, 6), (32768, 2)])
+@pytest.mark.parametrize("variant", ["full", "no_median", "no_rank", "no_thresh", "skeleton",
+                                     "rank_pair", "zeros_fold", "shfl_median"])
+def test_probe_matches_plain(cuda, variant, channels, rows):
+    fp = _probe()
+    vis_t, _ = _dump(channels, rows, seed=channels + rows)
+    vis_t = vis_t.to(cuda)
+    got = fp.probe(vis_t, variant)
+    assert got.device == vis_t.device
+    assert torch.equal(got, fp.probe_plain(vis_t, variant))
+    if variant in fp.EXACT:
+        assert torch.equal(got, ff.flag_transposed(vis_t))
+
+
+@pytest.mark.parametrize("channels", [13, 1023, 1025, 2080])
+def test_exact_probes_match_k1_at_tile_edges(cuda, channels):
+    """1023/1025/2080 channels put warp and tile edges inside and beside
+    the median's halo, where shfl_median switches between shuffles and
+    shared-memory loads."""
+    fp = _probe()
+    vis_t, _ = _dump(channels, 5, seed=channels)
+    vis_t = vis_t.to(cuda)
+    for width in (w for w in (5, 13, 31) if w <= channels):  # the probes take C >= width
+        k1 = ff.flag_transposed(vis_t, width=width)
+        for variant in fp.EXACT:
+            assert torch.equal(fp.probe(vis_t, variant, width=width), k1), (variant, width)
+
+
+@pytest.mark.parametrize("channels,rows", [(99, 8), (2048, 6), (32768, 3)])
+def test_amp_pairs_matches_plain(cuda, channels, rows):
+    fp = _probe()
+    vis_t, _ = _dump(channels, rows, seed=rows)
+    vis_t = vis_t.to(cuda)
+    vis_c = vis_t.transpose(0, 1).contiguous()
+    want = fp.amp_pairs_plain(vis_t)
+    assert torch.equal(fp.amp_pairs(vis_t).view(torch.int32), want.view(torch.int32))
+    assert torch.equal(fp.amp_pairs(vis_c, channel_major=True).view(torch.int32),
+                       want.view(torch.int32))
+
+
+def test_probes_launch_as_k1_does(cuda):
+    """K1's block and shared memory at every size; at 32768 channels the
+    shared memory also pins K1 and every probe to one CTA per SM (at 128
+    channels the registers set the occupancy, and they differ by variant)."""
+    fp = _probe()
+    for channels in (128, 32768):
+        k1 = ff.launch_config(channels)
+        assert k1["threads"] == 1024, k1
+        if channels == 32768:
+            assert k1["ctas_per_sm"] == 1, k1
+        for variant in fp.VARIANTS + ("amp_pairs",):
+            cfg = fp.launch_config(variant, channels)
+            if channels == 32768:
+                assert cfg == k1, (variant, cfg, k1)
+            else:
+                assert cfg["threads"] == k1["threads"], (variant, cfg, k1)
+                assert cfg["smem_bytes"] == k1["smem_bytes"], (variant, cfg, k1)
+
+
+def test_probe_launch_counts_and_errors(cuda):
+    fp = _probe()
+    vis_t, _ = _dump(256, 4, seed=3)
+    vis_t = vis_t.to(cuda)
+    before = dict(fp.launches)
+    fp.probe(vis_t, "rank_pair")
+    fp.amp_pairs(vis_t)
+    torch.cuda.synchronize()
+    assert fp.launches["rank_pair"] == before["rank_pair"] + 1
+    assert fp.launches["amp_pairs"] == before["amp_pairs"] + 1
+    with pytest.raises(ValueError, match="width"):
+        fp.probe(vis_t[:, :12].contiguous(), "full")
+    with pytest.raises(ValueError, match="contiguous"):
+        fp.probe(torch.zeros((64, 4, 2), device=cuda).transpose(0, 1), "full")
+    with pytest.raises(ValueError, match="contiguous"):
+        fp.amp_pairs(torch.zeros((64, 4, 2), device=cuda).transpose(0, 1))
+    with pytest.raises(ValueError, match="limit"):
+        fp.probe(torch.zeros((1, 50000, 2), device=cuda), "skeleton")
+
+
+def test_time_fn_times_the_card(cuda):
+    from katsdpsigproc_tpu_torch.utils import profiling
+
+    x = torch.ones((4096, 4096), device=cuda)
+    ms = profiling.time_fn(lambda: x @ x, iters=3)
+    medians, samples = profiling.time_interleaved({"mm": lambda: x @ x, "add": lambda: x + x},
+                                                  reps=3, iters=2)
+    assert 0 < medians["add"] < medians["mm"] and 0 < ms
+    assert len(samples["mm"]) == 3

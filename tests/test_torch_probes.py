@@ -1,0 +1,268 @@
+"""K1's stage probes (katsdpsigproc_tpu_torch.models.rfi.flagger_probe) on
+the CPU, where each wrapper takes its plain PyTorch version, against the
+TPU probes of ``scripts/`` run in interpret mode.
+
+The JAX scripts are loaded by path, unedited.  K11 (``stage_ablate``), K13
+(``rankpair_ab``) and K9 (``rollchain_ab``) run their Pallas kernels with
+``interpret=True`` at 8 rows of 256 and 257 channels (257 flips the right
+edge's fill parity); K12 (``deinterleave_probe``) hard-codes the TPU's
+compiler parameters and has no interpret path, so the port is held to
+the script's own numpy expectation (``deinterleave_probe.py:88-92``).
+
+Tolerance: exact throughout, on every uint8 mask and every float32
+amplitude.  The JAX kernels run under jit, where XLA on the CPU may
+contract re*re + im*im into an FMA (see tests/test_torch_device.py); at
+these sizes no amplitude sits close enough to a threshold, a median tie
+or the skeleton's 1.0 for that ulp to flip a flag.
+"""
+
+import contextlib
+import importlib.util
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from katsdpsigproc_tpu.models.rfi import device as jdev, pallas_flagger as jpf
+from katsdpsigproc_tpu_torch.models.rfi import flagger_probe as fp, fused_flagger as ff
+from katsdpsigproc_tpu_torch.scripts import (common, deinterleave_probe, rankpair_ab,
+                                             rollchain_ab, stage_ablate)
+from katsdpsigproc_tpu_torch.utils import kernels
+
+from .helpers import rfi_test_data
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+@contextlib.contextmanager
+def _environment_kept():
+    """Undo what a script does to the process when it is imported."""
+    env, path = dict(os.environ), list(sys.path)
+    try:
+        yield
+    finally:
+        for key in set(os.environ) - set(env):
+            del os.environ[key]
+        os.environ.update(env)
+        sys.path[:] = path
+
+
+def _script(name: str):
+    spec = importlib.util.spec_from_file_location(f"_jax_probe_{name}",
+                                                  ROOT / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    with _environment_kept():
+        spec.loader.exec_module(module)
+    return module
+
+
+@pytest.fixture(scope="module")
+def scripts():
+    return {name: _script(name) for name in ("stage_ablate", "rankpair_ab", "rollchain_ab")}
+
+
+def _vis_t(channels: int, seed: int = 5) -> np.ndarray:
+    vis, _, _ = rfi_test_data(shape=(channels, 8), seed=seed)
+    return np.moveaxis(jdev.to_planar(vis), 0, 1).copy()  # (8, channels, 2)
+
+
+def _port(vt: np.ndarray, variant: str) -> np.ndarray:
+    got = fp.probe(torch.from_numpy(vt), variant)
+    assert got.dtype == torch.uint8 and got.shape == vt.shape[:2]
+    return got.numpy()
+
+
+@pytest.mark.parametrize("channels", [256, 257])
+@pytest.mark.parametrize("variant", fp.STAGE_ABLATE)
+def test_stage_ablate_matches_the_tpu_probe(scripts, variant, channels):
+    vt = _vis_t(channels)
+    run = scripts["stage_ablate"].make_fn(variant, bb=8, fold=channels, channels=channels,
+                                          width=13, interpret=True)
+    want = np.asarray(run(jnp.asarray(vt)))
+    np.testing.assert_array_equal(_port(vt, variant), want)
+    assert want.any()
+
+
+@pytest.mark.parametrize("channels", [256, 257])
+@pytest.mark.parametrize("variant,kw", [
+    ("full", {}),  # the script's "binary"
+    ("rank_pair", {"rank_pair": True}),  # "pair_i32"
+    ("rank_pair", {"rank_pair": "f32"}),  # "pair_f32": one variant on the card
+    ("zeros_fold", {"zeros_fold": True}),
+])
+def test_rankpair_matches_the_tpu_probe(scripts, variant, kw, channels):
+    vt = _vis_t(channels, seed=6)
+    run = scripts["rankpair_ab"].make(kw, B=8, C=channels, fold=channels, bb=8, interpret=True)
+    want = np.asarray(run(jnp.asarray(vt)))
+    np.testing.assert_array_equal(_port(vt, variant), want)
+    assert want.any()
+
+
+@pytest.mark.parametrize("channels", [256, 257])
+@pytest.mark.parametrize("variant,median", [("full", "direct"), ("shfl_median", "chained")])
+def test_rollchain_matches_the_tpu_probe(scripts, variant, median, channels):
+    module = scripts["rollchain_ab"]
+    fn = jpf._median_parity_fill if median == "direct" else module._median_incremental
+    vt = _vis_t(channels, seed=7)
+    want = np.asarray(module.make(fn, B=8, C=channels, fold=channels, bb=8,
+                                  interpret=True)(jnp.asarray(vt)))
+    np.testing.assert_array_equal(_port(vt, variant), want)
+    assert want.any()
+
+
+@pytest.mark.parametrize("channel_major", [False, True])
+def test_amp_pairs_matches_the_scripts_expectation(channel_major):
+    # deinterleave_probe.py:88-92 at a small grid: (grid * rows, 2 * width)
+    # interleaved pairs and their amplitudes in float32 numpy.
+    grid, rows, width = 3, 8, 256
+    rs = np.random.RandomState(1)
+    host = rs.standard_normal((grid * rows, 2 * width)).astype(np.float32)
+    pairs = host.reshape(grid * rows, width, 2)
+    expected = np.sqrt(pairs[..., 0] ** 2 + pairs[..., 1] ** 2)
+    vis = torch.from_numpy(pairs)
+    if channel_major:
+        vis = vis.transpose(0, 1).contiguous()
+    got = fp.amp_pairs(vis, channel_major=channel_major)
+    assert got.dtype == torch.float32 and got.shape == expected.shape
+    np.testing.assert_array_equal(got.numpy().view(np.int32), expected.view(np.int32))
+
+
+@pytest.mark.parametrize("width", [7, 13])
+def test_exact_variants_equal_k1_and_cpu_takes_the_plain_versions(width):
+    vt = torch.from_numpy(_vis_t(300, seed=8))
+    before = dict(fp.launches)
+    k1 = ff.flag_transposed(vt, width=width, **fp.PARAMS)
+    for variant in fp.VARIANTS:
+        got = fp.probe(vt, variant, width=width)
+        assert torch.equal(got, fp.probe_plain(vt, variant, width=width))
+        if variant in fp.EXACT:
+            assert torch.equal(got, k1)
+        assert set(got.unique().tolist()) <= {0, 1}
+    assert fp.launches == before  # no kernel on the CPU
+
+
+def test_variants_and_probes_cover_each_other():
+    named = [v for variants in fp.PROBES.values() for v in variants]
+    assert sorted(named) == sorted(fp.VARIANTS + ("amp_pairs",))
+    assert set(fp.launches) == set(named)
+    assert set(fp.EXACT) <= set(fp.VARIANTS)
+
+
+def test_probe_validation():
+    vt = torch.zeros((2, 64, 2))
+    with pytest.raises(ValueError, match="unknown variant"):
+        fp.probe(vt, "pair_f32")
+    with pytest.raises(ValueError, match="unknown variant"):
+        fp.probe_plain(vt, "pair_f32")
+    with pytest.raises(ValueError, match="odd"):
+        fp.probe(vt, "full", width=12)
+    with pytest.raises(ValueError, match="at least width"):
+        fp.probe(torch.zeros((2, 12, 2)), "full")
+    with pytest.raises(TypeError, match="float32"):
+        fp.probe(vt.double(), "full")
+    with pytest.raises(ValueError, match="pairs"):
+        fp.probe(torch.zeros((2, 64)), "full")
+    with pytest.raises(ValueError, match="pairs"):
+        fp.amp_pairs(torch.zeros((2, 64, 3)))
+    with pytest.raises(ValueError, match="unknown variant"):
+        fp.launch_config("binary", 1024)
+
+
+def test_build_key_hashes_every_shared_header(tmp_path, monkeypatch):
+    """An edit to a header that a source includes gives a new build."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for path in kernels.CSRC_DIR.iterdir():
+        (csrc / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(kernels, "CSRC_DIR", csrc)
+    args = ("flagger_probe", ["flagger_probe.cu"], {"ff_network.h": ff._network_header(13)})
+    key = kernels.build_key(*args)
+    assert key.startswith("flagger_probe-") and kernels.build_key(*args) == key
+    (csrc / "fused_flagger.cu").write_text("// not a source of this library\n")
+    assert kernels.build_key(*args) == key
+    header = csrc / "ff_device.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = kernels.build_key(*args)
+    assert edited != key
+    (csrc / "sub").mkdir()
+    (csrc / "sub" / "extra.h").write_text("#define X 1\n")
+    assert kernels.build_key(*args) not in (key, edited)
+    assert kernels.build_key("flagger_probe", ["flagger_probe.cu"],
+                             {"ff_network.h": ff._network_header(15)}) != kernels.build_key(*args)
+
+
+def _small_dump(channels=64, rows=6):
+    return torch.from_numpy(jdev.to_planar(common.meerkat_dump(channels, rows)))  # (C, rows, 2)
+
+
+def test_probe_tools_run_on_cpu_tensors(capsys):
+    vis = _small_dump()
+    vis_t = vis.transpose(0, 1).contiguous()
+    med, stages = stage_ablate.run(vis_t, iters=1, reps=2, card="cpu")
+    assert set(med) == set(fp.STAGE_ABLATE) and set(stages) == {"median", "rank", "threshold"}
+    assert stages["rank"] == med["full"] - med["no_rank"]
+    assert set(rankpair_ab.run(vis_t, iters=1, reps=1, card="cpu")) == set(rankpair_ab.RUNS)
+    assert set(rollchain_ab.run(vis_t, iters=1, reps=1, card="cpu")) == {"direct", "shfl"}
+    dein = deinterleave_probe.run(vis, iters=1, reps=1, card="cpu")
+    assert set(dein) == {"baseline-major", "channel-major", "K5 + baseline", "K5 alone"}
+    out = capsys.readouterr().out
+    assert "parity: all variants == binary (bit-exact)" in out
+    assert "stage rank" in out and "[cpu]" in out
+
+
+def test_parity_mismatch_raises(monkeypatch):
+    vis_t = _small_dump().transpose(0, 1).contiguous()
+    real = fp.probe
+
+    def wrong(x, variant, **kw):
+        out = real(x, variant, **kw)
+        return 1 - out if variant == "zeros_fold" else out
+
+    monkeypatch.setattr(fp, "probe", wrong)
+    with pytest.raises(RuntimeError, match="PARITY MISMATCH: zeros_fold"):
+        rankpair_ab.run(vis_t, iters=1, reps=1)
+
+
+@pytest.mark.parametrize("tool", [stage_ablate, rankpair_ab, rollchain_ab, deinterleave_probe])
+def test_probe_tools_refuse_to_run_without_a_card(tool, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        tool.main(["--channels", "64", "--baselines", "4"])
+
+
+def test_meerkat_dump_is_the_benchmarks_seed_1_dump():
+    rs = np.random.RandomState(seed=1)
+    shape = (40, 6)
+    want = (rs.standard_normal(shape) + 1j * rs.standard_normal(shape)).astype(np.complex64)
+    spikes = rs.random_sample(shape) < 1.0 / 64.0
+    want += spikes * (rs.random_sample(shape) * 20.0 + 50.0)
+    np.testing.assert_array_equal(common.meerkat_dump(*shape), want)
+
+
+def test_probes_import_and_run_without_jax():
+    """A subprocess where `import jax` fails imports the probe path and runs it."""
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "import numpy as np, torch\n"
+        "from katsdpsigproc_tpu_torch.models.rfi import flagger_probe as fp\n"
+        "from katsdpsigproc_tpu_torch.utils import profiling\n"
+        "from katsdpsigproc_tpu_torch.scripts import (common, deinterleave_probe, rankpair_ab,\n"
+        "    rollchain_ab, stage_ablate)\n"
+        "rs = np.random.RandomState(0)\n"
+        "v = torch.from_numpy(rs.standard_normal((4, 96, 2)).astype(np.float32))\n"
+        "v[:, 40] *= 50\n"
+        "assert all(bool(fp.probe(v, n)[:, 40].all()) for n in fp.EXACT)\n"
+        "assert profiling.time_fn(lambda: fp.amp_pairs(v), iters=2) > 0\n"
+        "assert 'katsdpsigproc_tpu' not in sys.modules and 'triton' not in sys.modules\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
