@@ -40,10 +40,25 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
    plain version, and ``amp_pairs`` in both layouts against the plain
    amplitude; then the profiling path, the
    four probe tools' ``run`` on the whole dump with the launch counts
-   read, which prints the stage costs; and the plain versions' times.
+   read, which prints the stage costs; and the plain versions' times;
+9. the examples and the cost probes: the tutorial kernels K6 (Triton) and
+   K7 (``csrc/examples.cu``) against ``x * 3`` and ``data * scale``,
+   exact, at the examples' sizes and at 2**28 float32; the examples'
+   entry point (every example's ``main`` on the card) with the launch
+   counts read; K8 (``csrc/prim_cost.cu``) against its plain chains and
+   K10 (``csrc/roofline_skeleton.cu``) against its plain version on its
+   uint8 output and its rank carry, at several shapes and on 512 rows and
+   the whole of the dump; the cost-probe path (K8's per-op table, then
+   K10 on the whole dump priced by that table) with the launch counts
+   read; then the streaming ingest example at the full dump (5 dumps
+   through one device slot and K1), each dump's flags equal to
+   ``flag_dump``'s on the card, with the upload, flag and pipeline times.
 
 Any failure raises and exits non-zero before the result lines.  The
-second-to-last line is a JSON record of each kernel; the last line is
+second-to-last line is a JSON record of each kernel, with its bound: the
+larger of the bytes it must move (each input read once, each output
+written once) over the HBM rate and its operations over the float32 rate
+(:data:`HBM_BYTES_PER_S`, :data:`F32_OPS_PER_S`); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -69,7 +84,12 @@ SOURCES = {
     "rankpair": "katsdpsigproc_tpu_torch/csrc/flagger_probe.cu",
     "rollchain": "katsdpsigproc_tpu_torch/csrc/flagger_probe.cu",
     "deinterleave": "katsdpsigproc_tpu_torch/csrc/flagger_probe.cu",
+    "triple": "katsdpsigproc_tpu_torch/examples/triple_pallas.py",
+    "multiply": "katsdpsigproc_tpu_torch/csrc/examples.cu",
+    "prim_cost": "katsdpsigproc_tpu_torch/csrc/prim_cost.cu",
+    "roofline_skeleton": "katsdpsigproc_tpu_torch/csrc/roofline_skeleton.cu",
 }
+ROUTES = {"triple": "triton"}  # the others are CUDA C++
 REPLACES = {
     "flagger": "katsdpsigproc_tpu/models/rfi/pallas_flagger.py:643",
     "madnz_threshold": "katsdpsigproc_tpu/models/rfi/pallas_flagger.py:762",
@@ -79,7 +99,54 @@ REPLACES = {
     "rankpair": "scripts/rankpair_ab.py:47",
     "rollchain": "scripts/rollchain_ab.py:81",
     "deinterleave": "scripts/deinterleave_probe.py:41",
+    "triple": "doc/examples/triple_pallas.py:23",
+    "multiply": "doc/examples/triple.py:27",
+    "prim_cost": "scripts/prim_cost.py:90",
+    "roofline_skeleton": "scripts/roofline_skeleton.py:64",
 }
+# The H100 SXM's published peaks: HBM3 and
+# float32 outside the tensor cores.  A min, max, compare or add counts as
+# one float32 operation.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def record(launches: int, ms: float, plain_ms: float, nbytes: float, ops: float,
+           library_ms=None) -> dict:
+    """A kernel's numbers, with its bound from the bytes and operations of this run's inputs."""
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return {"launches": launches, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms}
+
+
+QUANTILES = torch.tensor([0.0, 0.25, 0.5, 0.75, 1.0])
+
+
+def inventory_ops(stages=None) -> int:
+    """The op inventory's operations per visibility (over `stages`, default all).
+
+    The inventory is the least vector work of the exact flagger
+    (``katsdpsigproc_tpu_torch/scripts/roofline_skeleton.py::op_inventory``),
+    the operation count of K1's bound.
+    """
+    from katsdpsigproc_tpu_torch.scripts.roofline_skeleton import op_inventory
+
+    return sum(count for stage, _, count in op_inventory() if stages is None or stage in stages)
+
+
+def library_time(label: str, fn):
+    """The time of one PyTorch call computing a kernel's function (None where torch refuses it)."""
+    from katsdpsigproc_tpu_torch.utils.profiling import time_fn
+
+    try:
+        ms = time_fn(fn)
+    except RuntimeError as e:
+        print(f"  library call {label}: refused at this size ({e})")
+        return None
+    print(f"  library call {label}: {ms:.3f} ms")
+    return ms
 
 
 class Check:
@@ -107,6 +174,19 @@ class Check:
         print(f"  {label}: {bad} mismatching elements of {got.numel()}")
         if bad:
             raise AssertionError(f"{label}: {bad} mismatching elements")
+
+    def close(self, kernel: str, label: str, got, want, rtol: float) -> None:
+        """Equality within `rtol` of float32 tensors (inf equal to inf of the same sign)."""
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{label}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
+        both = torch.isfinite(got) & torch.isfinite(want)
+        err = float((got - want).abs()[both].max()) if bool(both.any()) else 0.0
+        bad = int((~both & (got != want)).sum()
+                  + ((got - want).abs() > rtol * want.abs())[both].sum())
+        self.max_abs_err[kernel] = max(self.max_abs_err[kernel], err)
+        print(f"  {label}: {bad} elements of {got.numel()} beyond rtol {rtol} (max |err| {err:.3g})")
+        if bad:
+            raise AssertionError(f"{label}: {bad} elements beyond rtol {rtol}")
 
     def flags(self, kernel: str, label: str, got, want) -> None:
         if got.shape != want.shape or got.dtype != want.dtype:
@@ -147,13 +227,35 @@ def phase_device() -> str:
     return card
 
 
+def card_state(label: str) -> None:
+    """The card's SM clock, power draw and temperature now, as nvidia-smi reads them."""
+    state = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    print(f"  card state {label}: {state} (SM clock, max SM clock, power draw, temperature)")
+
+
 def phase_build(ff, pct, tr, fp, kernels) -> None:
+    from katsdpsigproc_tpu_torch.examples import triple, triple_pallas
+    from katsdpsigproc_tpu_torch.scripts import prim_cost, roofline_skeleton
+
+    def triton_kernel():
+        """Triton compiles K6 at its first launch (into build/, TRITON_CACHE_DIR)."""
+        t0 = time.perf_counter()
+        triple_pallas.triple(torch.ones(triple_pallas.BLOCK, device="cuda"))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(8) as pool:
         builds = [pool.submit(ff._library, 13), pool.submit(pct._library),
-                  pool.submit(tr._library), pool.submit(fp._library, 13)]
+                  pool.submit(tr._library), pool.submit(fp._library, 13),
+                  pool.submit(triple._library), pool.submit(prim_cost._library),
+                  pool.submit(roofline_skeleton._library, 13)]
+        triton_s = pool.submit(triton_kernel)
         for b in builds:
             b.result()
+        print(f"  triton: K6 compiled and launched in {triton_s.result():.1f} s")
     print(f"build: kernels ready in {time.perf_counter() - t0:.1f} s")
     for key, info in kernels.build_info.items():
         print(f"  {key}: nvcc {info['seconds']:.1f} s")
@@ -268,6 +370,7 @@ def phase_main(ff, device, vis_np: np.ndarray, card: str, check: Check) -> dict:
     del plain, hybrid, k1, k2
 
     print(f"timings (CUDA events, 2 warm-ups, median of 10) on {card}:")
+    card_state("before the main path's timings")
     times = {
         "K1 flag_dump, corner turn excluded": time_fn(lambda: ff.flag_dump(vis_t)),
         "K1 flag_dump, corner turn included": time_fn(
@@ -277,13 +380,18 @@ def phase_main(ff, device, vis_np: np.ndarray, card: str, check: Check) -> dict:
         "K2 madnz_threshold": time_fn(lambda: ff.madnz_threshold(dev_t)),
         "K2 plain (madnz_threshold_plain)": time_fn(plain_k2),
     }
+    card_state("after them")
     for name, ms in times.items():
         print(f"  {name}: {ms:.3f} ms, {n_vis / ms / 1e6:.3f} Gvis/s [{card}]")
+    # K1 reads 8 B and writes 1 B per visibility and does the op inventory's
+    # work; K2 reads 4 B of deviations, writes 1 B and does its back half.
     return {
-        "flagger": (launches["flagger"], times["K1 flag_dump, corner turn excluded"],
-                    times["K1 plain (flag_transposed_plain)"]),
-        "madnz_threshold": (launches["madnz_threshold"], times["K2 madnz_threshold"],
-                            times["K2 plain (madnz_threshold_plain)"]),
+        "flagger": record(launches["flagger"], times["K1 flag_dump, corner turn excluded"],
+                          times["K1 plain (flag_transposed_plain)"], 9 * n_vis,
+                          inventory_ops() * n_vis),
+        "madnz_threshold": record(launches["madnz_threshold"], times["K2 madnz_threshold"],
+                                  times["K2 plain (madnz_threshold_plain)"], 5 * n_vis,
+                                  inventory_ops(("rank", "threshold", "output")) * n_vis),
     }
 
 
@@ -474,16 +582,28 @@ def phase_ops(pct, tr, vis_np: np.ndarray, card: str, check: Check) -> dict:
         "rank engine 4000x5000": time_fn(lambda: pct.percentile5(big, "rank")),
         "sort engine 4000x5000": time_fn(lambda: pct.percentile5(big, "sort")),
     }
+    library = {
+        "percentile5": library_time(
+            "torch.quantile(x, [0, .25, .5, .75, 1], dim=1, interpolation='lower') 4000x5000",
+            lambda: torch.quantile(big, QUANTILES.to(dev), dim=1, interpolation="lower")),
+        "transpose": library_time("corner.transpose(0, 1).contiguous() 32768x8064x2",
+                                  lambda: corner.transpose(0, 1).contiguous()),
+    }
     for name, ms in times.items():
         print(f"  {name}: {ms:.3f} ms [{card}]")
     corner_bytes = 2 * corner.numel() * corner.element_size()
     print(f"  K5 corner turn: {corner_bytes / times['K5 transpose 32768x8064x2'] / 1e6:.1f} GB/s "
           f"of {corner_bytes / 1e9:.2f} GB moved [{card}]")
+    # K4: each element is read once and takes part in min, max and 31 rounds
+    # of three compare-and-count pairs; 5 floats a row are written.  K5
+    # reads and writes every byte once.
     return {
-        "percentile5": (launches["percentile5"], times["K4 percentile5 4000x5000"],
-                        times["K4 plain 4000x5000"]),
-        "transpose": (launches["transpose"], times["K5 transpose 32768x8064x2"],
-                      times["K5 plain 32768x8064x2"]),
+        "percentile5": record(launches["percentile5"], times["K4 percentile5 4000x5000"],
+                              times["K4 plain 4000x5000"], big.numel() * 4 + 5 * 4000 * 4,
+                              big.numel() * (2 + 31 * 3 * 2), library["percentile5"]),
+        "transpose": record(launches["transpose"], times["K5 transpose 32768x8064x2"],
+                            times["K5 plain 32768x8064x2"], corner_bytes, 0,
+                            library["transpose"]),
     }
 
 
@@ -592,6 +712,7 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
     roll_ms = rollchain_ab.run(vis_t, iters=3, reps=5, card=card)
     dein_ms = deinterleave_probe.run(vis, iters=3, reps=5, card=card)
     torch.cuda.synchronize()
+    card_state("after the probe tools")
     counts = {name: sum(fp.launches[v] for v in variants) for name, variants in fp.PROBES.items()}
     print(f"  launches during the profiling path: {dict(fp.launches)}")
     for v, count in fp.launches.items():
@@ -616,13 +737,204 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
     for v, name in (("rank_pair", "binary"), ("zeros_fold", "binary")):
         print(f"  {v} - full: {rank_ms[v] - rank_ms[name]:+.3f} ms [{card}]")
     print(f"  shfl_median - full: {roll_ms['shfl'] - roll_ms['direct']:+.3f} ms [{card}]")
+    # `full`, `rank_pair` and `shfl_median` do K1's work; K12 reads 8 B and
+    # writes 4 B per visibility and does the amplitude's 4 operations.
+    n_vis = rows * channels
+    k1_work = (9 * n_vis, inventory_ops() * n_vis)
     return {
-        "stage_ablate": (counts["stage_ablate"], stage_ms["full"], plain["full"]),
-        "rankpair": (counts["rankpair"], rank_ms["rank_pair"], plain["full"]),
-        "rollchain": (counts["rollchain"], roll_ms["shfl"], plain["full"]),
-        "deinterleave": (counts["deinterleave"], dein_ms["channel-major"],
-                         plain["amp_pairs channel-major"]),
+        "stage_ablate": record(counts["stage_ablate"], stage_ms["full"], plain["full"], *k1_work),
+        "rankpair": record(counts["rankpair"], rank_ms["rank_pair"], plain["full"], *k1_work),
+        "rollchain": record(counts["rollchain"], roll_ms["shfl"], plain["full"], *k1_work),
+        "deinterleave": record(counts["deinterleave"], dein_ms["channel-major"],
+                               plain["amp_pairs channel-major"], 12 * n_vis, 4 * n_vis),
     }
+
+
+def phase_examples(card: str, check: Check) -> dict:
+    from katsdpsigproc_tpu_torch.examples import (fill_reduce, hello_device, triple, triple_fn,
+                                                  triple_op, triple_pallas)
+    from katsdpsigproc_tpu_torch.utils.profiling import time_interleaved
+
+    dev = torch.device("cuda", 0)
+    print("the tutorial kernels K6 (Triton) and K7 (CUDA C++) against x * 3 and data * scale:")
+    rs = np.random.RandomState(9)
+    for n in (4 * triple_pallas.BLOCK, 1000):
+        x = torch.from_numpy(rs.uniform(size=n).astype(np.float32)).to(dev)
+        check.exact("triple", f"K6 n={n}", triple_pallas.triple(x), triple_pallas.triple_plain(x))
+    for shape in ((8, 128), (3, 333)):
+        x = torch.from_numpy(rs.uniform(size=shape).astype(np.float32)).to(dev)
+        check.exact("multiply", f"K7 {shape}", triple.multiply(x, 3.0),
+                    triple.multiply_plain(x, 3.0))
+    n = 1 << 28  # 1 GiB of float32 each way
+    gen = torch.Generator(device=dev).manual_seed(1)
+    big = torch.empty(n, device=dev).uniform_(-1.0, 1.0, generator=gen)
+    square = big.view(1 << 14, 1 << 14)
+    check.exact("triple", "K6 n=2**28", triple_pallas.triple(big), triple_pallas.triple_plain(big))
+    check.exact("multiply", "K7 2**14 x 2**14", triple.multiply(square, 0.1),
+                triple.multiply_plain(square, 0.1))
+    check.exact("multiply", "K7 2**28 - 1 from an odd address (no 16-byte vectors)",
+                triple.multiply(big[1:], 0.1), triple.multiply_plain(big[1:], 0.1))
+
+    # The examples' entry point, with the launch counts set to 0 just before
+    # and read just after.
+    print("the examples on the card:")
+    triple.launches["multiply"] = 0
+    triple_pallas.launches["triple"] = 0
+    for example in (hello_device, triple_fn, triple, triple_pallas, triple_op, fill_reduce):
+        print(f"  python -m {example.__name__}:")
+        example.main([])
+    torch.cuda.synchronize()
+    launches = {"multiply": triple.launches["multiply"], "triple": triple_pallas.launches["triple"]}
+    print(f"  launches during the examples: {launches}")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"kernel {name} was not launched by the examples")
+
+    print(f"timings at 2**28 float32 (5 interleaved rounds of 3 calls, median) on {card}:")
+    med, _ = time_interleaved({
+        "K6 triple": lambda: triple_pallas.triple(big),
+        "K6 plain (x * 3.0)": lambda: triple_pallas.triple_plain(big),
+        "library x * 3": lambda: big * 3,
+        "K7 multiply": lambda: triple.multiply(square, 0.1),
+        "K7 plain": lambda: triple.multiply_plain(square, 0.1),
+        "library data * scale": lambda: square * 0.1,
+    }, reps=5, iters=3)
+    nbytes = 2 * n * 4
+    for name, ms in med.items():
+        print(f"  {name}: {ms:.3f} ms, {nbytes / ms / 1e6:.1f} GB/s [{card}]")
+    return {
+        "triple": record(launches["triple"], med["K6 triple"], med["K6 plain (x * 3.0)"], nbytes,
+                         n, med["library x * 3"]),
+        "multiply": record(launches["multiply"], med["K7 multiply"], med["K7 plain"], nbytes, n,
+                           med["library data * scale"]),
+    }
+
+
+def phase_cost_probes(ff, device, vis_np: np.ndarray, card: str, check: Check) -> dict:
+    from katsdpsigproc_tpu_torch.models.rfi import flagger_probe as fp
+    from katsdpsigproc_tpu_torch.scripts import prim_cost, roofline_skeleton as rsk
+    from katsdpsigproc_tpu_torch.utils.profiling import time_fn, time_queued
+
+    dev = torch.device("cuda", 0)
+    channels, rows = vis_np.shape
+    print("K8 (csrc/prim_cost.cu) against its plain chains, (256, 1024), 2 steps x 4 reps:")
+    block = prim_cost.block(256, 1024, dev)
+    for body in [None] + list(prim_cost.BODIES):
+        got = prim_cost.chain(block, body, 2, 4)
+        want = prim_cost.chain_plain(block, body, 2, 4)
+        if body == "reduce":  # the kernel sums a row in another order
+            check.close("prim_cost", f"K8 {body}", got, want, rtol=1e-6)
+        else:
+            check.exact("prim_cost", f"K8 {body or 'empty'}", got, want)
+    k1_cfg = ff.launch_config(channels)
+    for label, cfg in (("K8 rank_round", prim_cost.launch_config("rank_round")),
+                       ("K10", rsk.launch_config(channels))):
+        print(f"  launch {label}: {cfg['threads']} threads, {cfg['smem_bytes']} B dynamic shared "
+              f"memory, {cfg['ctas_per_sm']} CTA per SM (K1: {k1_cfg})")
+        if cfg["ctas_per_sm"] != k1_cfg["ctas_per_sm"] or cfg["threads"] != k1_cfg["threads"]:
+            raise AssertionError(f"{label} does not run at K1's occupancy: {cfg}")
+
+    print("K10 (csrc/roofline_skeleton.cu) against its plain version, output and rank carry:")
+    vis = torch.from_numpy(device.to_planar(vis_np)).to(dev)  # (C, rows, 2)
+    amp = fp.amp_pairs(vis, channel_major=True)  # (rows, C), the dump's amplitudes
+    del vis
+    rs = np.random.RandomState(11)
+    cases = [(f"uniform {r}x{c}", torch.from_numpy(
+        rs.uniform(0.25, 0.75, (r, c)).astype(np.float32)).to(dev)) for r, c in ((128, 257),
+                                                                             (8, 32768))]
+    cases.append(("dump amplitudes, 512 rows", amp[:512]))
+    for label, x in cases:
+        for scale in (rsk.FLAG_SCALE, 1.0):
+            out, rank = rsk.skeleton(x, flag_scale=scale, return_rank=True)
+            want_out, want_rank = rsk.skeleton_plain(x, flag_scale=scale, return_rank=True)
+            check.flags("roofline_skeleton", f"K10 {label}, scale {scale}: output", out, want_out)
+            check.exact("roofline_skeleton", f"K10 {label}, scale {scale}: rank carry", rank,
+                        want_rank)
+
+    def plain_whole(**kw):
+        def run():
+            out = torch.empty((rows, channels), dtype=torch.uint8, device=dev)
+            rank = torch.empty((rows,), dtype=torch.float32, device=dev)
+            for s in range(0, rows, 2016):
+                out[s:s + 2016], rank[s:s + 2016] = rsk.skeleton_plain(amp[s:s + 2016],
+                                                                      return_rank=True, **kw)
+            return out, rank
+        return run
+
+    out, rank = rsk.skeleton(amp, return_rank=True)
+    want_out, want_rank = plain_whole()()
+    check.flags("roofline_skeleton", "K10 whole dump: output", out, want_out)
+    check.exact("roofline_skeleton", "K10 whole dump: rank carry", rank, want_rank)
+    if out.any():
+        raise AssertionError("the skeleton's output is not 0")
+    del out, rank, want_out, want_rank
+
+    # The cost-probe path: K8's table, then K10 on the whole dump priced by
+    # it, with the launch counts set to 0 just before and read just after.
+    print(f"the cost-probe tools (prim_cost at 256 x 1024, 512 steps x 16 reps; the skeleton "
+          f"on the whole dump) on {card}:")
+    for name in prim_cost.launches:
+        prim_cost.launches[name] = 0
+    rsk.launches["skeleton"] = 0
+    result = rsk.run(amp, iters=3, reps=5, card=card)
+    torch.cuda.synchronize()
+    card_state("after the cost-probe tools")
+    launches = {"prim_cost": sum(prim_cost.launches.values()),
+                "roofline_skeleton": rsk.launches["skeleton"]}
+    print(f"  launches during the cost-probe path: {launches} "
+          f"(per body: {dict(prim_cost.launches)})")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"kernel {name} was not launched on the cost-probe path")
+
+    steps, unroll = 512, 16
+    add_ms = time_queued({"add": lambda: prim_cost.chain(block, "add", steps, unroll)},
+                         reps=5, iters=3)[0]["add"]
+    add_plain = time_fn(lambda: prim_cost.chain_plain(block, "add", steps, unroll), warmup=1,
+                        iters=2)
+    skel_plain = time_fn(plain_whole(), warmup=1, iters=2)
+    print(f"kernel vs plain on {card}: K8 add chain {add_ms:.3f} ms vs {add_plain:.3f} ms; "
+          f"K10 whole dump {result['skeleton_ms']:.3f} ms vs {skel_plain:.3f} ms")
+    elems, n_vis = block.numel(), rows * channels
+    return {
+        # The chain reads and writes the block once; y0, 2 operations a rep, x + y.
+        "prim_cost": record(launches["prim_cost"], add_ms, add_plain, 2 * elems * 4,
+                            elems * (2 + 2 * steps * unroll + 1)),
+        # 4 B of amplitude in and 1 B out per visibility; the inventory's work.
+        "roofline_skeleton": record(launches["roofline_skeleton"], result["skeleton_ms"],
+                                    skel_plain, 5 * n_vis, inventory_ops() * n_vis),
+    }
+
+
+def phase_stream(ff, device, vis_np: np.ndarray, card: str, check: Check) -> None:
+    from katsdpsigproc_tpu_torch.examples import resource_pipeline as rp
+    from katsdpsigproc_tpu_torch.utils import backend
+
+    channels, rows = vis_np.shape
+    dumps = 5
+    print(f"streaming ingest (examples/resource_pipeline, flagger 'fused') of {dumps} dumps of "
+          f"{channels} x {rows}:")
+    planar = device.to_planar(vis_np)
+    t0 = time.perf_counter()
+    host = torch.from_numpy(planar).pin_memory()  # once, outside the timed loop
+    print(f"  pinned the {host.numel() * 4 / 1e9:.2f} GB host buffer in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name in ff.launches:
+        ff.launches[name] = 0
+    results = rp.run(rp.SpikedDumps(host), dumps, "fused", backend.create_some_context(),
+                     (channels, rows), card)
+    torch.cuda.synchronize()
+    print(f"  launches during the stream: {dict(ff.launches)}")
+    if ff.launches["flagger"] < dumps:
+        raise AssertionError("K1 was not launched for every streamed dump")
+    del host
+    base = torch.from_numpy(planar).cuda()
+    for i in range(dumps):
+        dump = base.clone()
+        dump[rp.spike_channel(i)] *= 50.0  # as SpikedDumps plants it
+        k1 = ff.flag_dump(dump.transpose(0, 1).contiguous())
+        check.flags("flagger", f"streamed dump {i} vs flag_dump of the same dump",
+                    torch.from_numpy(results[i]), k1.T.cpu())
 
 
 def main() -> None:
@@ -648,11 +960,13 @@ def main() -> None:
     results.update(phase_ops(pct, tr, vis_np, card, check))
     phase_flagger_device(ff, vis_np, card, check)
     results.update(phase_probes(fp, ff, device, vis_np, card, check))
+    results.update(phase_examples(card, check))
+    results.update(phase_cost_probes(ff, device, vis_np, card, check))
+    phase_stream(ff, device, vis_np, card, check)
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-         "launches": launches, "max_abs_err": check.max_abs_err[name], "ms": ms,
-         "plain_ms": plain_ms}
-        for name, (launches, ms, plain_ms) in results.items()]}))
+        {"name": name, "route": ROUTES.get(name, "cuda"), "source": SOURCES[name],
+         "replaces": REPLACES[name], "max_abs_err": check.max_abs_err[name], **numbers}
+        for name, numbers in results.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,7 +8,8 @@ numpy, never ``jax`` and never ``katsdpsigproc_tpu``.
 
 Plain tensor code is PyTorch; every kernel the JAX package wrote in
 Pallas is a CUDA C++ kernel for Hopper (``csrc/``), built with ``nvcc``
-on first use (:mod:`.utils.kernels`).  Each kernel wrapper takes its
+on first use (:mod:`.utils.kernels`), or, for the tutorial kernel of
+``examples.triple_pallas``, a Triton kernel compiled at its first launch.  Each kernel wrapper takes its
 plain PyTorch version for a tensor on the CPU and launches the kernel
 for a tensor on the card.
 
@@ -16,8 +17,11 @@ Ported so far: the 1-D RFI flagger's main path and its stage templates
 with the composed ``FlaggerDevice`` (``models.rfi``); the operation
 framework (``ops.base``) and the primitive ops (``ops``: fill, masked
 sum, row reduction, named reductions and scans, rank statistics,
-percentile5 and transpose); device contexts, the tuning table and shape
-helpers (``utils``).
+percentile5 and transpose); device contexts, the tuning table, shape
+helpers, profiling and the asyncio resource layer (``utils``, with the
+deprecated ``asyncio.resource`` alias and the ``abc`` protocols); the
+examples of ``doc/examples`` (``examples``); the probes of the fused
+flagger's stages and costs (``scripts``).
 """
 
 __version__ = "0.5.0"

@@ -400,7 +400,7 @@ class BackgroundMedianFilterDeviceTemplate(AbstractBackgroundDeviceTemplate):
     ----------
     context
         Placement context (:class:`...utils.backend.DeviceContext`), or
-        ``None`` for the CPU.
+        ``None`` for the best device (the card where there is one).
     width
         The window width (odd).
     is_amplitude

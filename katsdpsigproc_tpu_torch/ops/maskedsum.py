@@ -22,7 +22,7 @@ class MaskedSumTemplate:
     Parameters
     ----------
     context
-        Placement context, or ``None`` for the CPU.
+        Placement context, or ``None`` for the best device.
     use_amplitudes
         If true, the amplitudes of the inputs are summed instead of the
         inputs themselves.

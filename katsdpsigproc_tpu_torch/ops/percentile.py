@@ -164,7 +164,7 @@ class Percentile5Template:
     ----------
     context
         Placement context (:class:`..utils.backend.DeviceContext`), or
-        ``None`` for the CPU.
+        ``None`` for the best device (the card where there is one).
     max_columns
         Maximum number of columns of an instance.
     is_amplitude

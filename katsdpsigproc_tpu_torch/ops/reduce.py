@@ -24,7 +24,7 @@ class HReduceTemplate:
     Parameters
     ----------
     context
-        Placement context, or ``None`` for the CPU.
+        Placement context, or ``None`` for the best device.
     dtype
         Element type.
     op

@@ -117,7 +117,7 @@ class TransposeTemplate:
     ----------
     context
         Placement context (:class:`..utils.backend.DeviceContext`), or
-        ``None`` for the CPU.
+        ``None`` for the best device (the card where there is one).
     dtype
         Element type.
     ctype

@@ -2,5 +2,6 @@
 
 Each runs as ``python -m katsdpsigproc_tpu_torch.scripts.<name>`` and
 needs a CUDA device.  They port the TPU probes of ``scripts/`` under the
-same names, on the main path's dump by default.
+same names, on the main path's dump by default: the stage probes of K1
+and the cost probes ``prim_cost`` (K8) and ``roofline_skeleton`` (K10).
 """

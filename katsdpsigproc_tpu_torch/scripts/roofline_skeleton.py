@@ -1,0 +1,262 @@
+"""The fused flagger's op inventory, run op for op on the card (K10).
+
+Port of ``scripts/roofline_skeleton.py``.  The compute model prices the
+exact flagger's least vector work as the sum of count x ns over an op
+inventory (:func:`op_inventory`, a copy of
+``katsdpsigproc_tpu/models/rfi/roofline.py::op_inventory``).  The skeleton
+kernel (``csrc/roofline_skeleton.cu``) runs that inventory on dummy
+amplitudes, with none of the flagger's masks, valid counts or halfway
+corrections, at K1's launch (1024 threads, K1's dynamic shared memory, one
+CTA per SM), so its time can be set against the model's:
+
+- skeleton ms ~ model ms: the floor is priced right, and K1's time above
+  it is real headroom or real work beyond the floor;
+- skeleton ms >> model ms: per-op costs do not add up at this occupancy;
+- skeleton ms << model ms: a chain folded or the inventory overcounts.
+
+The model is priced with the primitive costs of K8
+(:mod:`.prim_cost`) measured in the same call: no table on disk and no
+default costs (``roofline.py``'s ``prim_ns.json`` and
+``DEFAULT_PRIM_NS`` are not ported).
+
+Per row of C float32 amplitudes x (``skeleton_block`` :64-112; a channel
+shift by d reads channel c + d, wrapped)::
+
+  a    = sqrt(min(x, 3) + x)
+  w    = a and its shifts by -half..half; the shifts by -half and
+         -half + 1 are 3 and 5 in the upper half of the row
+  dev  = rank `half` of w by the selection network - a
+  r    = 0, then 32 rounds of r = count(dev < r) / 1024   (the rank carry)
+  s    = min(dev, 3) + r
+  flag = s > r, or a window-2, -4 or -8 ladder of s > 1.2 r
+  acc  = flag at c or at any of the 11 channels before it, times 0.5
+  out  = uint8(int32(acc)), which is 0 for every input
+
+Because ``out`` is always 0, :func:`skeleton` can also return the rank
+carry, and every check compares both (``flag_scale=1`` makes the dilated
+flags themselves the output, for the card's checks).
+
+Usage::
+
+    python -m katsdpsigproc_tpu_torch.scripts.roofline_skeleton [--channels 32768]
+        [--baselines 8064] [--width 13] [--iters 3] [--reps 5]
+"""
+
+import ctypes
+import functools
+from typing import Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..models.rfi import flagger_probe as fp, fused_flagger as ff
+from ..ops import rank as rank_ops
+from ..utils import numerics, profiling
+from . import common, prim_cost
+
+RANK_ROUNDS = 32  # skeleton_block's fori_loop (:90)
+FLAG_SCALE = 0.5  # skeleton_block :104
+_C, _C2 = 3.0, 5.0
+
+# Kernel launches since the count was last reset.  The wrapper adds one
+# where it launches the kernel, and nowhere else.
+launches = {"skeleton": 0}
+
+
+@functools.lru_cache(maxsize=None)
+def _library(width: int) -> ctypes.CDLL:
+    from ..utils import kernels
+
+    lib = kernels.load("roofline_skeleton", ["roofline_skeleton.cu"],
+                       {"ff_network.h": ff._network_header(width)})
+    lib.ff_max_channels.argtypes = []
+    lib.ff_max_channels.restype = ctypes.c_int
+    lib.ff_error_string.argtypes = [ctypes.c_int]
+    lib.ff_error_string.restype = ctypes.c_char_p
+    lib.rs_launch_config.argtypes = [ctypes.c_int] + ff._LAUNCH_CONFIG_OUT
+    lib.rs_launch_config.restype = ctypes.c_int
+    lib.rs_skeleton.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    lib.rs_skeleton.restype = ctypes.c_int
+    return lib
+
+
+def launch_config(channels: int, width: int = 13) -> dict:
+    """How the skeleton launches at `channels`: the keys of :func:`.fused_flagger.launch_config`."""
+    lib = _library(width)
+    return ff._query_launch_config(lib, lib.rs_launch_config, channels)
+
+
+def _shift(x, d: int):
+    """Channel c of the result is channel c + d of `x`, wrapped (``_shift_channels`` at h = 1)."""
+    return torch.roll(x, -d, 1)
+
+
+def skeleton_plain(amp, *, width: int = 13, flag_scale: float = FLAG_SCALE,
+                   return_rank: bool = False):
+    """The plain PyTorch version of K10, op for op as ``skeleton_block``."""
+    half = width // 2
+    a = numerics.sqrt_rn(torch.clamp(amp, max=_C) + amp)
+    members = [a] + [_shift(a, d) for d in range(-half, half + 1) if d]
+    upper = torch.arange(amp.shape[1], device=amp.device) >= amp.shape[1] // 2
+    members[1] = torch.where(upper, _C, members[1])
+    members[2] = torch.where(upper, _C2, members[2])
+    rank_ops.apply_selection_network(members, rank_ops.selection_network(width, (half, half + 1)))
+    dev = members[half] - a
+    r = torch.zeros((amp.shape[0], 1), dtype=torch.float32, device=amp.device)
+    for _ in range(RANK_ROUNDS):
+        r = (dev < r).sum(1, keepdim=True, dtype=torch.float32) * (1.0 / 1024.0)
+    s = torch.clamp(dev, max=_C) + r
+    r12 = r * np.float32(1.2)
+    flags = (s > r).to(torch.float32)
+    for wlog in (1, 2, 3):
+        lad = s
+        for k in range(wlog):
+            lad = lad + _shift(lad, 1 << k)
+        flags = torch.maximum(flags, (lad > r12).to(torch.float32))
+    acc = flags * np.float32(flag_scale)
+    for wlog in (1, 2, 3):
+        for k in range(wlog):
+            acc = torch.maximum(acc, _shift(acc, -(1 << k)))
+    out = acc.to(torch.int32).to(torch.uint8)
+    return (out, r[:, 0]) if return_rank else out
+
+
+def skeleton(amp, *, width: int = 13, flag_scale: float = FLAG_SCALE, return_rank: bool = False):
+    """The skeleton over (rows, channels) float32 amplitudes (K10 on a CUDA tensor).
+
+    Returns (rows, channels) uint8, and with `return_rank` also each row's
+    rank carry, (rows,) float32.  `flag_scale` is the scale before the
+    output's integer cast (0.5 in the JAX script, which makes the output
+    0; 1 makes the output the dilated flags).  A row holds at least
+    ``max(width, 12)`` channels.
+    """
+    if width % 2 != 1 or not 3 <= width <= ff.MAX_WIDTH:
+        raise ValueError(f"width must be odd and in 3..{ff.MAX_WIDTH}, got {width}")
+    if not isinstance(amp, torch.Tensor) or amp.ndim != 2 or amp.dtype != torch.float32:
+        raise TypeError("amp must be a 2-D torch.float32 tensor")
+    rows, channels = amp.shape
+    if channels < max(width, 12):
+        raise ValueError(f"the skeleton takes at least {max(width, 12)} channels, got {channels}")
+    if amp.device.type == "cpu":
+        return skeleton_plain(amp, width=width, flag_scale=flag_scale, return_rank=return_rank)
+    if amp.device.type != "cuda":
+        raise ValueError(f"unsupported device {amp.device}")
+    if not amp.is_contiguous():
+        raise ValueError("the CUDA kernel takes a contiguous tensor")
+    out = torch.empty((rows, channels), dtype=torch.uint8, device=amp.device)
+    rank = torch.empty((rows,), dtype=torch.float32, device=amp.device) if return_rank else None
+    if rows:
+        with torch.cuda.device(amp.device):
+            lib = _library(width)
+            limit = lib.ff_max_channels()
+            if channels > limit:
+                raise ValueError(f"{channels} channels exceed K1's limit of {limit} channels")
+            err = lib.rs_skeleton(amp.data_ptr(), out.data_ptr(),
+                                  None if rank is None else rank.data_ptr(), rows, channels,
+                                  ctypes.c_float(np.float32(flag_scale)),
+                                  torch.cuda.current_stream(amp.device).cuda_stream)
+        ff._raise_on(lib, err, "skeleton")
+        launches["skeleton"] += 1
+    return (out, rank) if return_rank else out
+
+
+def op_inventory(width: int = 13, n_windows: int = 4,
+                 rank_rounds: int = 31) -> List[Tuple[str, str, int]]:
+    """The least full-block vector work per block of the exact flagger: (stage, primitive, count).
+
+    A copy of ``katsdpsigproc_tpu/models/rfi/roofline.py::op_inventory``
+    (:111-168), on the port's :func:`..ops.rank.selection_network`: the
+    amplitude (2 add-class + sqrt), the median's ``width - 1`` channel
+    shifts, 2 parity fills, the two-middle-ranks network (a ``both``
+    comparator is a min and a max) and a subtract, ``rank_rounds + 1``
+    rank rounds and 2 adds, the SumThreshold's ladder and dilation shifts
+    with their adds, compares and scale, and the output's cast pair.
+    """
+    half_ladders = sum(int(w).bit_length() - 1 for w in (2 ** i for i in range(n_windows)))
+    net = rank_ops.selection_network(width, (width // 2, width // 2 + 1))
+    net_ops = sum(2 if mode == "both" else 1 for _, _, mode in net)
+    return [
+        ("amplitude", "add", 2),
+        ("amplitude", "sqrt", 1),
+        ("median", "shift_ch", width - 1),
+        ("median", "add", 2),
+        ("median", "minmax", net_ops),
+        ("median", "add", 1),
+        ("rank", "rank_round", rank_rounds + 1),
+        ("rank", "add", 2),
+        ("threshold", "shift_ch", half_ladders * 2),
+        ("threshold", "add", half_ladders + n_windows + 1),
+        ("threshold", "add", half_ladders),
+        ("output", "add", 2),
+    ]
+
+
+def ops_per_element(width: int = 13, n_windows: int = 4) -> int:
+    """The inventory's operations per element (per visibility of the dump)."""
+    return sum(count for _, _, count in op_inventory(width, n_windows))
+
+
+def compute_roofline(baselines: int, channels: int, prim_table: Mapping[str, float], *,
+                     width: int = 13, n_windows: int = 4, rows: int = 256) -> Dict[str, object]:
+    """The inventory priced at `prim_table` (ns per op of a ``rows * 1024``-element block).
+
+    The arithmetic of ``roofline.py::compute_roofline`` (:171-213): the
+    stages' ns per block, summed, scaled from the block's elements to the
+    dump's ``baselines * channels``.
+    """
+    stage_ns: Dict[str, float] = {}
+    for stage, prim, count in op_inventory(width, n_windows):
+        stage_ns[stage] = stage_ns.get(stage, 0.0) + count * prim_table[prim]
+    block_ns = sum(stage_ns.values())
+    n_vis = baselines * channels
+    s_per_dump = block_ns * n_vis / (rows * 1024.0) * 1e-9
+    return {"seconds_per_dump": s_per_dump, "vis_per_second": n_vis / s_per_dump,
+            "block_ns": block_ns, "stage_ns": stage_ns}
+
+
+def run(amp, *, width: int = 13, iters: int = 3, reps: int = 5, card: str = "",
+        prim_block: Optional[torch.Tensor] = None, prim_steps: int = 512,
+        prim_unroll: int = 16) -> Dict[str, object]:
+    """Time the skeleton on (rows, channels) `amp` and set it against the model.
+
+    The primitive costs are measured first, in this call, by
+    :func:`.prim_cost.measure` on `prim_block` (default: the (256, 1024)
+    block of ``prim_cost``).  Returns the skeleton's median ms, the
+    model's ms, their ratio and the primitive costs.
+    """
+    if prim_block is None:
+        prim_block = prim_cost.block(256, 1024, amp.device)
+    prim_ns = prim_cost.measure(prim_block, steps=prim_steps, unroll=prim_unroll, iters=iters,
+                                reps=reps, card=card)
+    med, samples = profiling.time_interleaved(
+        {"skeleton": functools.partial(skeleton, amp, width=width)}, reps=reps, iters=iters)
+    rows, channels = amp.shape
+    ms = med["skeleton"]
+    model = compute_roofline(rows, channels, prim_ns, width=width,
+                             rows=prim_block.numel() // 1024)
+    model_ms = model["seconds_per_dump"] * 1e3
+    common.report("skeleton", ms, samples["skeleton"], card)
+    print(f"skeleton: {ms:.3f} ms over {rows} rows x {channels} channels, one launch [{card}]")
+    print(f"model:    {model_ms:.3f} ms (block_ns={model['block_ns']:.1f}, primitive costs "
+          f"measured in this call at {tuple(prim_block.shape)}; stages "
+          + ", ".join(f"{k} {v * rows * channels / prim_block.numel() * 1e-6:.3f} ms"
+                      for k, v in model["stage_ns"].items()) + ")")
+    print(f"skeleton/model = {ms / model_ms:.3f}  (~1: floor priced right; >>1: costs not "
+          f"additive; <<1: chain folded / inventory overcounts)")
+    return {"skeleton_ms": ms, "model_ms": model_ms, "ratio": ms / model_ms, "prim_ns": prim_ns}
+
+
+def main(argv=None) -> None:
+    ap = common.parser(__doc__)
+    ap.add_argument("--width", type=int, default=13)
+    args = ap.parse_args(argv)
+    card = common.require_card()
+    vis_t = common.dump_on_card(args.channels, args.baselines).transpose(0, 1).contiguous()
+    amp = fp.amp_pairs(vis_t)
+    del vis_t
+    run(amp, width=args.width, iters=args.iters, reps=args.reps, card=card)
+
+
+if __name__ == "__main__":
+    main()

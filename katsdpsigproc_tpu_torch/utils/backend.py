@@ -108,8 +108,13 @@ def create_some_context(interactive: bool = False, device_filter=None,
 
 
 def context_device(context) -> torch.device:
-    """The device of `context`, or the CPU for ``None`` (templates built without one)."""
-    return torch.device("cpu") if context is None else context.device
+    """The device of `context`, or the best device for ``None``.
+
+    A template built without a context computes where the JAX package's
+    would, on the default device: the card where there is one
+    (:func:`create_some_context`), else the CPU.
+    """
+    return create_some_context().device if context is None else context.device
 
 
 def device_kind_key(device: Optional[torch.device] = None) -> tuple:

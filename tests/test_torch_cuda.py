@@ -6,9 +6,12 @@ the JAX package's test configuration must not be loaded:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerance: exact on every uint8 mask (the kernels round each operation
-as the plain versions do).
+Tolerance: exact on every uint8 mask and float32 result (the kernels
+round each operation as the plain versions do), except K8's ``reduce``
+chain, whose row sums are taken in another order (rtol 1e-6).
 """
+
+import asyncio
 
 import numpy as np
 import pytest
@@ -284,3 +287,182 @@ def test_time_fn_times_the_card(cuda):
                                                   reps=3, iters=2)
     assert 0 < medians["add"] < medians["mm"] and 0 < ms
     assert len(samples["mm"]) == 3
+
+
+# A template built without a context runs on the card, as the JAX package's
+# run on JAX's default device.
+
+
+def test_templates_without_a_context_run_on_the_card(cuda):
+    from katsdpsigproc_tpu_torch.ops import fill
+    from katsdpsigproc_tpu_torch.utils import backend
+
+    assert backend.context_device(None) == cuda
+    op = fill.FillTemplate(None, np.float32).instantiate(None, (4, 5))
+    op.set_value(2)
+    op.ensure_all_bound()
+    op()
+    assert op.buffer("data").device == cuda
+    template = device.FlaggerDeviceTemplate(
+        device.BackgroundMedianFilterDeviceTemplate(None, 13, tuning={"engine": "network"}),
+        device.NoiseEstMADTDeviceTemplate(None, 1024, tuning={"radix_bits": 4}),
+        device.ThresholdSumDeviceTemplate(None))
+    vis_t, _ = _dump(300, 8, seed=4)
+    vis = torch.view_as_complex(vis_t.transpose(0, 1).contiguous()).to(cuda)  # (300, 8)
+    flags = template.instantiate(None, 300, 8, threshold_args={"n_sigma": 11.0})(vis=vis)["flags"]
+    assert flags.device == cuda
+    assert torch.equal(flags.T, ff.flag_transposed(vis_t.to(cuda)))
+
+
+# The tutorial kernels K6 (Triton) and K7 (CUDA C++): exact against x * 3
+# and data * scale, each product rounded once.
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 1000, 4 * 256, (1 << 20) + 3])
+def test_triple_kernel_matches_plain(cuda, n):
+    from katsdpsigproc_tpu_torch.examples import triple_pallas
+
+    x = torch.from_numpy(np.random.RandomState(n).standard_normal(n).astype(np.float32)).to(cuda)
+    before = triple_pallas.launches["triple"]
+    got = triple_pallas.triple(x)
+    torch.cuda.synchronize()
+    assert triple_pallas.launches["triple"] == before + 1
+    assert got.device == cuda and torch.equal(got, triple_pallas.triple_plain(x))
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (1,), (3, 333), ((1 << 20) + 5,)])
+@pytest.mark.parametrize("offset", [0, 1])  # 1: the data does not start on 16 bytes
+@pytest.mark.parametrize("threads", [64, 256, 1024])
+def test_multiply_kernel_matches_plain(cuda, shape, offset, threads):
+    from katsdpsigproc_tpu_torch.examples import triple
+
+    n = int(np.prod(shape))
+    base = torch.from_numpy(np.random.RandomState(n).standard_normal(n + offset).astype(
+        np.float32)).to(cuda)
+    data = base[offset:].view(shape)
+    before = triple.launches["multiply"]
+    got = triple.multiply(data, 0.1, threads=threads)
+    torch.cuda.synchronize()
+    assert triple.launches["multiply"] == before + 1
+    assert torch.equal(got, triple.multiply_plain(data, 0.1))
+    with pytest.raises(ValueError, match="contiguous"):
+        triple.multiply(torch.zeros((4, 4), device=cuda).T, 3.0)
+
+
+def test_examples_run_on_the_card(cuda, monkeypatch, tmp_path, capsys):
+    from katsdpsigproc_tpu_torch.examples import (fill_reduce, hello_device, triple, triple_fn,
+                                                  triple_op, triple_pallas)
+
+    monkeypatch.setenv("KATSDPSIGPROC_TPU_TORCH_TUNE_DB", str(tmp_path / "tuning.json"))
+    before = (triple.launches["multiply"], triple_pallas.launches["triple"])
+    for example in (hello_device, triple_fn, triple, triple_pallas, triple_op, fill_reduce):
+        example.main([])
+    torch.cuda.synchronize()
+    assert triple.launches["multiply"] >= before[0] + 3  # triple, and triple_op's two calls
+    assert triple_pallas.launches["triple"] == before[1] + 1
+    assert "context on cuda" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flagger", ["torch", "hybrid", "fused"])
+def test_resource_pipeline_equals_k1_on_each_dump(cuda, flagger):
+    from katsdpsigproc_tpu_torch.examples import resource_pipeline as rp
+    from katsdpsigproc_tpu_torch.utils import backend
+
+    shape = (300, 12)
+    ctx = backend.create_some_context(devices=[cuda])
+    results = rp.run(rp.RandomDumps(*shape, seed=3, pin=True), 4, flagger, ctx, shape, "card")
+    again = rp.RandomDumps(*shape, seed=3, pin=False)
+    for i in range(4):
+        host = asyncio.run(again.get(i))  # (channels, baselines, 2)
+        k1 = ff.flag_dump(host.transpose(0, 1).contiguous().to(cuda))
+        assert np.array_equal(results[i], k1.T.cpu().numpy()), i
+
+
+# The cost probes K8 and K10 against their plain versions.
+
+
+def _cost():
+    from katsdpsigproc_tpu_torch.scripts import prim_cost, roofline_skeleton
+
+    return prim_cost, roofline_skeleton
+
+
+@pytest.mark.parametrize("body", [None, "add", "minmax", "mul", "select", "cmp_f32", "roll_lane",
+                                  "shift_ch", "reduce", "rank_round", "sqrt"])
+@pytest.mark.parametrize("rows,width", [(256, 1024), (5, 96)])
+def test_prim_cost_chain_matches_plain(cuda, body, rows, width):
+    """Exact, but `reduce`: the kernel sums a row by warp shuffles, so rtol 1e-6."""
+    prim_cost, _ = _cost()
+    x = prim_cost.block(rows, width, cuda)
+    before = prim_cost.launches[body]
+    got = prim_cost.chain(x, body, 2, 4)
+    want = prim_cost.chain_plain(x, body, 2, 4)
+    torch.cuda.synchronize()
+    assert prim_cost.launches[body] == before + 1
+    if body == "reduce":
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-6, atol=0)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("unroll", [1, 2, 4, 8, 16])
+def test_prim_cost_unrolls_and_launches_as_k1(cuda, unroll):
+    prim_cost, _ = _cost()
+    x = prim_cost.block(8, 256, cuda)
+    assert torch.equal(prim_cost.chain(x, "roll_lane", 3, unroll),
+                       prim_cost.chain_plain(x, "roll_lane", 3, unroll))
+    cfg = prim_cost.launch_config("rank_round", 1024, unroll)
+    assert cfg == dict(ff.launch_config(32768), threads=1024), cfg
+    assert cfg["ctas_per_sm"] == 1
+
+
+def _amplitudes(kind, rows, channels, seed):
+    rs = np.random.RandomState(seed)
+    if kind == "uniform":
+        return rs.uniform(0.25, 0.75, (rows, channels)).astype(np.float32)
+    amp = np.ones((rows, channels), np.float32)
+    amp[rs.random_sample(amp.shape) < 1.0 / 40.0] = 0.2
+    return amp
+
+
+@pytest.mark.parametrize("channels,rows,width", [(257, 8, 13), (1023, 4, 13), (1025, 4, 13),
+                                                 (2080, 3, 13), (32768, 2, 13), (13, 3, 13),
+                                                 (12, 3, 5), (300, 4, 31)])
+@pytest.mark.parametrize("kind", ["uniform", "dips"])
+def test_skeleton_matches_plain(cuda, channels, rows, width, kind):
+    """The uint8 output and the rank carry, at the JAX scale 0.5 (output 0)
+    and at scale 1 (the output is the dilated flags)."""
+    _, rsk = _cost()
+    amp = torch.from_numpy(_amplitudes(kind, rows, channels, channels)).to(cuda)
+    for scale in (0.5, 1.0):
+        before = rsk.launches["skeleton"]
+        out, rank = rsk.skeleton(amp, width=width, flag_scale=scale, return_rank=True)
+        torch.cuda.synchronize()
+        assert rsk.launches["skeleton"] == before + 1
+        want_out, want_rank = rsk.skeleton_plain(amp, width=width, flag_scale=scale,
+                                                 return_rank=True)
+        assert torch.equal(out, want_out), scale
+        assert torch.equal(rank.view(torch.int32), want_rank.view(torch.int32)), scale
+        assert torch.equal(rsk.skeleton(amp, width=width, flag_scale=scale), out)
+
+
+def test_skeleton_launches_as_k1(cuda):
+    _, rsk = _cost()
+    for channels in (128, 32768):
+        k1 = ff.launch_config(channels)
+        cfg = rsk.launch_config(channels)
+        assert cfg["threads"] == k1["threads"] and cfg["smem_bytes"] == k1["smem_bytes"], cfg
+    assert rsk.launch_config(32768)["ctas_per_sm"] == 1
+    with pytest.raises(ValueError, match="limit"):
+        rsk.skeleton(torch.zeros((1, 50000), device=cuda))
+
+
+def test_time_queued_times_the_card_not_the_launches(cuda):
+    """A kernel shorter than its launch: the queued time is the card's."""
+    from katsdpsigproc_tpu_torch.utils import profiling
+
+    x = torch.ones(1024, device=cuda)
+    queued, samples = profiling.time_queued({"add": lambda: x + x, "mul": lambda: x * x},
+                                            reps=3, iters=20)
+    assert len(samples["add"]) == 3
+    assert 0 < queued["add"] < 0.02 and 0 < queued["mul"] < 0.02, queued

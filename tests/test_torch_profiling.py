@@ -127,3 +127,11 @@ def test_the_helpers_of_the_jax_package_exist_here():
     port_names = {n for n in jax_names if hasattr(profiling, n)}
     assert port_names == jax_names - {"time_scan"}
     assert hasattr(profiling, "time_interleaved")
+
+
+def test_time_queued_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        profiling.time_queued({"f": lambda: None})
+    with pytest.raises(ValueError, match="reps"):
+        profiling.time_queued({"f": lambda: None}, reps=0)

@@ -290,9 +290,18 @@ class TestBackend:
         assert (ctx.platform, ctx.device_kind) == ("cpu", "cpu")
         assert ctx.put(np.ones(3)).device == torch.device("cpu")
         assert backend.device_kind_key(torch.device("cpu")) == ("cpu", "cpu")
-        assert backend.context_device(None) == torch.device("cpu")
         best = backend.create_some_context()
         assert best.platform == ("cuda" if torch.cuda.is_available() else "cpu")
+        assert backend.context_device(None) == best.device
+
+    def test_context_none_is_the_card_where_there_is_one(self, monkeypatch):
+        """A template built without a context computes on the best device, as
+        the JAX package's do on JAX's default device; nothing is allocated."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        assert backend.context_device(None) == torch.device("cuda", 0)
+        ctx = backend.create_some_context(devices=[torch.device("cpu")])
+        assert backend.context_device(ctx) == torch.device("cpu")
 
     def test_interactive_choice(self, monkeypatch):
         import sys
