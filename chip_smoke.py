@@ -9,19 +9,24 @@ It imports only torch, numpy and ``katsdpsigproc_tpu_torch`` (never jax),
 builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: builds the four kernel libraries with one ``nvcc`` each, all
-   started together, and prints the build time and nvcc's register
-   report;
+2. build: builds the kernel libraries with one ``nvcc`` each, all
+   started together (with K1's measurement builds of
+   ``scripts/k1_ab.py``), and prints the build time and nvcc's register
+   report; K1's ``flagger_kernel`` must spill no bytes, and its SASS's
+   local loads and stores are counted (``cuobjdump -sass``);
 3. each kernel against its plain PyTorch version on the card, exact on
-   the uint8 flags: K1 in every flag mode at several shapes, with
-   n_windows 4 and 6, flag_value 1 and 3, a row holding NaN; K2 on the
-   same deviations;
+   the uint8 flags: K1 in every flag mode at the edge shapes of its run
+   layout (1, 13, 99, 257, 1023, 1024, 1025, 4097 and 32768 channels and
+   its channel limit), each with n_windows 4 and 6, flag_value 1 and 3,
+   rows holding NaN; K2 on the same deviations where they fit its layout;
 4. the numpy host oracle on the 512 x 64 subsample of the seed-1 dump,
    through K1 and through the hybrid engine (plain background, then K2);
 5. the main path at full size: the MeerKAT 4-pol dump (32768 channels x
    2016 baselines x 4 pols = 8064 rows, channel-major planar float32)
-   through ``flag_dump`` (K1), the plain version and the hybrid engine
-   (K2), which must agree flag for flag, then CUDA-event timings;
+   through ``flag_dump(vis.transpose(0, 1))``, the bench's call (K5's
+   corner turn, then K1), the plain version, K1 in the strided layout
+   (probe ``full``) and the hybrid engine (K2), which must agree flag for
+   flag, then CUDA-event timings;
 6. the ops path: K4 (percentile5) and K5 (transpose) against their plain
    versions, exact, at every size below; the plain ops (Fill, MaskedSum,
    HReduce) against numpy float64 at bench configs 2 and 3; a forced
@@ -31,16 +36,21 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
 7. ``FlaggerDevice`` (median background, transposed MAD noise,
    SumThreshold as an ``OperationSequence``) over the whole dump as
    complex64, whose flags must equal K1's on the same rows;
-8. K1's stage probes (``csrc/flagger_probe.cu``): each variant's launch
-   configuration against K1's, as the two libraries report them (1024
-   threads, K1's shared memory, one CTA per SM); every variant against
+8. K1's stage probes (``csrc/flagger_probe.cu``), on the strided layout
+   K2 keeps: each variant's launch configuration against K2's, as the two
+   libraries report them (1024 threads, that layout's shared memory, one
+   CTA per SM); every variant against
    its plain version, exact, at several shapes and on 512 rows of the
    dump; on the whole dump, ``full``, ``rank_pair``, ``zeros_fold`` and
    ``shfl_median`` against K1, every ``stage_ablate`` variant against its
    plain version, and ``amp_pairs`` in both layouts against the plain
    amplitude; then the profiling path, the
    four probe tools' ``run`` on the whole dump with the launch counts
-   read, which prints the stage costs; and the plain versions' times;
+   read, which prints the stage costs; K1's measurement builds against
+   their plain versions and K1; ``scripts/k1_ab``: K1 against ``full``,
+   the K5 + K1 call and the builds, 5 interleaved rounds of 3 calls, with
+   each one's median and spread and the run layout's stage costs; and the
+   plain versions' times;
 9. the examples and the cost probes: the tutorial kernels K6 (Triton) and
    K7 (``csrc/examples.cu``) against ``x * 3`` and ``data * scale``,
    exact, at the examples' sizes and at 2**28 float32; the examples'
@@ -53,6 +63,7 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
    read; then the streaming ingest example at the full dump (5 dumps
    through one device slot and K1), each dump's flags equal to
    ``flag_dump``'s on the card, with the upload, flag and pipeline times.
+   K8 and K10 are held to the strided layout's launch, as the probes are.
 
 Any failure raises and exits non-zero before the result lines.  The
 second-to-last line is a JSON record of each kernel, with its bound: the
@@ -64,6 +75,8 @@ written once) over the HBM rate and its operations over the float32 rate
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -235,9 +248,28 @@ def card_state(label: str) -> None:
     print(f"  card state {label}: {state} (SM clock, max SM clock, power draw, temperature)")
 
 
+def ptxas_report(log: str) -> dict:
+    """Per kernel in nvcc's -Xptxas -v output: registers, stack frame and spill bytes."""
+    report, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and name:
+            report[name] = dict(zip(("stack", "spill_stores", "spill_loads"),
+                                    map(int, m.groups())))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in report:
+            report[name]["registers"] = int(m.group(1))
+    return report
+
+
 def phase_build(ff, pct, tr, fp, kernels) -> None:
     from katsdpsigproc_tpu_torch.examples import triple, triple_pallas
-    from katsdpsigproc_tpu_torch.scripts import prim_cost, roofline_skeleton
+    from katsdpsigproc_tpu_torch.scripts import k1_ab, prim_cost, roofline_skeleton
 
     def triton_kernel():
         """Triton compiles K6 at its first launch (into build/, TRITON_CACHE_DIR)."""
@@ -252,6 +284,7 @@ def phase_build(ff, pct, tr, fp, kernels) -> None:
                   pool.submit(tr._library), pool.submit(fp._library, 13),
                   pool.submit(triple._library), pool.submit(prim_cost._library),
                   pool.submit(roofline_skeleton._library, 13)]
+        builds += [pool.submit(k1_ab._library, name) for name in k1_ab.BUILDS]
         triton_s = pool.submit(triton_kernel)
         for b in builds:
             b.result()
@@ -262,26 +295,58 @@ def phase_build(ff, pct, tr, fp, kernels) -> None:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"  nvcc: {line.strip()}")
+    # K1 at __launch_bounds__(1024, 1), a cap of 64 registers: no spills.
+    k1_key = kernels.build_key("fused_flagger", ["fused_flagger.cu"],
+                               {"ff_network.h": ff._network_header(13)})
+    k1 = {re.sub(r".*flagger_kernelILi(\d)E.*", r"flagger_kernel<\1>", name): r
+          for name, r in ptxas_report(kernels.build_info[k1_key]["log"]).items()
+          if "flagger_kernelILi" in name}
+    for name, r in sorted(k1.items()):
+        print(f"  K1 {name}: {r.get('registers')} registers, {r['stack']} B stack frame, "
+              f"{r['spill_stores']} B spill stores, {r['spill_loads']} B spill loads")
+    if len(k1) != 3 or any(r["spill_stores"] or r["spill_loads"] for r in k1.values()):
+        raise AssertionError(f"K1's flagger_kernel spills or is missing from the report: {k1}")
+    # Local memory beyond spills: an array indexed at run time (the kernel
+    # parameters' copy for the window scales is one; SumThreshold's chunk
+    # sums must not be).
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(kernels.BUILD_DIR / k1_key /
+                                                   "libfused_flagger.so")],
+                          capture_output=True, text=True).stdout
+    for part in sass.split("Function : ")[1:]:
+        name = re.sub(r".*flagger_kernelILi(\d)E.*", r"flagger_kernel<\1>", part.split("\n")[0])
+        if name.startswith("flagger_kernel<"):
+            print(f"  K1 {name} SASS: {len(re.findall(r'LDL', part))} local loads, "
+                  f"{len(re.findall(r'STL', part))} local stores")
+    print(f"  K1 takes rows of up to {ff.max_channels()} channels "
+          f"(the strided layout's K2: {ff._library(13).ff_strided_max_channels()})")
 
 
 def phase_kernels(ff, device, check: Check) -> None:
     print("kernels against their plain versions on the card:")
-    cases = [(128, 16), (300, 8), (99, 8), (257, 8), (384, 8), (32768, 64)]
+    # K1's run layout gives each thread R = ceil(C / 1024) channels: runs
+    # shorter than a window (C <= 4096), a last run cut short (1025, 4097),
+    # runs of 32 (32768) and the channel limit.
+    limit = ff.max_channels()
+    k2_limit = ff._library(13).ff_strided_max_channels()
+    cases = [(1, 8), (13, 8), (99, 8), (128, 16), (257, 8), (300, 8), (384, 8), (1023, 8),
+             (1024, 8), (1025, 8), (4097, 8), (32768, 64), (limit, 4)]
     for i, (channels, rows) in enumerate(cases):
         vis, flags = test_dump(channels, rows, seed=100 + i)
         vis_t = torch.from_numpy(device.to_planar(vis.T).copy()).cuda()  # (rows, C, 2)
         flags_t = torch.from_numpy(flags.T.copy()).cuda()
         chan = torch.from_numpy(flags[:, 0].copy()).cuda()
-        variants = [("none", {}, {}), ("full", {"input_flags": flags_t}, {}),
-                    ("channel", {"channel_flags": chan}, {})]
-        if channels == 384:
-            variants += [("none", {}, {"n_windows": 6, "flag_value": 3}),
-                         ("full", {"input_flags": flags_t}, {"n_windows": 6})]
+        variants = [(mode, fkw, pkw)
+                    for mode, fkw in (("none", {}), ("full", {"input_flags": flags_t}),
+                                      ("channel", {"channel_flags": chan}))
+                    for pkw in ({}, {"n_windows": 6, "flag_value": 3})]
         for mode, fkw, pkw in variants:
             label = f"K1 C={channels} rows={rows} {mode} {pkw or ''}".rstrip()
             got = ff.flag_transposed(vis_t, **fkw, **pkw)
             want = ff.flag_transposed_plain(vis_t, **fkw, **pkw)
             check.flags("flagger", label, got, want)
+            if channels > k2_limit:
+                continue
             # K2 on the deviations of the same rows
             fmode = {"none": device.BackgroundFlags.NONE, "full": device.BackgroundFlags.FULL,
                      "channel": device.BackgroundFlags.CHANNEL}[mode]
@@ -292,12 +357,14 @@ def phase_kernels(ff, device, check: Check) -> None:
                         ff.madnz_threshold(dev_t, **pkw), ff.madnz_threshold_plain(dev_t, **pkw))
     # NaN in a row: both the kernel and the plain fast path propagate it
     # through the selection network as jnp.minimum/maximum do.
-    vis, _ = test_dump(300, 8, seed=200)
-    vis[[5, 150, 299], 2] = np.nan
-    vis[0, 3] = np.nan + 0j
-    vis_t = torch.from_numpy(device.to_planar(vis.T).copy()).cuda()
-    check.flags("flagger", "K1 NaN rows", ff.flag_transposed(vis_t),
-                ff.flag_transposed_plain(vis_t))
+    for channels in (300, 1025, 32768):
+        vis, _ = test_dump(channels, 8, seed=200)
+        vis[[5, 150, channels - 1], 2] = np.nan
+        vis[0, 3] = np.nan + 0j
+        vis_t = torch.from_numpy(device.to_planar(vis.T).copy()).cuda()
+        for pkw in ({}, {"n_windows": 6}):
+            check.flags("flagger", f"K1 NaN rows C={channels} {pkw or ''}".rstrip(),
+                        ff.flag_transposed(vis_t, **pkw), ff.flag_transposed_plain(vis_t, **pkw))
     torch.cuda.synchronize()
 
 
@@ -315,7 +382,7 @@ def phase_oracle(ff, device, host, vis_np: np.ndarray, check: Check) -> None:
     check.flags("madnz_threshold", "hybrid (K2) vs host oracle", hybrid.cpu(), expected)
 
 
-def phase_main(ff, device, vis_np: np.ndarray, card: str, check: Check) -> dict:
+def phase_main(ff, fp, tr, device, vis_np: np.ndarray, card: str, check: Check) -> dict:
     from katsdpsigproc_tpu_torch.utils.profiling import time_fn
 
     rows = vis_np.shape[1]
@@ -325,12 +392,14 @@ def phase_main(ff, device, vis_np: np.ndarray, card: str, check: Check) -> dict:
     block = 1008
     hybrid_fn = device.make_flagger_fn(13, 11.0, engine="hybrid", baseline_block=block)
 
+    # The bench's call, flag_dump(swapaxes(v, 0, 1)): K5 turns the view, K1 flags.
     for name in ff.launches:
         ff.launches[name] = 0
-    k1 = ff.flag_dump(vis.transpose(0, 1).contiguous())  # (rows, C)
+    tr.launches["transpose"] = 0
+    k1 = ff.flag_dump(vis.transpose(0, 1))  # (rows, C)
     hybrid = hybrid_fn(vis)  # (C, rows)
     torch.cuda.synchronize()
-    launches = dict(ff.launches)
+    launches = dict(ff.launches, transpose=tr.launches["transpose"])
     print(f"  launches during the main path: {launches}")
     for name, count in launches.items():
         if count < 1:
@@ -347,7 +416,11 @@ def phase_main(ff, device, vis_np: np.ndarray, card: str, check: Check) -> dict:
     plain = plain_k1()
     if not (k1.shape == plain.shape and set(k1.unique().tolist()) <= {0, 1}):
         raise AssertionError(f"unexpected K1 output {k1.shape} {k1.unique().tolist()}")
-    check.flags("flagger", "full dump: K1 (flag_dump) vs plain", k1, plain)
+    check.flags("flagger", "full dump: K5 + K1 (flag_dump of the view) vs plain", k1, plain)
+    check.flags("flagger", "full dump: K1 on the contiguous dump vs K5 + K1", ff.flag_dump(vis_t),
+                k1)
+    check.flags("flagger", "full dump: K1 vs probe full (K1 in the strided layout)",
+                fp.probe(vis_t, "full"), k1)
     check.flags("madnz_threshold", "full dump: hybrid (K2) vs K1", hybrid.T, k1)
     print(f"  flagged fraction {float(k1.float().mean()):.5f}")
 
@@ -373,8 +446,11 @@ def phase_main(ff, device, vis_np: np.ndarray, card: str, check: Check) -> dict:
     card_state("before the main path's timings")
     times = {
         "K1 flag_dump, corner turn excluded": time_fn(lambda: ff.flag_dump(vis_t)),
-        "K1 flag_dump, corner turn included": time_fn(
+        "K5 + K1 flag_dump(vis.transpose(0, 1)), the bench's call": time_fn(
+            lambda: ff.flag_dump(vis.transpose(0, 1))),
+        "plain corner turn + K1 flag_dump": time_fn(
             lambda: ff.flag_dump(vis.transpose(0, 1).contiguous())),
+        "K1 in the strided layout (probe full)": time_fn(lambda: fp.probe(vis_t, "full")),
         "K1 plain (flag_transposed_plain)": time_fn(plain_k1),
         "hybrid engine (plain background + K2)": time_fn(lambda: hybrid_fn(vis)),
         "K2 madnz_threshold": time_fn(lambda: ff.madnz_threshold(dev_t)),
@@ -636,25 +712,31 @@ def phase_flagger_device(ff, vis_np: np.ndarray, card: str, check: Check) -> Non
 
 
 def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) -> dict:
-    from katsdpsigproc_tpu_torch.scripts import (deinterleave_probe, rankpair_ab, rollchain_ab,
-                                                 stage_ablate)
+    from katsdpsigproc_tpu_torch.scripts import (deinterleave_probe, k1_ab, rankpair_ab,
+                                                 rollchain_ab, stage_ablate)
     from katsdpsigproc_tpu_torch.utils.profiling import time_fn
 
     probe_of = {v: name for name, variants in fp.PROBES.items() for v in variants}
     channels, rows = vis_np.shape
     print("K1's stage probes (csrc/flagger_probe.cu):")
 
-    # Every variant launches as K1 does, as both libraries report it: 1024
-    # threads, K1's dynamic shared memory, one CTA per SM.
+    # Every variant launches as the strided layout's K2 does, as both
+    # libraries report it: 1024 threads, that layout's dynamic shared
+    # memory, one CTA per SM.  K1 (the run layout) is printed beside it.
+    k2_cfg = ff.strided_launch_config(channels)
     k1_cfg = ff.launch_config(channels)
-    for v, cfg in [("K1", k1_cfg)] + [(v, fp.launch_config(v, channels))
-                                      for v in fp.VARIANTS + ("amp_pairs",)]:
+    print(f"  launch K1 (run layout) at {channels} channels: {k1_cfg['threads']} threads, "
+          f"{k1_cfg['smem_bytes']} B dynamic shared memory, {k1_cfg['ctas_per_sm']} CTA per SM")
+    for v, cfg in [("K2 (strided layout)", k2_cfg)] + [(v, fp.launch_config(v, channels))
+                                                       for v in fp.VARIANTS + ("amp_pairs",)]:
         print(f"  launch {v} at {channels} channels: {cfg['threads']} threads, "
               f"{cfg['smem_bytes']} B dynamic shared memory, {cfg['ctas_per_sm']} CTA per SM")
-        if cfg != k1_cfg:
-            raise AssertionError(f"{v} does not launch as K1 does ({k1_cfg}): {cfg}")
-    if k1_cfg["threads"] != 1024 or k1_cfg["ctas_per_sm"] != 1:
-        raise AssertionError(f"K1 no longer launches 1024 threads, one CTA per SM: {k1_cfg}")
+        if cfg != k2_cfg:
+            raise AssertionError(f"{v} does not launch as the strided layout does ({k2_cfg}): "
+                                 f"{cfg}")
+    for label, cfg in (("K1", k1_cfg), ("K2", k2_cfg)):
+        if cfg["threads"] != 1024 or cfg["ctas_per_sm"] != 1:
+            raise AssertionError(f"{label} no longer launches 1024 threads, one CTA per SM: {cfg}")
 
     # Every variant against its plain version, exact.
     cases = []
@@ -667,6 +749,9 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
         for v in fp.VARIANTS:
             check.flags(probe_of[v], f"{v} vs plain, {label}", fp.probe(vis_t, v),
                         fp.probe_plain(vis_t, v))
+        for name in k1_ab.BUILDS:
+            check.flags("flagger", f"K1 build {name} vs plain, {label}", k1_ab.build(vis_t, name),
+                        k1_ab.build_plain(vis_t, name))
         vis_c = vis_t.transpose(0, 1).contiguous()
         check.exact("deinterleave", f"amp_pairs baseline-major vs plain, {label}",
                     fp.amp_pairs(vis_t), fp.amp_pairs_plain(vis_t))
@@ -692,6 +777,8 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
     k1 = ff.flag_dump(vis_t)
     for v in fp.EXACT:
         check.flags(probe_of[v], f"full dump: {v} vs K1", fp.probe(vis_t, v), k1)
+    check.flags("flagger", "full dump: K1 build select_minmax vs K1",
+                k1_ab.build(vis_t, "select_minmax"), k1)
     del k1
     for v in fp.STAGE_ABLATE:
         check.flags(probe_of[v], f"full dump: {v} vs plain", fp.probe(vis_t, v), plain_fns[v]())
@@ -711,8 +798,16 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
     rank_ms = rankpair_ab.run(vis_t, iters=3, reps=5, card=card)
     roll_ms = rollchain_ab.run(vis_t, iters=3, reps=5, card=card)
     dein_ms = deinterleave_probe.run(vis, iters=3, reps=5, card=card)
+    print(f"K1 (run layout) against K1 in the strided layout, interleaved, 5 rounds of 3 calls, "
+          f"on {card}:")
+    for name in k1_ab.launches:
+        k1_ab.launches[name] = 0
+    k1_ab.run(vis_t, vis, iters=3, reps=5, card=card)
     torch.cuda.synchronize()
     card_state("after the probe tools")
+    print(f"  launches of K1's measurement builds: {dict(k1_ab.launches)}")
+    if min(k1_ab.launches.values()) < 1:
+        raise AssertionError("a measurement build of K1 was not launched")
     counts = {name: sum(fp.launches[v] for v in variants) for name, variants in fp.PROBES.items()}
     print(f"  launches during the profiling path: {dict(fp.launches)}")
     for v, count in fp.launches.items():
@@ -826,13 +921,13 @@ def phase_cost_probes(ff, device, vis_np: np.ndarray, card: str, check: Check) -
             check.close("prim_cost", f"K8 {body}", got, want, rtol=1e-6)
         else:
             check.exact("prim_cost", f"K8 {body or 'empty'}", got, want)
-    k1_cfg = ff.launch_config(channels)
+    k2_cfg = ff.strided_launch_config(channels)
     for label, cfg in (("K8 rank_round", prim_cost.launch_config("rank_round")),
                        ("K10", rsk.launch_config(channels))):
         print(f"  launch {label}: {cfg['threads']} threads, {cfg['smem_bytes']} B dynamic shared "
-              f"memory, {cfg['ctas_per_sm']} CTA per SM (K1: {k1_cfg})")
-        if cfg["ctas_per_sm"] != k1_cfg["ctas_per_sm"] or cfg["threads"] != k1_cfg["threads"]:
-            raise AssertionError(f"{label} does not run at K1's occupancy: {cfg}")
+              f"memory, {cfg['ctas_per_sm']} CTA per SM (the strided layout's K2: {k2_cfg})")
+        if cfg["ctas_per_sm"] != k2_cfg["ctas_per_sm"] or cfg["threads"] != k2_cfg["threads"]:
+            raise AssertionError(f"{label} does not run at the strided layout's occupancy: {cfg}")
 
     print("K10 (csrc/roofline_skeleton.cu) against its plain version, output and rank carry:")
     vis = torch.from_numpy(device.to_planar(vis_np)).to(dev)  # (C, rows, 2)
@@ -956,7 +1051,7 @@ def main() -> None:
     vis_np = meerkat_dump(CHANNELS, BASELINES * POLS)
     print(f"dump generated on the host in {time.perf_counter() - t0:.1f} s")
     phase_oracle(ff, device, host, vis_np, check)
-    results = phase_main(ff, device, vis_np, card, check)
+    results = phase_main(ff, fp, tr, device, vis_np, card, check)
     results.update(phase_ops(pct, tr, vis_np, card, check))
     phase_flagger_device(ff, vis_np, card, check)
     results.update(phase_probes(fp, ff, device, vis_np, card, check))

@@ -15,11 +15,13 @@
 //       the main path's own input before its corner turn.
 //
 // What bounds them: what bounds K1 (fused_flagger.cu's header).  A probe
-// measures only if it runs the machine K1 runs: every kernel here launches
-// kThreads = 1024 threads with smem_bytes(C) of dynamic shared memory,
-// K1's block and K1's allocation, so one CTA runs per SM at 32768 channels
-// whatever the variant uses of it.  The code is K1's (ff_device.cuh); only
-// the stage a variant names differs, and K1 itself gains no knob.
+// measures only if its variants all run one machine: every kernel here
+// launches kThreads = 1024 threads with smem_bytes(C) of dynamic shared
+// memory, the block and allocation of the strided layout (ff_device.cuh,
+// K2's and the layout K1 had before its run layout, ff_runs.cuh), so one
+// CTA runs per SM at 32768 channels whatever the variant uses of it.
+// `full` is K1 in that layout, flag for flag the run layout's K1; only the
+// stage a variant names differs, and K1 itself gains no knob.
 //
 // Variants, with the stand-ins' semantics of stage_ablate.py:61-80 (there
 // are no input flags, and C >= FF_WIDTH):

@@ -12,24 +12,26 @@
 //   pallas_flagger.py::_dma_block_loop.
 //
 // What bounds it on the card: the minimum traffic is 9 B per visibility
-// (8 B planar read, 1 B flag write; K2 reads 4 B of deviations), about
-// 0.7 ms for the 32768 x 8064 dump at 3.35 TB/s.  The row never leaves
-// shared memory, so the limit is on-chip work: 31 dependent block-wide
-// count reductions per row (each a full pass over the row in shared memory
-// plus two barriers' worth of latency), the 13-member selection network per
-// channel, and the window ladders.
+// (8 B planar read, 1 B flag write; K2 reads 4 B of deviations), 0.710 ms
+// for the 32768 x 8064 dump at 3.35 TB/s.  The row never leaves shared
+// memory, so the limit is on-chip work: the 13-member selection network per
+// channel, the window ladders, and 31 dependent block-wide count reductions
+// per row, each a pass over the row plus a barrier.
 //
-// What the design does about it: one CTA of 1024 threads owns a whole row
-// (C x 4 B of deviations + C x 1 B of flags in dynamic shared memory, so
-// 160 KiB at 32768 channels), reads each visibility once and writes each
-// flag once.  The deviations overwrite the amplitudes in place, one tile of
-// 1024 channels at a time, with a small halo holding the amplitudes that
-// the next tile's windows still need.  Each block-wide reduction is a warp
-// `__reduce_*_sync` plus one barrier over a double-banked partials buffer.
-// Faster variants (prefetching the next row, fewer reduction rounds) are
-// later work; this is the simple, exact version.
+// Two layouts of the row, both one 1024-thread CTA per row that reads each
+// visibility once and writes each flag once:
+//  * the run layout of K1 (ff_runs.cuh): deviations padded one word in 32,
+//    SumThreshold on per-thread runs of channels with bit-mask flags and
+//    window sums by doubling in registers, one-instruction min.NaN/max.NaN
+//    comparators in the median, the rank search's |dev| in registers.  Its
+//    header says what each does about the stage costs, and why the NaN
+//    payload and signed zero of min.NaN/max.NaN cannot reach the flags;
+//  * the strided layout (ff_device.cuh): C x 4 B of deviations + C x 1 B of
+//    flags, thread t owning channels t, t + 1024, ...  K2 runs on it, and so
+//    do K1's stage probes (flagger_probe.cu, whose `full` is K1 in this
+//    layout), the roofline skeleton and the cost probes' launch.
 //
-// Parity with the JAX reference, bit for bit:
+// Parity with the JAX reference, bit for bit, in both:
 //  * no FMA contraction anywhere (built with -fmad=false), and re*re+im*im
 //    is written with __fmul_rn/__fadd_rn; sqrt is the IEEE __fsqrt_rn;
 //  * averages are (a + b) * 0.5f in float32, in the JAX operand order;
@@ -42,12 +44,19 @@
 // The selection networks come from ff_network.h, which the loader renders
 // from katsdpsigproc_tpu_torch.ops.rank.selection_network for the width.
 
-// The device functions live in ff_device.cuh, shared with K1's stage
-// probes (flagger_probe.cu).
+#include "ff_runs.cuh"  // includes ff_device.cuh
 
-#include "ff_device.cuh"
+// Measurement builds of K1 (scripts/k1_ab.py) replace one stage by the
+// stand-in of K1's stage probes (flagger_probe.cu), to price the stage in
+// the run layout: FF_RUNS_ABLATE 1, median := amp * 0.5; 2, noise := 1;
+// 3, flags := dev > noise.  0, the default, is K1.
+#ifndef FF_RUNS_ABLATE
+#define FF_RUNS_ABLATE 0
+#endif
 
 namespace {
+
+constexpr int kAblate = FF_RUNS_ABLATE;
 
 // K1.  kMode 0: no input flags; 1: FULL (rows, C) u8; 2: CHANNEL (C,) u8.
 template <int kMode>
@@ -57,9 +66,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = p.channels;
   float* buf = reinterpret_cast<float*>(smem);
-  uint8_t* flags = smem + flags_offset(C);
-  int* red = reinterpret_cast<int*>(smem + scratch_offset(C));
-  float* halo = reinterpret_cast<float*>(red + 2 * kWarps);
+  runs::u64* flag_masks = reinterpret_cast<runs::u64*>(smem + runs::masks_offset(C));
+  runs::u64* hit_masks = flag_masks + kThreads;
+  int* red = reinterpret_cast<int*>(hit_masks + kThreads);
   const size_t row = blockIdx.x;
 
   const float2* v = vis + row * C;
@@ -67,15 +76,30 @@ __global__ void __launch_bounds__(kThreads, 1)
     float a = amplitude(v[c]);
     if (kMode == 1 && in_flags[row * C + c] != 0) a = CUDART_INF_F;
     if (kMode == 2 && in_flags[c] != 0) a = CUDART_INF_F;
-    buf[c] = a;
+    if (kAblate == 1) {
+      buf[runs::phys(c)] = __fsub_rn(a, __fmul_rn(a, 0.5f));  // no reads: in place
+    } else {
+      buf[c] = a;
+    }
   }
   __syncthreads();
-  if (kMode == 0 && C >= FF_WIDTH) {
-    median_to_deviations<true, false>(buf, halo, C);
-  } else {
-    median_to_deviations<false, kMode != 0>(buf, halo, C);
+  if constexpr (kAblate != 1) {
+    if (kMode == 0 && C >= FF_WIDTH) {
+      runs::median_to_deviations<true, false>(buf, C);
+    } else {
+      runs::median_to_deviations<false, kMode != 0>(buf, C);
+    }
   }
-  madnz_threshold_row(buf, flags, red, out + row * C, p);
+  int bank = 0;
+  const float noise = kAblate == 2 ? 1.0f : runs::mad_noise(buf, red, bank, C);
+  if (kAblate == 3) {
+    const uint8_t fv = (uint8_t)p.flag_value;
+    for (int c = threadIdx.x; c < C; c += kThreads) {
+      out[row * C + c] = buf[runs::phys(c)] > noise ? fv : 0;
+    }
+  } else {
+    runs::sum_threshold(buf, flag_masks, hit_masks, noise, out + row * C, p);
+  }
 }
 
 // K2.
@@ -92,30 +116,48 @@ __global__ void __launch_bounds__(kThreads, 1)
   madnz_threshold_row(buf, flags, red, out + row * C, p);
 }
 
-}  // namespace
-
-extern "C" {
-
-// The largest channel count whose row fits one CTA's shared memory on the
-// current device (0 on error).
-int ff_max_channels(void) { return max_channels(); }
-
-const char* ff_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
-
-// K1's launch configuration at `channels` (flagger_kernel<0>): threads per
-// CTA, dynamic shared memory, and the CTAs that fit one SM at once.  K1's
-// stage probes are held to it.
-int ff_launch_config(int channels, int* threads, long long* smem_bytes_out, int* ctas_per_sm) {
-  if (channels < 1 || channels > max_channels()) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(channels);
-  int err = set_smem(flagger_kernel<0>, smem);
+// Threads per CTA, dynamic shared memory and the CTAs that fit one SM at
+// once for `kernel` at `smem` bytes.
+template <typename Kernel>
+int launch_config(Kernel kernel, size_t smem, int* threads, long long* smem_bytes_out,
+                  int* ctas_per_sm) {
+  int err = set_smem(kernel, smem);
   if (!err) {
-    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, flagger_kernel<0>,
-                                                             kThreads, smem);
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kernel, kThreads, smem);
   }
   *threads = kThreads;
   *smem_bytes_out = (long long)smem;
   return err;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The largest channel count K1 takes (its row in the run layout fits one
+// CTA's shared memory on the current device; 0 on error).
+int ff_max_channels(void) { return runs::max_channels(); }
+
+// The same for K2 and every kernel on the strided layout.
+int ff_strided_max_channels(void) { return max_channels(); }
+
+const char* ff_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// K1's launch configuration at `channels` (flagger_kernel<0>): threads per
+// CTA, dynamic shared memory, and the CTAs that fit one SM at once.
+int ff_launch_config(int channels, int* threads, long long* smem_bytes_out, int* ctas_per_sm) {
+  if (channels < 1 || channels > runs::max_channels()) return (int)cudaErrorInvalidValue;
+  return launch_config(flagger_kernel<0>, runs::smem_bytes(channels), threads, smem_bytes_out,
+                       ctas_per_sm);
+}
+
+// The strided layout's launch configuration at `channels`, K2's: K1's stage
+// probes, the roofline skeleton and the cost probes are held to it.
+int ff_strided_launch_config(int channels, int* threads, long long* smem_bytes_out,
+                             int* ctas_per_sm) {
+  if (channels < 1 || channels > max_channels()) return (int)cudaErrorInvalidValue;
+  return launch_config(madnz_threshold_kernel, smem_bytes(channels), threads, smem_bytes_out,
+                       ctas_per_sm);
 }
 
 // K1 over `rows` rows of planar (re, im) float32 pairs, (rows, channels, 2).
@@ -130,7 +172,7 @@ int ff_flagger(const void* vis, const void* in_flags, int mode, void* out, int r
   if (rows < 1 || mode < 0 || mode > 2 || (mode != 0 && in_flags == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = smem_bytes(channels);
+  const size_t smem = runs::smem_bytes(channels);
   const float2* v = static_cast<const float2*>(vis);
   const uint8_t* f = static_cast<const uint8_t*>(in_flags);
   uint8_t* o = static_cast<uint8_t*>(out);

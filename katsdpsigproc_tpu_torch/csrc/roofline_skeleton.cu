@@ -26,9 +26,10 @@
 //
 // What bounds it: operations.  The inventory's ~150 operations per
 // element against 5 B of traffic (4 B in, 1 B out) put the op bound above
-// the byte bound.  The design is K1's machine, so the skeleton's time
-// stands beside K1's: one CTA of kThreads threads per row with the row
-// resident in K1's dynamic shared memory (5 B per channel: values, then
+// the byte bound.  The design is the machine of the strided layout
+// (ff_device.cuh, K2's and K1's stage probes'), so the skeleton's time
+// stands beside theirs: one CTA of kThreads threads per row with the row
+// resident in that layout's dynamic shared memory (5 B per channel: values, then
 // flag bytes), so one CTA per SM at 32768 channels.  A channel shift is a
 // read of a neighbour in shared memory; the amplitudes are replaced in
 // place by the deviations a tile of kThreads channels at a time behind a

@@ -2,10 +2,13 @@
 
 Hopper counterparts of the TPU probes in ``scripts/``, which time or A/B
 the stages of ``pallas_flagger.py::_flagger_body`` on the TPU.  Here they
-are variants of K1 itself, built from K1's device code
-(``csrc/ff_device.cuh``) and launched with K1's block (1024 threads) and
-K1's dynamic shared memory, so a variant runs at K1's occupancy of one CTA
-per SM and a difference of two times is the cost of one stage:
+are variants of K1 in the strided layout (``csrc/ff_device.cuh``: thread t
+owns channels t, t + 1024, ... of a row held at 5 B per channel), the
+layout K1 had before its run layout (``csrc/ff_runs.cuh``) and K2 still
+has.  ``full`` is that K1, flag for flag the current one.  Every variant
+launches with that layout's block (1024 threads) and dynamic shared
+memory (:func:`.fused_flagger.strided_launch_config`), one CTA per SM, so
+a difference of two times is the cost of one stage:
 
 * **K11** ``stage_ablate.py::make_fn.kernel`` (:52): :data:`STAGE_ABLATE`,
   K1 (``full``) and K1 with one stage replaced by a near-free stand-in;
@@ -92,8 +95,9 @@ def _check_vis(vis, name: str):
 def launch_config(variant: str, channels: int) -> dict:
     """How the kernel of `variant` launches at `channels`, from the library itself.
 
-    The same keys as :func:`.fused_flagger.launch_config`, which gives
-    K1's: every variant must launch as K1 does.  Needs a CUDA device.
+    The same keys as :func:`.fused_flagger.strided_launch_config`: every
+    variant must launch as the strided layout's K2 does.  Needs a CUDA
+    device.
     """
     code = _AMP_PAIRS if variant == "amp_pairs" else _CODE.get(variant)
     if code is None:
@@ -163,7 +167,8 @@ def probe(vis_t, variant: str, *, width: int = 13):
         return out
     with torch.cuda.device(vis_t.device):
         lib = _library(width)
-        scales, sigma, stream = ff._launch_args(lib, [vis_t], channels, PARAMS["n_sigma"],
+        ff._check_limit(channels, lib.ff_max_channels())
+        scales, sigma, stream = ff._launch_args([vis_t], channels, PARAMS["n_sigma"],
                                                 PARAMS["falloff"], PARAMS["n_windows"])
         err = lib.fp_probe(_CODE[variant], vis_t.data_ptr(), out.data_ptr(), rows, channels,
                            sigma, scales.ctypes.data, len(scales), PARAMS["flag_value"],
@@ -202,7 +207,8 @@ def amp_pairs(vis, *, channel_major: bool = False):
         lib = _library(13)  # the network header's width does not affect K12
         limit = lib.ff_max_channels()
         if channels > limit:
-            raise ValueError(f"{channels} channels exceed K1's limit of {limit} channels")
+            raise ValueError(f"{channels} channels exceed the strided layout's limit of "
+                             f"{limit} channels")
         err = lib.fp_amp_pairs(vis.data_ptr(), int(channel_major), out.data_ptr(), rows,
                                channels, torch.cuda.current_stream(vis.device).cuda_stream)
     ff._raise_on(lib, err, "amp_pairs")

@@ -9,14 +9,20 @@ kernels live in ``csrc/fused_flagger.cu``:
   whole pipeline (amplitude, masked median background, MAD noise,
   SumThreshold) with one CTA per row and the row resident in shared
   memory, so each visibility is read once and each flag written once.
+  Its row is in the run layout of ``csrc/ff_runs.cuh``
+  (:func:`launch_config`, :func:`max_channels`).
 * **K2** (``madnz_threshold``) replaces
   ``pallas_flagger.py::_madnz_threshold_block``: MAD noise + SumThreshold
-  from deviations, for the hybrid engine.
+  from deviations, for the hybrid engine, on the strided layout of
+  ``csrc/ff_device.cuh`` (:func:`strided_launch_config`).
 
 Both run as one launch over all rows, which takes the place of the TPU's
-in-kernel DMA block loop (``_dma_block_loop``).  The TPU layout knobs
-(``bb``, ``fold``, ``nref``, ``pipeline``, ``layout``, ``ingest``,
-``rank_radix``, ``slab``) have no counterpart: a row is one CTA.
+in-kernel DMA block loop (``_dma_block_loop``).  The wrappers take the
+JAX functions' parameters in their order.  The TPU layout knobs (``bb``,
+``fold``, ``interpret``, ``nref``, ``pipeline``, ``rank_radix``,
+``slab``) are accepted and ignored: a row is one CTA.  The TPU's other
+layouts (``layout="leading"``, ``ingest="amp"``) are not ported and
+raise ``NotImplementedError``.
 
 A tensor on the CPU goes to the plain version beside each kernel
 (:func:`flag_transposed_plain`, :func:`madnz_threshold_plain`), composed
@@ -30,7 +36,7 @@ import functools
 import numpy as np
 import torch
 
-from ...ops import rank as rank_ops
+from ...ops import rank as rank_ops, transpose as transpose_ops
 from . import device
 from .device import BackgroundFlags
 
@@ -73,14 +79,21 @@ _LAUNCH_CONFIG_OUT = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_long
 def _library(width: int) -> ctypes.CDLL:
     from ...utils import kernels
 
-    lib = kernels.load("fused_flagger", ["fused_flagger.cu"],
-                       {"ff_network.h": _network_header(width)})
+    return _bind(kernels.load("fused_flagger", ["fused_flagger.cu"],
+                              {"ff_network.h": _network_header(width)}))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a build of ``fused_flagger.cu``."""
     lib.ff_max_channels.argtypes = []
     lib.ff_max_channels.restype = ctypes.c_int
     lib.ff_error_string.argtypes = [ctypes.c_int]
     lib.ff_error_string.restype = ctypes.c_char_p
-    lib.ff_launch_config.argtypes = [ctypes.c_int] + _LAUNCH_CONFIG_OUT
-    lib.ff_launch_config.restype = ctypes.c_int
+    lib.ff_strided_max_channels.argtypes = []
+    lib.ff_strided_max_channels.restype = ctypes.c_int
+    for query in (lib.ff_launch_config, lib.ff_strided_launch_config):
+        query.argtypes = [ctypes.c_int] + _LAUNCH_CONFIG_OUT
+        query.restype = ctypes.c_int
     lib.ff_flagger.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -102,6 +115,16 @@ def _check_params(n_windows: int, flag_value: int) -> None:
         raise ValueError(f"flag_value must fit uint8, got {flag_value}")
 
 
+def _check_layout(layout: str, ingest: str) -> None:
+    """The JAX package's other input layouts are TPU layouts, not ported."""
+    if layout != "trailing":
+        raise NotImplementedError(f"layout={layout!r}: the port takes (rows, channels, 2) "
+                                  f"planar input only (layout='trailing')")
+    if ingest != "planar":
+        raise NotImplementedError(f"ingest={ingest!r}: the port takes planar (re, im) pairs "
+                                  f"only (ingest='planar')")
+
+
 def _check_tensor(name: str, t, dtype, shape, device_of) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
@@ -111,20 +134,38 @@ def _check_tensor(name: str, t, dtype, shape, device_of) -> None:
         raise ValueError(f"{name} is on {t.device}, expected {device_of}")
 
 
+def _row_major(t):
+    """`t` with its rows contiguous, as the kernels read them.
+
+    The transposed view of a contiguous tensor (the JAX callers'
+    ``swapaxes`` of a channel-major dump) is corner-turned by K5
+    (:func:`..ops.transpose.transpose_cuda`); any other strided layout is
+    copied by ``contiguous()``.  Either way the same kernel runs after.
+    """
+    if t.is_contiguous():
+        return t
+    if t.ndim >= 2 and t.transpose(0, 1).is_contiguous():
+        return transpose_ops.transpose_cuda(t.transpose(0, 1))
+    return t.contiguous()
+
+
 def _window_scales(falloff: float, n_windows: int, channels: int) -> np.ndarray:
     """float32(falloff ** -w), the power in double, for each window that fits."""
     return np.array([np.float32(falloff ** -w) for w in range(n_windows)
                      if (1 << w) <= channels], dtype=np.float32)
 
 
-def _launch_args(lib, tensors, channels: int, n_sigma: float, falloff: float, n_windows: int):
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("the CUDA kernels take contiguous tensors")
-    limit = lib.ff_max_channels()
+def _check_limit(channels: int, limit: int) -> None:
     if channels > limit:
         raise ValueError(
             f"{channels} channels exceed the kernel's limit of {limit} channels: one "
-            f"row (5 B per channel) must fit one CTA's shared memory")
+            f"row must fit one CTA's shared memory")
+
+
+def _launch_args(tensors, channels: int, n_sigma: float, falloff: float, n_windows: int):
+    """The window scales, n_sigma and stream of a launch; the tensors must be contiguous."""
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the CUDA kernels take contiguous tensors")
     scales = _window_scales(falloff, n_windows, channels)
     stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
     return scales, ctypes.c_float(np.float32(n_sigma)), stream
@@ -151,10 +192,28 @@ def launch_config(channels: int) -> dict:
 
     ``threads`` per CTA, ``smem_bytes`` of dynamic shared memory and
     ``ctas_per_sm``, the CTAs the occupancy calculator fits on one SM.
-    Needs a CUDA device.
+    K1 holds a row in the run layout of ``csrc/ff_runs.cuh``.  Needs a
+    CUDA device.
     """
     lib = _library(13)  # the network header's width does not change the launch
     return _query_launch_config(lib, lib.ff_launch_config, channels)
+
+
+def strided_launch_config(channels: int) -> dict:
+    """How a kernel on the strided layout of ``csrc/ff_device.cuh`` launches.
+
+    The keys of :func:`launch_config`, for K2 at `channels`: thread t owns
+    channels t, t + 1024, ... of a row held at 5 B per channel.  K1's
+    stage probes, the roofline skeleton and the cost probes compile that
+    layout and are held to this configuration.  Needs a CUDA device.
+    """
+    lib = _library(13)
+    return _query_launch_config(lib, lib.ff_strided_launch_config, channels)
+
+
+def max_channels() -> int:
+    """The most channels a row may hold in K1 (its run layout); needs a CUDA device."""
+    return _library(13).ff_max_channels()
 
 
 def flag_transposed_plain(vis_t, input_flags=None, *, width: int = 13, n_sigma: float = 11.0,
@@ -189,19 +248,23 @@ def madnz_threshold_plain(dev_t, *, n_sigma: float = 11.0, n_windows: int = 4,
                                 transposed=True)
 
 
-def flag_transposed(vis_t, input_flags=None, *, width: int = 13, n_sigma: float = 11.0,
+def flag_transposed(vis_t, input_flags=None, width: int = 13, n_sigma: float = 11.0,
                     n_windows: int = 4, falloff: float = 1.2, flag_value: int = 1,
-                    channel_flags=None):
+                    bb: int = 4, fold: int = 1024, interpret: bool = False,
+                    channel_flags=None, nref: int = 1, rank_radix: int = 1,
+                    layout: str = "trailing", ingest: str = "planar"):
     """Fused flagger on baseline-major planar visibilities (K1).
 
     Port of ``katsdpsigproc_tpu/models/rfi/pallas_flagger.py::flag_transposed``
-    and ``::flag_transposed_dma``.
+    and ``::flag_transposed_dma``, with their parameters in their order.
 
     Parameters
     ----------
     vis_t
         (rows, channels, 2) float32 (re, im) pairs, one row per baseline
-        (and polarization).
+        (and polarization), in any layout: on the card the transposed view
+        of a channel-major dump is corner-turned by K5 first, any other
+        strided layout copied.
     input_flags
         Optional (rows, channels) uint8 prior flags (FULL mode); non-zero
         samples are excluded from the background.
@@ -210,11 +273,19 @@ def flag_transposed(vis_t, input_flags=None, *, width: int = 13, n_sigma: float 
         (CHANNEL mode).  Mutually exclusive with ``input_flags``.
     width, n_sigma, n_windows, falloff, flag_value
         The flagger's parameters, as in the JAX function.
+    bb, fold, interpret, nref, rank_radix
+        The TPU kernel's layout knobs.  Accepted and ignored: they do not
+        change the result, and a row here is one CTA.
+    layout, ingest
+        Only ``"trailing"`` and ``"planar"``; the TPU's other layouts raise
+        ``NotImplementedError``.
 
     Returns
     -------
     (rows, channels) uint8 flags on the input's device.
     """
+    del bb, fold, interpret, nref, rank_radix
+    _check_layout(layout, ingest)
     if input_flags is not None and channel_flags is not None:
         raise ValueError("pass either input_flags (FULL) or channel_flags (CHANNEL), not both")
     if width % 2 != 1 or not 3 <= width <= MAX_WIDTH:
@@ -245,9 +316,11 @@ def flag_transposed(vis_t, input_flags=None, *, width: int = 13, n_sigma: float 
         elif channel_flags is not None:
             mode, flags = 2, channel_flags
         lib = _library(width)
+        _check_limit(channels, lib.ff_max_channels())
+        vis_t = _row_major(vis_t)
+        flags = None if flags is None else _row_major(flags)
         scales, sigma, stream = _launch_args(
-            lib, [t for t in (vis_t, flags) if t is not None], channels, n_sigma, falloff,
-            n_windows)
+            [t for t in (vis_t, flags) if t is not None], channels, n_sigma, falloff, n_windows)
         err = lib.ff_flagger(vis_t.data_ptr(), None if flags is None else flags.data_ptr(), mode,
                              out.data_ptr(), rows, channels, sigma, scales.ctypes.data,
                              len(scales), flag_value, stream)
@@ -256,18 +329,40 @@ def flag_transposed(vis_t, input_flags=None, *, width: int = 13, n_sigma: float 
     return out
 
 
-# The JAX package's flag_dump slabs a dump through a scan or an in-kernel
-# DMA loop; here one launch already covers every row of any dump.
-flag_dump = flag_transposed
+def flag_dump(vis_t, input_flags=None, slab: int = 256, width: int = 13,
+              n_sigma: float = 11.0, n_windows: int = 4, falloff: float = 1.2,
+              flag_value: int = 1, bb: int = 1, fold: int = 1024, interpret: bool = False,
+              channel_flags=None, nref: int = 1, pipeline: str = "grid",
+              layout: str = "trailing", ingest: str = "planar"):
+    """Flag a whole dump with one launch of K1.
+
+    Port of ``katsdpsigproc_tpu/models/rfi/pallas_flagger.py::flag_dump``,
+    with its parameters in its order.  The JAX function slabs a dump
+    through a scan or an in-kernel DMA loop; here one launch already
+    covers every row, so ``slab`` and ``pipeline`` are accepted and
+    ignored, as are the TPU layout knobs.  The rest is
+    :func:`flag_transposed`.
+    """
+    del slab, pipeline
+    return flag_transposed(vis_t, input_flags, width, n_sigma, n_windows, falloff, flag_value,
+                           bb, fold, interpret, channel_flags, nref, layout=layout,
+                           ingest=ingest)
 
 
-def madnz_threshold(dev_t, *, n_sigma: float = 11.0, n_windows: int = 4, falloff: float = 1.2,
-                    flag_value: int = 1):
+def madnz_threshold(dev_t, n_sigma: float = 11.0, n_windows: int = 4, falloff: float = 1.2,
+                    flag_value: int = 1, bb: int = 4, fold: int = 1024,
+                    interpret: bool = False, nref: int = 1, pipeline: str = "grid",
+                    rank_radix: int = 1):
     """Fused MAD noise + SumThreshold on (rows, channels) float32 deviations (K2).
 
-    Port of ``katsdpsigproc_tpu/models/rfi/pallas_flagger.py::madnz_threshold``.
-    Returns (rows, channels) uint8 flags on the input's device.
+    Port of ``katsdpsigproc_tpu/models/rfi/pallas_flagger.py::madnz_threshold``,
+    with its parameters in its order; the TPU layout knobs (``bb`` to
+    ``rank_radix``) are accepted and ignored.  On the card the transposed
+    view of a contiguous (channels, rows) array is corner-turned by K5
+    first, any other strided layout copied.  Returns (rows, channels)
+    uint8 flags on the input's device.
     """
+    del bb, fold, interpret, nref, pipeline, rank_radix
     _check_params(n_windows, flag_value)
     if not isinstance(dev_t, torch.Tensor) or dev_t.ndim != 2:
         raise ValueError("dev_t must be a (rows, channels) tensor")
@@ -285,7 +380,9 @@ def madnz_threshold(dev_t, *, n_sigma: float = 11.0, n_windows: int = 4, falloff
     with torch.cuda.device(dev_t.device):
         # K2 shares K1's library; the network header's width does not affect it.
         lib = _library(13)
-        scales, sigma, stream = _launch_args(lib, [dev_t], channels, n_sigma, falloff, n_windows)
+        _check_limit(channels, lib.ff_strided_max_channels())
+        dev_t = _row_major(dev_t)
+        scales, sigma, stream = _launch_args([dev_t], channels, n_sigma, falloff, n_windows)
         err = lib.ff_madnz_threshold(dev_t.data_ptr(), out.data_ptr(), rows, channels, sigma,
                                      scales.ctypes.data, len(scales), flag_value, stream)
     _raise_on(lib, err, "madnz_threshold")

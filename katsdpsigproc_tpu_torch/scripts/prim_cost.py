@@ -5,9 +5,10 @@ kernel (``csrc/prim_cost.cu``): ``steps x unroll`` reps of
 ``(x, y) -> (body(x, y), x)`` over a (rows, width) float32 block, one CTA
 per row and one thread per lane.  The time over the empty kernel's, per rep
 and per operation of interest, is the operation's cost for the whole
-block.  Chains run at K1's occupancy (its dynamic shared memory at 32768
-channels, so one CTA per SM), where K10 and K1 run: an operation's cost
-depends on the occupancy it runs at, as the TPU's depended on the layout.
+block.  Chains run at the occupancy of the strided layout's kernels (its
+dynamic shared memory at 32768 channels, so one CTA per SM), where K10,
+K2 and K1's stage probes run: an operation's cost depends on the
+occupancy it runs at, as the TPU's depended on the layout.
 
 Bodies, with (operations of interest, helper add-class operations) per
 rep, as ``prim_cost.py:133-162``::
@@ -54,7 +55,7 @@ from . import common
 _C, _C2 = 3.0, 5.0
 
 # The card's floor for one full-block operation: the default (256, 1024)
-# block is two rows of 1024 on each SM (one CTA per SM at K1's occupancy,
+# block is two rows of 1024 on each SM (one CTA per SM at that occupancy,
 # 256 rows over 132 SMs), 2048 elements over an SM's 128 float32 lanes:
 # 16 cycles, 8.1 ns at the H100's 1.98 GHz boost clock.  A chain measuring
 # less per operation did not run.
@@ -110,9 +111,9 @@ def _library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def k1_smem_bytes(channels: int = common.CHANNELS) -> int:
-    """K1's dynamic shared memory at `channels`, from K1's own library."""
-    return fused_flagger.launch_config(channels)["smem_bytes"]
+def strided_smem_bytes(channels: int = common.CHANNELS) -> int:
+    """The strided layout's dynamic shared memory at `channels`, from K2's library."""
+    return fused_flagger.strided_launch_config(channels)["smem_bytes"]
 
 
 def _code(body: Optional[str]) -> int:
@@ -124,9 +125,9 @@ def _code(body: Optional[str]) -> int:
 
 
 def launch_config(body: Optional[str], width: int = 1024, unroll: int = 16) -> dict:
-    """How the chain of `body` launches: the keys of ``fused_flagger.launch_config``."""
+    """How the chain of `body` launches: the keys of ``fused_flagger.strided_launch_config``."""
     lib = _library()
-    smem = max(k1_smem_bytes(), lib.pc_needed_smem(width))
+    smem = max(strided_smem_bytes(), lib.pc_needed_smem(width))
     return fused_flagger._query_launch_config(lib, lib.pc_launch_config, _code(body), unroll,
                                               width, smem)
 
@@ -171,7 +172,7 @@ def chain(x, body: Optional[str], steps: int, unroll: int):
         return out
     with torch.cuda.device(x.device):
         lib = _library()
-        smem = max(k1_smem_bytes(), lib.pc_needed_smem(width))
+        smem = max(strided_smem_bytes(), lib.pc_needed_smem(width))
         err = lib.pc_chain(code, unroll, x.data_ptr(), out.data_ptr(), rows, width, steps, smem,
                            torch.cuda.current_stream(x.device).cuda_stream)
     fused_flagger._raise_on(lib, err, f"prim_cost {body}")

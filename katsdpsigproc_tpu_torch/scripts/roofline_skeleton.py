@@ -6,8 +6,10 @@ inventory (:func:`op_inventory`, a copy of
 ``katsdpsigproc_tpu/models/rfi/roofline.py::op_inventory``).  The skeleton
 kernel (``csrc/roofline_skeleton.cu``) runs that inventory on dummy
 amplitudes, with none of the flagger's masks, valid counts or halfway
-corrections, at K1's launch (1024 threads, K1's dynamic shared memory, one
-CTA per SM), so its time can be set against the model's:
+corrections, at the launch of the strided layout that K2 and K1's stage
+probes compile (1024 threads, that layout's dynamic shared memory, one CTA
+per SM; :func:`.fused_flagger.strided_launch_config`), so its time can be
+set against the model's:
 
 - skeleton ms ~ model ms: the floor is priced right, and K1's time above
   it is real headroom or real work beyond the floor;
@@ -82,7 +84,8 @@ def _library(width: int) -> ctypes.CDLL:
 
 
 def launch_config(channels: int, width: int = 13) -> dict:
-    """How the skeleton launches at `channels`: the keys of :func:`.fused_flagger.launch_config`."""
+    """How the skeleton launches at `channels`: the keys of
+    :func:`.fused_flagger.strided_launch_config`."""
     lib = _library(width)
     return ff._query_launch_config(lib, lib.rs_launch_config, channels)
 

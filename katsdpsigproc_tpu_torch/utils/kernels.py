@@ -5,8 +5,8 @@ library with a plain C interface, then loaded with :mod:`ctypes` (no
 PyTorch headers are compiled, so a build takes seconds).  The build goes
 to ``build/katsdpsigproc_tpu_torch/<name>-<hash>/`` beside the package,
 keyed by a hash of the sources, the shared headers under ``csrc/``, the
-generated headers and the flags (:func:`build_key`), so a changed source
-or header is rebuilt and an unchanged one is reused.
+generated headers, the macro definitions and the flags (:func:`build_key`),
+so a changed source or header is rebuilt and an unchanged one is reused.
 The library is written under a temporary name and renamed into place,
 so processes that build the same key at once cannot see a partial file.
 Builds of different libraries may run at once from several threads (each
@@ -38,8 +38,9 @@ NVCC_FLAGS = (
 _lock = threading.Lock()  # guards _key_locks
 _key_locks: Dict[str, threading.Lock] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
-# Per build key: nvcc's messages (register and shared-memory use) and the
-# seconds the build took (0 when an existing library was reused).
+# Per build key: nvcc's messages (register and shared-memory use; kept as
+# nvcc.log beside the library, so a reused library reports them too) and
+# the seconds the build took (0 when an existing library was reused).
 build_info: Dict[str, dict] = {}
 
 
@@ -60,17 +61,18 @@ def _write_atomic(path: Path, data: bytes) -> None:
     os.replace(tmp, path)
 
 
-def build_key(name: str, sources: Sequence[str], headers: Dict[str, str]) -> str:
+def build_key(name: str, sources: Sequence[str], headers: Dict[str, str],
+              defines: Sequence[str] = ()) -> str:
     """The build directory's name: `name` and a hash of all the build reads.
 
-    The hash covers the flags, the listed sources, every ``*.cuh`` and
-    ``*.h`` under ``csrc/`` (any source may include any of them) and the
-    generated headers.
+    The hash covers the flags and `defines`, the listed sources, every
+    ``*.cuh`` and ``*.h`` under ``csrc/`` (any source may include any of
+    them) and the generated headers.
     """
     shared = sorted(p.relative_to(CSRC_DIR).as_posix() for p in CSRC_DIR.rglob("*")
                     if p.suffix in (".cuh", ".h") and p.is_file())
     digest = hashlib.sha256()
-    for part in (name, *NVCC_FLAGS):
+    for part in (name, *NVCC_FLAGS, *(f"-D{d}" for d in defines)):
         digest.update(part.encode() + b"\0")
     for src in (*sources, *shared):
         digest.update(src.encode() + b"\0" + (CSRC_DIR / src).read_bytes() + b"\0")
@@ -79,15 +81,17 @@ def build_key(name: str, sources: Sequence[str], headers: Dict[str, str]) -> str
     return f"{name}-{digest.hexdigest()[:16]}"
 
 
-def load(name: str, sources: Sequence[str], headers: Dict[str, str]) -> ctypes.CDLL:
+def load(name: str, sources: Sequence[str], headers: Dict[str, str],
+         defines: Sequence[str] = ()) -> ctypes.CDLL:
     """Build (if needed) and load ``lib<name>.so`` from ``csrc/`` sources.
 
     `sources` are file names under ``csrc/``; `headers` maps generated
     header names to their text, written beside the library and found
-    first on the include path.  Raises ``RuntimeError`` with nvcc's
-    output if the build fails.
+    first on the include path; `defines` are macro definitions
+    (``NAME`` or ``NAME=value``) passed to nvcc as ``-D``.  Raises
+    ``RuntimeError`` with nvcc's output if the build fails.
     """
-    key = build_key(name, sources, headers)
+    key = build_key(name, sources, headers, defines)
     with _lock:
         key_lock = _key_locks.setdefault(key, threading.Lock())
     with key_lock:
@@ -96,13 +100,15 @@ def load(name: str, sources: Sequence[str], headers: Dict[str, str]) -> ctypes.C
             return lib
         out_dir = BUILD_DIR / key
         so = out_dir / f"lib{name}.so"
-        info = {"seconds": 0.0, "log": ""}
+        log = out_dir / "nvcc.log"
+        info = {"seconds": 0.0, "log": log.read_text() if log.exists() else ""}
         if not so.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
             for hname, text in headers.items():
                 _write_atomic(out_dir / hname, text.encode())
             tmp = out_dir / f"lib{name}.so.tmp{os.getpid()}"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(out_dir), "-I", str(CSRC_DIR),
+            cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines),
+                   "-I", str(out_dir), "-I", str(CSRC_DIR),
                    "-o", str(tmp), *(str(CSRC_DIR / s) for s in sources)]
             t0 = time.perf_counter()
             proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -111,8 +117,9 @@ def load(name: str, sources: Sequence[str], headers: Dict[str, str]) -> ctypes.C
                 raise RuntimeError(
                     f"nvcc failed (exit {proc.returncode}) building {key}:\n"
                     f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-            os.replace(tmp, so)
             info = {"seconds": time.perf_counter() - t0, "log": proc.stdout + proc.stderr}
+            _write_atomic(log, info["log"].encode())
+            os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         build_info[key] = info
         _loaded[key] = lib

@@ -11,9 +11,10 @@ What changes is the event.  An event here is
   waits with ``synchronize()``.  Its ``wait()`` would make the current
   stream wait and return at once, so ``synchronize()`` is tried first;
 * an object with ``wait()`` that blocks the host (a custom event);
-* a tensor: a CUDA tensor carries no event of its own, so waiting on one
-  synchronises the current stream of its device, which covers the work
-  that produced it when that work was queued there; a CPU tensor is
+* a tensor: a CUDA tensor carries no event of its own, and the stream
+  that produced it is not known (the waiting thread's current stream is
+  its own, not the producer's), so waiting on one synchronises its whole
+  device, which covers work queued on any stream; a CPU tensor is
   complete already;
 * a list, tuple or dict of these, waited on element by element.
 
@@ -40,7 +41,7 @@ _logger = logging.getLogger(__name__)
 def _wait(event) -> None:
     if isinstance(event, torch.Tensor):
         if event.is_cuda:
-            torch.cuda.current_stream(event.device).synchronize()
+            torch.cuda.synchronize(event.device)
     elif hasattr(event, "synchronize"):
         event.synchronize()
     elif hasattr(event, "wait"):

@@ -89,12 +89,107 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         ff.flag_transposed(vis_t.double())
     with pytest.raises(TypeError, match="float32"):
         ff.madnz_threshold(torch.zeros((4, 64), dtype=torch.float16, device=cuda))
-    with pytest.raises(ValueError, match="contiguous"):
-        ff.flag_transposed(torch.zeros((64, 4, 2), device=cuda).transpose(0, 1))
     with pytest.raises(ValueError, match="on cpu"):
         ff.flag_transposed(vis_t, torch.zeros((4, 64), dtype=torch.uint8))
     with pytest.raises(ValueError, match="limit"):
         ff.madnz_threshold(torch.zeros((1, 50000), device=cuda))
+    with pytest.raises(ValueError, match="limit"):
+        ff.flag_dump(torch.zeros((1, ff.max_channels() + 1, 2), device=cuda))
+    with pytest.raises(NotImplementedError, match="leading"):
+        ff.flag_dump(vis_t, layout="leading")
+
+
+def test_strided_input_is_corner_turned_by_k5(cuda):
+    """The JAX callers' swapaxes of a channel-major dump: K5 turns it, then
+    K1 (or K2) runs, and the flags equal those of the contiguous copy."""
+    from katsdpsigproc_tpu_torch.ops import transpose as tr
+
+    vis_t, flags = _dump(1500, 40, seed=5)
+    vis = vis_t.transpose(0, 1).contiguous().to(cuda)  # (C, rows, 2), channel-major
+    flags_c = flags.T.contiguous().to(cuda)  # (C, rows)
+    want = ff.flag_dump(vis.transpose(0, 1).contiguous())
+    want_full = ff.flag_dump(vis.transpose(0, 1).contiguous(), flags_c.T.contiguous())
+    before = (tr.launches["transpose"], ff.launches["flagger"])
+    got = ff.flag_dump(vis.transpose(0, 1))
+    got_full = ff.flag_transposed(vis.transpose(0, 1), flags_c.T)
+    torch.cuda.synchronize()
+    assert tr.launches["transpose"] == before[0] + 3  # vis, vis and the flags
+    assert ff.launches["flagger"] == before[1] + 2
+    assert torch.equal(got, want) and got.any()
+    assert torch.equal(got_full, want_full)
+    # Any other strided layout is copied, and gives the same flags.
+    wide = vis_t.to(cuda).repeat(1, 1, 2)  # (rows, C, 4): pairs 8 B apart in 16
+    before = tr.launches["transpose"]
+    assert torch.equal(ff.flag_dump(wide[..., :2]), want)
+    assert tr.launches["transpose"] == before
+    dev_c = torch.from_numpy(np.random.RandomState(6).standard_normal((1500, 40)).astype(
+        np.float32)).to(cuda)  # (C, rows)
+    dev_c[700:703] += 30.0
+    before = tr.launches["transpose"]
+    got = ff.madnz_threshold(dev_c.T)
+    torch.cuda.synchronize()
+    assert tr.launches["transpose"] == before + 1
+    assert torch.equal(got, ff.madnz_threshold(dev_c.T.contiguous())) and got.any()
+
+
+# K1 at the edges of its run layout: a run of R = ceil(C / 1024) channels
+# per thread, runs shorter than a window (C <= 1024 (W - 2)), a last run
+# cut short (1025, 4097), whole runs of 32 (32768), the channel limit.
+_EDGE_CHANNELS = (1, 13, 99, 257, 1023, 1024, 1025, 4097, 32768, "limit")
+
+
+@pytest.mark.parametrize("channels", _EDGE_CHANNELS)
+@pytest.mark.parametrize("mode", ["none", "full", "channel"])
+def test_k1_at_run_layout_edges_matches_plain_and_full(cuda, channels, mode):
+    fp = _probe()
+    if channels == "limit":
+        channels = ff.max_channels()
+    vis_t, flags = _dump(channels, 3, seed=channels)
+    if mode == "none" and channels >= 13:
+        vis_t[2, channels // 2, 0] = float("nan")  # a NaN row, through the fast median
+    vis_t, flags = vis_t.to(cuda), flags.to(cuda)
+    kw = {"none": {}, "full": {"input_flags": flags},
+          "channel": {"channel_flags": flags[0].contiguous()}}[mode]
+    for n_windows, flag_value in ((4, 1), (6, 3)):
+        got = ff.flag_transposed(vis_t, **kw, n_windows=n_windows, flag_value=flag_value)
+        want = ff.flag_transposed_plain(vis_t, **kw, n_windows=n_windows, flag_value=flag_value)
+        assert torch.equal(got, want), (n_windows, int((got != want).sum()))
+    if mode == "none" and 13 <= channels <= fp._library(13).ff_max_channels():
+        # probe `full` is K1 in the strided layout, flag for flag
+        assert torch.equal(fp.probe(vis_t, "full"), ff.flag_transposed(vis_t))
+
+
+def test_k1_channel_limit_and_launch(cuda):
+    """The run layout holds more channels than the strided one, at one CTA
+    of 1024 threads per SM on the dump."""
+    k1, strided = ff.launch_config(32768), ff.strided_launch_config(32768)
+    assert ff.max_channels() >= 46425
+    assert k1["threads"] == strided["threads"] == 1024
+    assert k1["ctas_per_sm"] == strided["ctas_per_sm"] == 1
+    assert k1["smem_bytes"] < strided["smem_bytes"]
+
+
+def test_resource_waits_for_a_tensor_from_a_side_stream(cuda):
+    """A tensor written on a side stream, handed on with ready([t]): the next
+    holder's wait_events() returns only once that stream's work is done."""
+    from katsdpsigproc_tpu_torch.utils import resource
+
+    async def main():
+        res = resource.Resource(None)
+        first, second = res.acquire(), res.acquire()
+        t = torch.zeros(1 << 20, device=cuda)
+        side = torch.cuda.Stream(cuda)
+        torch.cuda.synchronize()
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(500_000_000)  # about a quarter of a second of cycles
+            t.add_(1.0)
+            written = torch.cuda.Event()
+            written.record(side)
+        first.ready([t])
+        await second.wait_events()
+        return written.query()
+
+    assert asyncio.run(main())
 
 
 # K4 (percentile5) and K5 (transpose): exact against their plain versions.
@@ -240,12 +335,13 @@ def test_amp_pairs_matches_plain(cuda, channels, rows):
 
 
 def test_probes_launch_as_k1_does(cuda):
-    """K1's block and shared memory at every size; at 32768 channels the
-    shared memory also pins K1 and every probe to one CTA per SM (at 128
-    channels the registers set the occupancy, and they differ by variant)."""
+    """The strided layout's block and shared memory (K2's, which `full`, K1
+    in that layout, shares) at every size; at 32768 channels the shared
+    memory also pins K2 and every probe to one CTA per SM (at 128 channels
+    the registers set the occupancy, and they differ by variant)."""
     fp = _probe()
     for channels in (128, 32768):
-        k1 = ff.launch_config(channels)
+        k1 = ff.strided_launch_config(channels)
         assert k1["threads"] == 1024, k1
         if channels == 32768:
             assert k1["ctas_per_sm"] == 1, k1
@@ -412,7 +508,7 @@ def test_prim_cost_unrolls_and_launches_as_k1(cuda, unroll):
     assert torch.equal(prim_cost.chain(x, "roll_lane", 3, unroll),
                        prim_cost.chain_plain(x, "roll_lane", 3, unroll))
     cfg = prim_cost.launch_config("rank_round", 1024, unroll)
-    assert cfg == dict(ff.launch_config(32768), threads=1024), cfg
+    assert cfg == dict(ff.strided_launch_config(32768), threads=1024), cfg
     assert cfg["ctas_per_sm"] == 1
 
 
@@ -449,7 +545,7 @@ def test_skeleton_matches_plain(cuda, channels, rows, width, kind):
 def test_skeleton_launches_as_k1(cuda):
     _, rsk = _cost()
     for channels in (128, 32768):
-        k1 = ff.launch_config(channels)
+        k1 = ff.strided_launch_config(channels)  # the layout K10 compiles
         cfg = rsk.launch_config(channels)
         assert cfg["threads"] == k1["threads"] and cfg["smem_bytes"] == k1["smem_bytes"], cfg
     assert rsk.launch_config(32768)["ctas_per_sm"] == 1

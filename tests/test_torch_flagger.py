@@ -196,3 +196,134 @@ def test_port_runs_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok 0.5.0 1.4826")
+
+
+def test_positional_parameters_in_the_jax_order():
+    """The JAX functions' parameters by position, TPU knobs included: the
+    port takes and ignores `slab`, `bb`, `fold` and `interpret`."""
+    vis, _, input_flags = rfi_test_data(shape=(256, 16), seed=21)
+    vt = _vis_t(vis)
+    flags = input_flags.T.astype(np.uint8).copy()
+    v, f = torch.from_numpy(vt), torch.from_numpy(flags)
+    jv, jf = jnp.asarray(vt), jnp.asarray(flags)
+    # flag_dump(vis_t, input_flags, slab, width, n_sigma, n_windows, falloff, flag_value,
+    #           bb, fold, interpret)
+    got = ff.flag_dump(v, None, 256, 13, 11.0, 4, 1.2, 1, 8, 128, True)
+    want = jpf.flag_dump(jv, None, 256, 13, 11.0, 4, 1.2, 1, 8, 128, True)
+    assert got.any()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(ff.flag_dump(v, None, 256, 13, 11.0, 4, 1.2, 1).numpy(),
+                                  got.numpy())
+    # flag_transposed(vis_t, input_flags, width, n_sigma, n_windows, falloff, flag_value,
+    #                 bb, fold, interpret)
+    got = ff.flag_transposed(v, f, 13, 11.0, 5, 1.2, 2, 8, 128, True)
+    want = jpf.flag_transposed(jv, jf, 13, 11.0, 5, 1.2, 2, 8, 128, True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # madnz_threshold(dev_t, n_sigma, n_windows, falloff, flag_value, bb, fold, interpret)
+    rs = np.random.RandomState(22)
+    dev_t = rs.standard_normal((16, 256)).astype(np.float32)
+    dev_t[:, 90:93] += 9.0
+    got = ff.madnz_threshold(torch.from_numpy(dev_t), 11.0, 4, 1.2, 1, 4, 128, True)
+    want = jpf.madnz_threshold(jnp.asarray(dev_t), 11.0, 4, 1.2, 1, 4, 128, True)
+    assert got.any()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_strided_views_flag_as_their_copies():
+    """The bench's flag_dump(swapaxes(v, 0, 1)) of a channel-major dump."""
+    vis, _, _ = rfi_test_data(shape=(128, 8), seed=23)
+    planar = torch.from_numpy(jdev.to_planar(vis))  # (C, B, 2)
+    want = ff.flag_dump(planar.transpose(0, 1).contiguous())
+    np.testing.assert_array_equal(ff.flag_dump(planar.transpose(0, 1)).numpy(), want.numpy())
+    dev = torch.from_numpy(np.random.RandomState(24).standard_normal((128, 8)).astype(np.float32))
+    np.testing.assert_array_equal(ff.madnz_threshold(dev.T).numpy(),
+                                  ff.madnz_threshold(dev.T.contiguous()).numpy())
+
+
+@pytest.mark.parametrize("kw", [{"layout": "leading"}, {"ingest": "amp"}])
+def test_tpu_layouts_are_not_ported(kw):
+    vt = torch.zeros((4, 64, 2))
+    with pytest.raises(NotImplementedError, match=next(iter(kw.values()))):
+        ff.flag_dump(vt, **kw)
+    with pytest.raises(NotImplementedError, match=next(iter(kw.values()))):
+        ff.flag_transposed(vt, **kw)
+
+
+def _tree_sum(x, c: int, level: int):
+    """The reference's window sum from c, by its definition: Kogge-Stone tree order."""
+    if level == 0:
+        return x[c]
+    half = 1 << (level - 1)
+    return np.float32(_tree_sum(x, c, level - 1) + _tree_sum(x, c + half, level - 1))
+
+
+def _doubling_sums(x, window: int, chunk: int = 8):
+    """Window sums as K1's run layout builds them: chunks of `chunk` starts,
+    each from chunk + window - 1 values by s_2m[i] = s_m[i] + s_m[i + m]."""
+    n = len(x) - window + 1
+    padded = np.concatenate([x, np.full(chunk, np.nan, np.float32)])  # never summed into a start
+    out = np.empty(n, np.float32)
+    for k0 in range(0, n, chunk):
+        s = padded[k0:k0 + chunk + window - 1].copy()
+        m = 1
+        while m < window:
+            top = len(s) - 2 * m + 1
+            s[:top] = s[:top] + s[m:m + top]  # reads s_m[i + m] before it is overwritten
+            m *= 2
+        out[k0:k0 + chunk] = s[:chunk][:n - k0]
+    return out
+
+
+def _run_layout_threshold_sum(dev, noise, n_sigma, n_windows, falloff):
+    """SumThreshold on one row as K1's run layout does it: doubling window
+    sums over the clamped values, and the dilation by shift-OR doubling."""
+    channels = len(dev)
+    flags = np.zeros(channels, bool)
+    base = np.float32(np.float32(n_sigma) * noise)
+    for w in range(n_windows):
+        window = 1 << w
+        if window > channels:
+            break
+        thr = np.float32(base * np.float32(falloff ** -w))
+        clamped = np.where(flags, thr, dev).astype(np.float32)
+        hits = _doubling_sums(clamped, window) > np.float32(thr * np.float32(window))
+        dilated = np.concatenate([hits, np.zeros(window - 1, bool)])
+        m = 1
+        while m < window:  # d_2m = d_m | d_m << m
+            dilated[m:] |= dilated[:-m].copy()
+            m *= 2
+        flags |= dilated
+    return flags
+
+
+def test_doubling_window_sums_are_the_tree_sums_bit_for_bit():
+    """The identity K1's SumThreshold rests on, in float32: the doubling
+    recurrence gives the Kogge-Stone tree sums of the reference for windows
+    1-32, and so the flags of device.threshold_sum."""
+    rs = np.random.RandomState(31)
+    channels = 301
+    dev = (rs.standard_normal(channels) * 10.0 ** rs.uniform(-3, 3, channels)).astype(np.float32)
+    flagged = rs.random_sample(channels) < 0.2
+    clamped = np.where(flagged, np.float32(2.5), dev).astype(np.float32)
+    left_to_right = 0
+    for level in range(6):
+        window = 1 << level
+        got = _doubling_sums(clamped, window)
+        want = np.array([_tree_sum(clamped, c, level) for c in range(channels - window + 1)],
+                        np.float32)
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32), err_msg=window)
+        sequential = np.array([np.cumsum(clamped[c:c + window], dtype=np.float32)[-1]
+                               for c in range(channels - window + 1)], np.float32)
+        left_to_right += int((sequential != want).sum())
+    assert left_to_right > 0  # the order matters on these values, so the test can see it
+    for n_windows in (4, 6):
+        row = rs.standard_normal((4, channels)).astype(np.float32)
+        row[:, 100:104] += 1.5
+        row[:, 200] += 9.0
+        noise = torch.from_numpy(np.full(4, 0.3, np.float32))
+        want = tdev.threshold_sum(torch.from_numpy(row), noise, 4.0, n_windows, 1.2, 1,
+                                  transposed=True).numpy()
+        got = np.stack([_run_layout_threshold_sum(r, np.float32(0.3), 4.0, n_windows, 1.2)
+                        for r in row])
+        assert want.any()
+        np.testing.assert_array_equal(got.astype(np.uint8), want)

@@ -30,7 +30,7 @@ import torch
 
 from katsdpsigproc_tpu.models.rfi import device as jdev, pallas_flagger as jpf
 from katsdpsigproc_tpu_torch.models.rfi import flagger_probe as fp, fused_flagger as ff
-from katsdpsigproc_tpu_torch.scripts import (common, deinterleave_probe, rankpair_ab,
+from katsdpsigproc_tpu_torch.scripts import (common, deinterleave_probe, k1_ab, rankpair_ab,
                                              rollchain_ab, stage_ablate)
 from katsdpsigproc_tpu_torch.utils import kernels
 
@@ -196,6 +196,14 @@ def test_build_key_hashes_every_shared_header(tmp_path, monkeypatch):
                              {"ff_network.h": ff._network_header(15)}) != kernels.build_key(*args)
 
 
+def test_build_key_hashes_the_macro_definitions():
+    args = ("fused_flagger", ["fused_flagger.cu"], {"ff_network.h": ff._network_header(13)})
+    keys = {kernels.build_key(*args)} | {kernels.build_key(*args, (d,))
+                                         for d in k1_ab.BUILDS.values()}
+    assert len(keys) == 1 + len(k1_ab.BUILDS)
+    assert kernels.build_key(*args, ()) == kernels.build_key(*args)
+
+
 def _small_dump(channels=64, rows=6):
     return torch.from_numpy(jdev.to_planar(common.meerkat_dump(channels, rows)))  # (C, rows, 2)
 
@@ -228,7 +236,29 @@ def test_parity_mismatch_raises(monkeypatch):
         rankpair_ab.run(vis_t, iters=1, reps=1)
 
 
-@pytest.mark.parametrize("tool", [stage_ablate, rankpair_ab, rollchain_ab, deinterleave_probe])
+def test_k1_ab_runs_on_cpu_tensors(capsys):
+    """The A/B tool's calls on CPU tensors: K1, `full`, K5 + K1 and the
+    measurement builds, each build its plain version (select_minmax K1's)."""
+    vis = _small_dump(channels=96)
+    vis_t = vis.transpose(0, 1).contiguous()
+    before = dict(k1_ab.launches)
+    out, stages = k1_ab.run(vis_t, vis, iters=1, reps=2, card="cpu")
+    assert set(out) == {"k1", "full", "k5 + k1"} | set(k1_ab.BUILDS)
+    assert all(lo <= med <= hi for med, lo, hi in out.values())
+    assert set(stages) == {"median", "rank", "threshold"}
+    k1 = ff.flag_transposed(vis_t, **fp.PARAMS)
+    assert torch.equal(k1_ab.build(vis_t, "select_minmax"), k1)
+    for name in ("no_median", "no_rank", "no_thresh"):
+        assert torch.equal(k1_ab.build(vis_t, name), fp.probe_plain(vis_t, name))
+    assert k1_ab.launches == before  # no kernel on the CPU
+    text = capsys.readouterr().out
+    assert "k1 / full" in text and "run-layout stage costs" in text
+    with pytest.raises(ValueError, match="unknown build"):
+        k1_ab.build(vis_t, "full")
+
+
+@pytest.mark.parametrize("tool", [stage_ablate, rankpair_ab, rollchain_ab, deinterleave_probe,
+                                  k1_ab])
 def test_probe_tools_refuse_to_run_without_a_card(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):

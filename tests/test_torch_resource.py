@@ -289,3 +289,27 @@ def test_event_protocol():
     assert isinstance(Ev(), fw_abc.AbstractEventLike)
     assert isinstance(FakeCudaEvent(), fw_abc.AbstractEventLike)
     assert not isinstance(object(), fw_abc.AbstractEventLike)
+
+
+def test_cuda_tensor_is_waited_on_with_its_whole_device(monkeypatch):
+    """A CUDA tensor's producer may have queued it on any stream, and the
+    waiting thread's current stream is its own: the wait synchronises the
+    tensor's device, not a stream.  (A stand-in tensor, as this runs on the
+    CPU; tests/test_torch_cuda.py holds the real case on the card.)"""
+
+    class CudaLike(torch.Tensor):
+        @property
+        def is_cuda(self):
+            return True
+
+        @property
+        def device(self):
+            return torch.device("cuda", 1)
+
+    calls = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: calls.append(device))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *args: pytest.fail("waited on the current stream only"))
+    t = torch.Tensor._make_subclass(CudaLike, torch.zeros(2))
+    resource.wait_for_events([t, [t]])
+    assert calls == [torch.device("cuda", 1)] * 2
