@@ -53,15 +53,18 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
    plain versions' times;
 9. the examples and the cost probes: the tutorial kernels K6 (Triton) and
    K7 (``csrc/examples.cu``) against ``x * 3`` and ``data * scale``,
-   exact, at the examples' sizes and at 2**28 float32; the examples'
-   entry point (every example's ``main`` on the card) with the launch
-   counts read; K8 (``csrc/prim_cost.cu``) against its plain chains and
-   K10 (``csrc/roofline_skeleton.cu``) against its plain version on its
-   uint8 output and its rank carry, at several shapes and on 512 rows and
-   the whole of the dump; the cost-probe path (K8's per-op table, then
-   K10 on the whole dump priced by that table) with the launch counts
-   read; then the streaming ingest example at the full dump (5 dumps
-   through one device slot and K1), each dump's flags equal to
+   exact, at the examples' sizes, at their tiles' edges and at 2**28
+   float32; the examples' entry point (every example's ``main`` on the
+   card) with the launch counts read; ``scripts/examples_ab``: K7 and K6
+   against their other designs, PyTorch's calls and ``copy_``, 5
+   interleaved rounds at 2**28 and 5 at 2**24, host-paced (the record)
+   and device-paced; K8 (``csrc/prim_cost.cu``) against its plain chains
+   and K10 (``csrc/roofline_skeleton.cu``) against its plain version on
+   its uint8 output and its rank carry, at several shapes and on 512 rows
+   and the whole of the dump; the cost-probe path (K8's per-op table,
+   then K10 on the whole dump priced by that table) with the launch
+   counts read; then the streaming ingest example at the full dump (5
+   dumps through one device slot and K1), each dump's flags equal to
    ``flag_dump``'s on the card, with the upload, flag and pipeline times.
    K8 and K10 are held to the strided layout's launch, as the probes are.
 
@@ -231,9 +234,9 @@ def phase_device() -> str:
     if not (ROOT / "katsdpsigproc_tpu_torch" / "csrc").is_dir():
         sys.exit("chip_smoke: katsdpsigproc_tpu_torch/ is not beside this script; "
                  "run it from the root of a checkout")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    from katsdpsigproc_tpu_torch.scripts import common
+
+    card = common.card_line()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     print(card)
@@ -242,10 +245,9 @@ def phase_device() -> str:
 
 def card_state(label: str) -> None:
     """The card's SM clock, power draw and temperature now, as nvidia-smi reads them."""
-    state = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
-         "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
-    print(f"  card state {label}: {state} (SM clock, max SM clock, power draw, temperature)")
+    from katsdpsigproc_tpu_torch.scripts import common
+
+    print(f"  card state {label}: {common.card_state()}")
 
 
 def ptxas_report(log: str) -> dict:
@@ -269,7 +271,7 @@ def ptxas_report(log: str) -> dict:
 
 def phase_build(ff, pct, tr, fp, kernels) -> None:
     from katsdpsigproc_tpu_torch.examples import triple, triple_pallas
-    from katsdpsigproc_tpu_torch.scripts import k1_ab, prim_cost, roofline_skeleton
+    from katsdpsigproc_tpu_torch.scripts import examples_ab, k1_ab, prim_cost, roofline_skeleton
 
     def triton_kernel():
         """Triton compiles K6 at its first launch (into build/, TRITON_CACHE_DIR)."""
@@ -285,6 +287,7 @@ def phase_build(ff, pct, tr, fp, kernels) -> None:
                   pool.submit(triple._library), pool.submit(prim_cost._library),
                   pool.submit(roofline_skeleton._library, 13)]
         builds += [pool.submit(k1_ab._library, name) for name in k1_ab.BUILDS]
+        builds += [pool.submit(examples_ab._library, name) for name in examples_ab.BUILDS]
         triton_s = pool.submit(triton_kernel)
         for b in builds:
             b.result()
@@ -848,7 +851,7 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
 def phase_examples(card: str, check: Check) -> dict:
     from katsdpsigproc_tpu_torch.examples import (fill_reduce, hello_device, triple, triple_fn,
                                                   triple_op, triple_pallas)
-    from katsdpsigproc_tpu_torch.utils.profiling import time_interleaved
+    from katsdpsigproc_tpu_torch.scripts import examples_ab
 
     dev = torch.device("cuda", 0)
     print("the tutorial kernels K6 (Triton) and K7 (CUDA C++) against x * 3 and data * scale:")
@@ -860,6 +863,20 @@ def phase_examples(card: str, check: Check) -> dict:
         x = torch.from_numpy(rs.uniform(size=shape).astype(np.float32)).to(dev)
         check.exact("multiply", f"K7 {shape}", triple.multiply(x, 3.0),
                     triple.multiply_plain(x, 3.0))
+    # The tiles' edges: K6's program of TILE elements; K7's CTA of 1024
+    # threads, one float4 each, also from an odd address.
+    def edges(tile):
+        return (tile - 1, tile, tile + 1, 3 * tile + 5)
+
+    for n in edges(triple_pallas.TILE):
+        x = torch.from_numpy(rs.uniform(size=n).astype(np.float32)).to(dev)
+        check.exact("triple", f"K6 n={n}", triple_pallas.triple(x), triple_pallas.triple_plain(x))
+    for n in edges(1024 * 4):
+        base = torch.from_numpy(rs.uniform(size=n + 1).astype(np.float32)).to(dev)
+        for offset in (0, 1):
+            x = base[offset:offset + n]
+            check.exact("multiply", f"K7 n={n} offset {offset}", triple.multiply(x, 0.1),
+                        triple.multiply_plain(x, 0.1))
     n = 1 << 28  # 1 GiB of float32 each way
     gen = torch.Generator(device=dev).manual_seed(1)
     big = torch.empty(n, device=dev).uniform_(-1.0, 1.0, generator=gen)
@@ -885,23 +902,15 @@ def phase_examples(card: str, check: Check) -> dict:
         if count < 1:
             raise AssertionError(f"kernel {name} was not launched by the examples")
 
-    print(f"timings at 2**28 float32 (5 interleaved rounds of 3 calls, median) on {card}:")
-    med, _ = time_interleaved({
-        "K6 triple": lambda: triple_pallas.triple(big),
-        "K6 plain (x * 3.0)": lambda: triple_pallas.triple_plain(big),
-        "library x * 3": lambda: big * 3,
-        "K7 multiply": lambda: triple.multiply(square, 0.1),
-        "K7 plain": lambda: triple.multiply_plain(square, 0.1),
-        "library data * scale": lambda: square * 0.1,
-    }, reps=5, iters=3)
+    # K7 and K6 against their other designs, PyTorch's calls and copy_, timed
+    # host-paced as every other kernel here is (the record) and device-paced.
+    ab = examples_ab.run(big, iters=3, reps=5, card=card)["host-paced"]
     nbytes = 2 * n * 4
-    for name, ms in med.items():
-        print(f"  {name}: {ms:.3f} ms, {nbytes / ms / 1e6:.1f} GB/s [{card}]")
     return {
-        "triple": record(launches["triple"], med["K6 triple"], med["K6 plain (x * 3.0)"], nbytes,
-                         n, med["library x * 3"]),
-        "multiply": record(launches["multiply"], med["K7 multiply"], med["K7 plain"], nbytes, n,
-                           med["library data * scale"]),
+        "triple": record(launches["triple"], ab["k6"][0], ab["k6 plain"][0], nbytes, n,
+                         ab["x * 3"][0]),
+        "multiply": record(launches["multiply"], ab["k7"][0], ab["k7 plain"][0], nbytes, n,
+                           ab["data * scale"][0]),
     }
 
 

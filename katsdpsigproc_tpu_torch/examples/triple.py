@@ -2,8 +2,9 @@
 
 Port of ``doc/examples/triple.py``: the Pallas kernel ``multiply_kernel``
 (K7), which multiplies a block by a scalar held in SMEM, becomes
-``csrc/examples.cu::multiply_kernel``, built by ``nvcc`` on first use,
-with the scalar passed by value into the kernel's constant bank.
+``csrc/examples.cu`` (one CTA per tile of one 16-byte load a thread),
+built by ``nvcc`` on first use, with the scalar passed by value into the
+kernel's constant bank.
 
 Run::
 
@@ -23,17 +24,22 @@ from . import parse
 launches = {"multiply": 0}
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entries of a build of ``csrc/examples.cu``."""
+    lib.ex_error_string.argtypes = [ctypes.c_int]
+    lib.ex_error_string.restype = ctypes.c_char_p
+    for entry in (lib.ex_multiply, lib.ex_multiply_grid_stride):
+        entry.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        entry.restype = ctypes.c_int
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     from ..utils import kernels
 
-    lib = kernels.load("examples", ["examples.cu"], {})
-    lib.ex_error_string.argtypes = [ctypes.c_int]
-    lib.ex_error_string.restype = ctypes.c_char_p
-    lib.ex_multiply.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    lib.ex_multiply.restype = ctypes.c_int
-    return lib
+    return _bind(kernels.load("examples", ["examples.cu"], {}))
 
 
 def multiply_plain(data, scale):
@@ -41,30 +47,49 @@ def multiply_plain(data, scale):
     return data * float(np.float32(scale))
 
 
-def multiply(data, scale, *, threads: int = 256):
-    """``data * scale`` for float32 `data` (K7 on a CUDA tensor).
-
-    Port of ``doc/examples/triple.py::multiply``.  `threads` is the CTA
-    size (a multiple of 32, at most 1024).  Returns a new tensor on the
-    input's device.
-    """
+def _check(data) -> bool:
+    """Whether `data` takes the plain version (a CPU tensor); raises on what K7 does not take."""
     if not isinstance(data, torch.Tensor) or data.dtype != torch.float32:
         raise TypeError("data must be a torch.float32 tensor")
     if data.device.type == "cpu":
-        return multiply_plain(data, scale)
+        return True
     if data.device.type != "cuda":
         raise ValueError(f"unsupported device {data.device}")
     if not data.is_contiguous():
         raise ValueError("the CUDA kernel takes a contiguous tensor")
+    return False
+
+
+def _launch(lib: ctypes.CDLL, entry, data, scale, threads: int):
+    """A new tensor of ``data * scale`` by the C entry `entry` of `lib`, a build of examples.cu.
+
+    The entry sets the device itself, and the current stream is read as a
+    raw handle (as Triton's launcher reads it): ``torch.cuda.device`` and
+    ``torch.cuda.current_stream`` would cost the host more than the rest of
+    the call.  ctypes rounds `scale` to float32 to nearest, as
+    ``np.float32`` does.
+    """
     out = torch.empty_like(data)
-    with torch.cuda.device(data.device):
-        lib = _library()
-        err = lib.ex_multiply(data.data_ptr(), out.data_ptr(), data.numel(),
-                              ctypes.c_float(np.float32(scale)), threads,
-                              torch.cuda.current_stream(data.device).cuda_stream)
+    index = data.get_device()
+    err = entry(data.data_ptr(), out.data_ptr(), data.numel(), float(scale), threads, index,
+                torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(
             f"multiply launch failed: cudaError {err} ({lib.ex_error_string(err).decode()})")
+    return out
+
+
+def multiply(data, scale, *, threads: int = 1024):
+    """``data * scale`` for float32 `data` (K7 on a CUDA tensor).
+
+    Port of ``doc/examples/triple.py::multiply``.  `threads` is the CTA
+    size (a multiple of 32, at most 1024); each CTA streams a tile of
+    `threads` float4s.  Returns a new tensor on the input's device.
+    """
+    if _check(data):
+        return multiply_plain(data, scale)
+    lib = _library()
+    out = _launch(lib, lib.ex_multiply, data, scale, threads)
     launches["multiply"] += 1
     return out
 

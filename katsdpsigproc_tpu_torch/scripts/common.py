@@ -18,6 +18,14 @@ def card_line() -> str:
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
+def card_state() -> str:
+    """The card's SM clock, its maximum, power draw and temperature now, as nvidia-smi reads them."""
+    state = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    return f"{state} (SM clock, max SM clock, power draw, temperature)"
+
+
 def require_card() -> str:
     """Exit unless a CUDA device is present; returns :func:`card_line`."""
     if not torch.cuda.is_available():

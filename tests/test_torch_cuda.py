@@ -17,7 +17,9 @@ import numpy as np
 import pytest
 import torch
 
+from katsdpsigproc_tpu_torch.examples import triple, triple_pallas
 from katsdpsigproc_tpu_torch.models.rfi import device, fused_flagger as ff
+from katsdpsigproc_tpu_torch.scripts import examples_ab
 
 pytestmark = pytest.mark.cuda
 
@@ -414,24 +416,41 @@ def test_templates_without_a_context_run_on_the_card(cuda):
 # and data * scale, each product rounded once.
 
 
-@pytest.mark.parametrize("n", [1, 255, 256, 1000, 4 * 256, (1 << 20) + 3])
-def test_triple_kernel_matches_plain(cuda, n):
-    from katsdpsigproc_tpu_torch.examples import triple_pallas
+TILE = triple_pallas.TILE  # K6's elements a program
 
+
+@pytest.mark.parametrize("n", [1, 255, 256, 1000, 4 * 256, (1 << 20) + 3,
+                               TILE - 1, TILE, TILE + 1, 3 * TILE + 5])
+def test_triple_kernel_matches_plain(cuda, n):
     x = torch.from_numpy(np.random.RandomState(n).standard_normal(n).astype(np.float32)).to(cuda)
     before = triple_pallas.launches["triple"]
     got = triple_pallas.triple(x)
     torch.cuda.synchronize()
     assert triple_pallas.launches["triple"] == before + 1
-    assert got.device == cuda and torch.equal(got, triple_pallas.triple_plain(x))
+    want = triple_pallas.triple_plain(x)
+    assert got.device == cuda and torch.equal(got, want)
+    # The A/B's designs: the earlier one at BLOCK and 4 warps, four vectors a
+    # thread with evict-first hints.
+    assert torch.equal(triple_pallas.triple_config(x, triple_pallas.BLOCK, 4), want)
+    assert torch.equal(triple_pallas.triple_config(x, 4096, 8, evict_first=True), want)
+    assert triple_pallas.launches["triple"] == before + 1
 
 
-@pytest.mark.parametrize("shape", [(8, 128), (1,), (3, 333), ((1 << 20) + 5,)])
+# K7's sizes at its tile edges: (elements a thread in a tile, tiles, extra
+# elements).  multiply's tile is `threads` float4s; the A/B's build of 4
+# loads a thread `threads` x 4; its bulk-copy builds take 32 KiB chunks.
+K7_EDGES = {"tile-1": (4, 1, -1), "tile": (4, 1, 0), "tile+1": (4, 1, 1), "3tiles+5": (4, 3, 5),
+            "tile4-1": (16, 1, -1), "tile4+1": (16, 1, 1)}
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (1,), (3, 333), ((1 << 20) + 5,), *K7_EDGES,
+                                   (8191,), (8193,), (3 * 8192 + 5,)])  # 32 KiB chunks
 @pytest.mark.parametrize("offset", [0, 1])  # 1: the data does not start on 16 bytes
 @pytest.mark.parametrize("threads", [64, 256, 1024])
 def test_multiply_kernel_matches_plain(cuda, shape, offset, threads):
-    from katsdpsigproc_tpu_torch.examples import triple
-
+    if shape in K7_EDGES:
+        per_thread, tiles, extra = K7_EDGES[shape]
+        shape = (tiles * threads * per_thread + extra,)
     n = int(np.prod(shape))
     base = torch.from_numpy(np.random.RandomState(n).standard_normal(n + offset).astype(
         np.float32)).to(cuda)
@@ -440,7 +459,13 @@ def test_multiply_kernel_matches_plain(cuda, shape, offset, threads):
     got = triple.multiply(data, 0.1, threads=threads)
     torch.cuda.synchronize()
     assert triple.launches["multiply"] == before + 1
-    assert torch.equal(got, triple.multiply_plain(data, 0.1))
+    want = triple.multiply_plain(data, 0.1)
+    assert torch.equal(got, want)
+    # The A/B's designs: K7's measurement builds, the grid-stride kernel.
+    for build in examples_ab.BUILDS:
+        assert torch.equal(examples_ab.k7_build(data, build, 0.1, threads), want)
+    assert torch.equal(examples_ab.k7_grid_stride(data, 0.1, threads), want)
+    assert triple.launches["multiply"] == before + 1
     with pytest.raises(ValueError, match="contiguous"):
         triple.multiply(torch.zeros((4, 4), device=cuda).T, 3.0)
 

@@ -19,8 +19,10 @@ import torch
 
 from katsdpsigproc_tpu.models.rfi import device as jdev, host as jhost
 from katsdpsigproc_tpu_torch.models.rfi import device as tdev, host as thost
+from katsdpsigproc_tpu_torch.utils import numerics
 
 from .helpers import rfi_test_data
+from .torch_helpers import inexact_float64_sqrt
 
 MODES = ["NONE", "CHANNEL", "FULL"]
 
@@ -104,6 +106,31 @@ def test_amplitude_contraction_under_jit():
     quant = (np.round(planar * 32) / 32).astype(np.float32)  # exact squares and sums
     np.testing.assert_array_equal(tdev.amplitude(torch.from_numpy(quant)).numpy(),
                                   np.asarray(jax.jit(jdev.amplitude)(jnp.asarray(quant))))
+
+
+def test_sqrt_rn_is_correctly_rounded_whatever_the_float64_root(monkeypatch):
+    """sqrt_rn equals numpy's correctly rounded float32 root bit for bit, also
+    where the float64 root it starts from is off in its last 20 bits: on roots
+    a hair from a rounding midpoint, random values and the edge values."""
+    rs = np.random.RandomState(5)
+    y = rs.uniform(0.5, 4.0, 20000).astype(np.float32)
+    mid = (y.astype(np.float64) + np.nextafter(y, np.float32(np.inf)).astype(np.float64)) / 2
+    near = (mid * mid).astype(np.float32)  # roots within 2**-40 of a midpoint
+    edges = np.array([0.0, -0.0, 1e-45, 1e-40, 1.17e-38, 1.0, 2.0, 3.4e38, np.inf, -1.0,
+                      -np.inf, np.nan], np.float32)
+    x = np.concatenate([near, rs.uniform(0.0, 10.0, 20000).astype(np.float32), edges])
+    with np.errstate(invalid="ignore"):
+        want = np.sqrt(x)
+    finite = ~np.isnan(want)
+    for inexact in (False, True):
+        if inexact:
+            inexact_float64_sqrt(monkeypatch)
+            # The fault is injected: the float64 root rounded once is wrong here.
+            rounded = torch.sqrt(torch.from_numpy(near.astype(np.float64))).to(torch.float32)
+            assert (rounded.numpy() != want[:near.size]).any()
+        got = numerics.sqrt_rn(torch.from_numpy(x)).numpy()
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(np.signbit(got[finite]), np.signbit(want[finite]))
 
 
 @pytest.mark.parametrize("axis", [-1, 0])
