@@ -12,13 +12,18 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
 2. build: builds the kernel libraries with one ``nvcc`` each, all
    started together (with K1's measurement builds of
    ``scripts/k1_ab.py``), and prints the build time and nvcc's register
-   report; K1's ``flagger_kernel`` must spill no bytes, and its SASS's
-   local loads and stores are counted (``cuobjdump -sass``);
+   report; K1's ``flagger_kernel``, K2's ``madnz_threshold_kernel`` and
+   every instance of K4's ``percentile5_radix_kernel`` must spill no
+   bytes, and K1's SASS's local loads and stores are counted
+   (``cuobjdump -sass``);
 3. each kernel against its plain PyTorch version on the card, exact on
    the uint8 flags: K1 in every flag mode at the edge shapes of its run
    layout (1, 13, 99, 257, 1023, 1024, 1025, 4097 and 32768 channels and
    its channel limit), each with n_windows 4 and 6, flag_value 1 and 3,
-   rows holding NaN; K2 on the same deviations where they fit its layout;
+   rows holding NaN; K2, which now has K1's layout, on the same
+   deviations at every one of those shapes, and on deviations K1 never
+   makes (NaN, +-inf, -0, denormals, all-zero rows) at the same shapes,
+   also against K2's strided design where its layout holds the row;
 4. the numpy host oracle on the 512 x 64 subsample of the seed-1 dump,
    through K1 and through the hybrid engine (plain background, then K2);
 5. the main path at full size: the MeerKAT 4-pol dump (32768 channels x
@@ -26,13 +31,22 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
    through ``flag_dump(vis.transpose(0, 1))``, the bench's call (K5's
    corner turn, then K1), the plain version, K1 in the strided layout
    (probe ``full``) and the hybrid engine (K2), which must agree flag for
-   flag, then CUDA-event timings;
+   flag, then CUDA-event timings, and ``scripts/k2_ab``: K2 against its
+   strided design on the dump's deviations, 5 interleaved rounds of 3
+   calls, with each one's median and spread;
 6. the ops path: K4 (percentile5) and K5 (transpose) against their plain
-   versions, exact, at every size below; the plain ops (Fill, MaskedSum,
+   versions, exact, at every size below, K4 also on rows of NaN, +-inf,
+   -0, negatives, denormals and equal values, at rows below and above the
+   SM count, at the edges of its register, shared-memory and
+   device-memory paths and on column-range views, with its measurement
+   builds and the original design held to the same plain version; the plain ops (Fill, MaskedSum,
    HReduce) against numpy float64 at bench configs 2 and 3; a forced
    tuner search for each autotuned template; both Operation call styles;
    then configs 2 and 3 and the 4000 x 5000 percentile run through the
-   templates with the launch counts read, and CUDA-event timings;
+   templates with the launch counts read, and CUDA-event timings; then
+   ``scripts/k4_ab``: K4 against its measurement builds, the original design and
+   ``torch.quantile`` at 4000 x 5000 and 64 x 4096, 5 interleaved rounds
+   of 3 calls, host-paced and device-paced, and K4's bound at both shapes;
 7. ``FlaggerDevice`` (median background, transposed MAD noise,
    SumThreshold as an ``OperationSequence``) over the whole dump as
    complex64, whose flags must equal K1's on the same rows;
@@ -135,9 +149,6 @@ def record(launches: int, ms: float, plain_ms: float, nbytes: float, ops: float,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms}
-
-
-QUANTILES = torch.tensor([0.0, 0.25, 0.5, 0.75, 1.0])
 
 
 def inventory_ops(stages=None) -> int:
@@ -269,6 +280,16 @@ def ptxas_report(log: str) -> dict:
     return report
 
 
+def kernel_label(mangled: str) -> str:
+    """K2's or K4's kernel name and template arguments from its mangled name in nvcc's report."""
+    m = re.search(r"(percentile5_[a-z0-9]+_kernel|madnz_threshold(?:_strided)?_kernel)"
+                  r"(?:I((?:L[ib]n?\d+E)+)E)?", mangled)
+    if not m:
+        return mangled
+    args = [a.replace("n", "-") for a in re.findall(r"L[ib](n?\d+)E", m.group(2) or "")]
+    return f"{m.group(1)}<{', '.join(args)}>" if args else m.group(1)
+
+
 def phase_build(ff, pct, tr, fp, kernels) -> None:
     from katsdpsigproc_tpu_torch.examples import triple, triple_pallas
     from katsdpsigproc_tpu_torch.scripts import examples_ab, k1_ab, prim_cost, roofline_skeleton
@@ -321,17 +342,33 @@ def phase_build(ff, pct, tr, fp, kernels) -> None:
         if name.startswith("flagger_kernel<"):
             print(f"  K1 {name} SASS: {len(re.findall(r'LDL', part))} local loads, "
                   f"{len(re.findall(r'STL', part))} local stores")
-    print(f"  K1 takes rows of up to {ff.max_channels()} channels "
-          f"(the strided layout's K2: {ff._library(13).ff_strided_max_channels()})")
+    # K2 and K4 (and K2's strided design, K4's measurement builds and its
+    # original design, printed): no spills either.
+    pct_key = kernels.build_key("percentile", ["percentile.cu"], {})
+    report = {kernel_label(name): r for key in (k1_key, pct_key)
+              for name, r in ptxas_report(kernels.build_info[key]["log"]).items()
+              if "madnz_threshold" in name or "percentile5" in name}
+    for name, r in sorted(report.items()):
+        print(f"  {name}: {r.get('registers')} registers, {r['stack']} B stack frame, "
+              f"{r['spill_stores']} B spill stores, {r['spill_loads']} B spill loads")
+    checked = {name: r for name, r in report.items()
+               if name == "madnz_threshold_kernel" or name.startswith("percentile5_radix")}
+    if ("madnz_threshold_kernel" not in checked or len(checked) < 2
+            or any(r["spill_stores"] or r["spill_loads"] for r in checked.values())):
+        raise AssertionError(f"K2 or K4 spills or is missing from the report: {checked}")
+    print(f"  K1 and K2 take rows of up to {ff.max_channels()} channels "
+          f"(the strided layout: {ff._library(13).ff_strided_max_channels()})")
 
 
 def phase_kernels(ff, device, check: Check) -> None:
+    from katsdpsigproc_tpu_torch.scripts import k2_ab
+
     print("kernels against their plain versions on the card:")
-    # K1's run layout gives each thread R = ceil(C / 1024) channels: runs
-    # shorter than a window (C <= 4096), a last run cut short (1025, 4097),
-    # runs of 32 (32768) and the channel limit.
+    # K1's run layout, which K2 now shares, gives each thread R = ceil(C /
+    # 1024) channels: runs shorter than a window (C <= 4096), a last run
+    # cut short (1025, 4097), runs of 32 (32768) and the channel limit.
     limit = ff.max_channels()
-    k2_limit = ff._library(13).ff_strided_max_channels()
+    strided_limit = ff._library(13).ff_strided_max_channels()
     cases = [(1, 8), (13, 8), (99, 8), (128, 16), (257, 8), (300, 8), (384, 8), (1023, 8),
              (1024, 8), (1025, 8), (4097, 8), (32768, 64), (limit, 4)]
     for i, (channels, rows) in enumerate(cases):
@@ -348,8 +385,6 @@ def phase_kernels(ff, device, check: Check) -> None:
             got = ff.flag_transposed(vis_t, **fkw, **pkw)
             want = ff.flag_transposed_plain(vis_t, **fkw, **pkw)
             check.flags("flagger", label, got, want)
-            if channels > k2_limit:
-                continue
             # K2 on the deviations of the same rows
             fmode = {"none": device.BackgroundFlags.NONE, "full": device.BackgroundFlags.FULL,
                      "channel": device.BackgroundFlags.CHANNEL}[mode]
@@ -358,6 +393,16 @@ def phase_kernels(ff, device, check: Check) -> None:
                 vis_t.transpose(0, 1), fl, 13, False, fmode).transpose(0, 1).contiguous()
             check.flags("madnz_threshold", label.replace("K1", "K2"),
                         ff.madnz_threshold(dev_t, **pkw), ff.madnz_threshold_plain(dev_t, **pkw))
+        # K2 on deviations K1 never makes, against the plain version and the
+        # strided design where its layout holds the row.
+        dev_t = torch.from_numpy(k2_ab.adversarial_deviations(8, channels, 400 + i)).cuda()
+        for pkw in ({}, {"n_sigma": 5.0, "n_windows": 6, "flag_value": 3}):
+            label = f"K2 C={channels} NaN, +-inf, -0, denormal, zero rows {pkw or ''}".rstrip()
+            got = ff.madnz_threshold(dev_t, **pkw)
+            check.flags("madnz_threshold", label, got, ff.madnz_threshold_plain(dev_t, **pkw))
+            if channels <= strided_limit:
+                check.flags("madnz_threshold", label + " vs the strided design", got,
+                            k2_ab.strided(dev_t, **pkw))
     # NaN in a row: both the kernel and the plain fast path propagate it
     # through the selection network as jnp.minimum/maximum do.
     for channels in (300, 1025, 32768):
@@ -386,6 +431,7 @@ def phase_oracle(ff, device, host, vis_np: np.ndarray, check: Check) -> None:
 
 
 def phase_main(ff, fp, tr, device, vis_np: np.ndarray, card: str, check: Check) -> dict:
+    from katsdpsigproc_tpu_torch.scripts import k2_ab
     from katsdpsigproc_tpu_torch.utils.profiling import time_fn
 
     rows = vis_np.shape[1]
@@ -427,12 +473,9 @@ def phase_main(ff, fp, tr, device, vis_np: np.ndarray, card: str, check: Check) 
     check.flags("madnz_threshold", "full dump: hybrid (K2) vs K1", hybrid.T, k1)
     print(f"  flagged fraction {float(k1.float().mean()):.5f}")
 
-    # K2 against its plain version on the full dump's deviations.
-    dev_t = torch.empty((rows, vis.shape[0]), dtype=torch.float32, device=vis.device)
-    for s in range(0, rows, block):
-        dev_t[s:s + block] = device.background_median_filter(
-            vis[:, s:s + block], None, 13, False, device.BackgroundFlags.NONE,
-            fast_path=False).T
+    # K2 against its plain version, K1 and its strided design on the full
+    # dump's deviations.
+    dev_t = k2_ab.deviations(vis, block)
     k2 = ff.madnz_threshold(dev_t)
 
     def plain_k2():
@@ -443,6 +486,8 @@ def phase_main(ff, fp, tr, device, vis_np: np.ndarray, card: str, check: Check) 
 
     check.flags("madnz_threshold", "full dump: K2 vs plain", k2, plain_k2())
     check.flags("madnz_threshold", "full dump: K2 vs K1", k2, k1)
+    check.flags("madnz_threshold", "full dump: K2 vs its strided design", k2,
+                k2_ab.strided(dev_t))
     del plain, hybrid, k1, k2
 
     print(f"timings (CUDA events, 2 warm-ups, median of 10) on {card}:")
@@ -462,6 +507,13 @@ def phase_main(ff, fp, tr, device, vis_np: np.ndarray, card: str, check: Check) 
     card_state("after them")
     for name, ms in times.items():
         print(f"  {name}: {ms:.3f} ms, {n_vis / ms / 1e6:.3f} Gvis/s [{card}]")
+    print(f"K2 (run layout) against its strided design, interleaved, 5 rounds of 3 calls, "
+          f"on {card}:")
+    k2_ab.launches["strided"] = 0
+    k2_ab.run(dev_t, iters=3, reps=5, card=card)
+    torch.cuda.synchronize()
+    if k2_ab.launches["strided"] < 1:
+        raise AssertionError("K2's strided design was not launched")
     # K1 reads 8 B and writes 1 B per visibility and does the op inventory's
     # work; K2 reads 4 B of deviations, writes 1 B and does its back half.
     return {
@@ -487,6 +539,7 @@ def plain_ops_check(label: str, got, want: np.ndarray, rtol: float, atol: float)
 def phase_ops(pct, tr, vis_np: np.ndarray, card: str, check: Check) -> dict:
     from katsdpsigproc_tpu_torch.models.rfi import device
     from katsdpsigproc_tpu_torch.ops import fill, maskedsum, reduce as hreduce, wgreduce
+    from katsdpsigproc_tpu_torch.scripts import k4_ab
     from katsdpsigproc_tpu_torch.utils import backend, tune
     from katsdpsigproc_tpu_torch.utils.profiling import time_fn
 
@@ -496,8 +549,10 @@ def phase_ops(pct, tr, vis_np: np.ndarray, card: str, check: Check) -> dict:
     dev = ctx.device
     print(f"ops path on {ctx.device} ({ctx.device_kind}):")
 
-    # K4 against its plain version, bit for bit.
-    print(f"  K4 holds rows of up to {pct.max_shared_columns()} columns in shared memory")
+    # K4, its measurement builds and the original design against the plain
+    # version, bit for bit.
+    shared_cols = pct.max_shared_columns()
+    print(f"  K4 holds rows of up to {shared_cols} columns' keys in shared memory")
     rs = np.random.RandomState(seed=1)
     cases = []
     for cols in (7, 241, 500):
@@ -514,10 +569,22 @@ def phase_ops(pct, tr, vis_np: np.ndarray, card: str, check: Check) -> dict:
         raise AssertionError("the wide case no longer exceeds K4's shared memory")
     cases += [("64x4096 (bench config 2)", cfg2), ("4000x5000 (percentiletest)", big),
               ("4000x5000[:, 100:4100] column-range view", big[:, 100:4100]),
-              ("8x65536, read from device memory every round", wide)]
+              ("4000x5000[:, 1:4998] view off 16 bytes", big[:, 1:4998]),
+              ("8x65536, read from device memory every pass", wide)]
+    # Rows K4 never sees on the ops path, below and above the SM count, and
+    # the edges of its register, shared-memory and device-memory paths.
+    for i, (rows, n) in enumerate([(20, 1), (20, 2), (20, 3), (20, 7), (20, 4096), (200, 5000),
+                                   (200, 8192), (200, 8193), (20, 16384), (20, 16385),
+                                   (4, shared_cols), (4, shared_cols + 1)]):
+        x = torch.from_numpy(k4_ab.adversarial_rows(rows, n, seed=500 + i)).to(dev)
+        cases.append((f"{rows}x{n} NaN, +-inf, -0, negative, denormal, equal rows", x))
     for label, x in cases:
-        check.exact("percentile5", f"K4 {label}", pct.percentile5_cuda(x),
-                    pct.percentile5_plain(x))
+        threads, per = pct.launch_shape(*x.shape)
+        want = pct.percentile5_plain(x)
+        check.exact("percentile5", f"K4 {label} ({threads} threads, {per} slots)",
+                    pct.percentile5_cuda(x), want)
+        for name in k4_ab.BUILDS:
+            check.exact("percentile5", f"  build {name}", k4_ab.build(x, name), want)
     expected = np.r_[[big_np.min(axis=1), big_np.max(axis=1)],
                      np.percentile(big_np, [25, 75, 50], axis=1, method="lower")].astype(np.float32)
     got = pct.percentile5_cuda(big).cpu().numpy()
@@ -664,7 +731,10 @@ def phase_ops(pct, tr, vis_np: np.ndarray, card: str, check: Check) -> dict:
     library = {
         "percentile5": library_time(
             "torch.quantile(x, [0, .25, .5, .75, 1], dim=1, interpolation='lower') 4000x5000",
-            lambda: torch.quantile(big, QUANTILES.to(dev), dim=1, interpolation="lower")),
+            lambda: k4_ab.quantile(big)),
+        "percentile5 64x4096": library_time(
+            "torch.quantile(x, [0, .25, .5, .75, 1], dim=1, interpolation='lower') 64x4096",
+            lambda: k4_ab.quantile(cfg2)),
         "transpose": library_time("corner.transpose(0, 1).contiguous() 32768x8064x2",
                                   lambda: corner.transpose(0, 1).contiguous()),
     }
@@ -673,13 +743,35 @@ def phase_ops(pct, tr, vis_np: np.ndarray, card: str, check: Check) -> dict:
     corner_bytes = 2 * corner.numel() * corner.element_size()
     print(f"  K5 corner turn: {corner_bytes / times['K5 transpose 32768x8064x2'] / 1e6:.1f} GB/s "
           f"of {corner_bytes / 1e9:.2f} GB moved [{card}]")
-    # K4: each element is read once and takes part in min, max and 31 rounds
-    # of three compare-and-count pairs; 5 floats a row are written.  K5
-    # reads and writes every byte once.
+    print(f"K4 against its measurement builds, the original design and torch.quantile, interleaved, "
+          f"5 rounds of 3 calls, on {card}:")
+    for name in k4_ab.launches:
+        k4_ab.launches[name] = 0
+    k4_ab.run([("4000x5000", big), ("64x4096", cfg2)], iters=3, reps=5, card=card)
+    torch.cuda.synchronize()
+    if min(k4_ab.launches.values()) < 1:
+        raise AssertionError(f"a design of K4's A/B was not launched: {k4_ab.launches}")
+    # K4 reads each element once and writes 5 floats a row.  Its radix
+    # select does 14 operations an element (min, max, the key's compare and
+    # select, the first pass's count, a prefix compare per target in each
+    # of three passes) and scans 256 + 3 x (256 + 256 + 128) bins a row;
+    # the original 31-round search did 2 + 31 x 3 x 2.  K5 reads and writes every
+    # byte once.
+    def k4_work(x):
+        rows = x.shape[0]
+        return (x.numel() * 4 + 5 * rows * 4,
+                x.numel() * 14 + rows * (256 + 3 * (256 + 256 + 128)))
+
+    for label, x in (("4000x5000", big), ("64x4096", cfg2)):
+        nbytes, ops = k4_work(x)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+        print(f"  K4 bound at {label}: bytes {bytes_ms:.5f} ms, operations {ops_ms:.5f} ms: "
+              f"{'bytes' if bytes_ms >= ops_ms else 'operations'} bind; the 31-round search's "
+              f"operations {x.numel() * (2 + 31 * 3 * 2) / F32_OPS_PER_S * 1e3:.5f} ms")
     return {
         "percentile5": record(launches["percentile5"], times["K4 percentile5 4000x5000"],
-                              times["K4 plain 4000x5000"], big.numel() * 4 + 5 * 4000 * 4,
-                              big.numel() * (2 + 31 * 3 * 2), library["percentile5"]),
+                              times["K4 plain 4000x5000"], *k4_work(big),
+                              library["percentile5"]),
         "transpose": record(launches["transpose"], times["K5 transpose 32768x8064x2"],
                             times["K5 plain 32768x8064x2"], corner_bytes, 0,
                             library["transpose"]),

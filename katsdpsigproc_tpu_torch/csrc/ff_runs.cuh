@@ -1,5 +1,6 @@
 // Device code of K1, the fused 1-D flagger, in the run layout
-// (fused_flagger.cu::flagger_kernel).
+// (fused_flagger.cu::flagger_kernel), whose rank search and SumThreshold
+// K2 also runs (fused_flagger.cu::madnz_threshold_kernel).
 //
 // Replaces katsdpsigproc_tpu/models/rfi/pallas_flagger.py::_flagger_body.
 // What bounds it: bytes.  9 B per visibility of traffic (8 B of planar
@@ -8,8 +9,8 @@
 // that is on-chip work.  On an H100 SXM at 700 W the channel-strided
 // design of ff_device.cuh spent it as SumThreshold 5.3 ms, median 4.0,
 // rank search 2.2, load + store 1.2 per dump.  That design stays in
-// ff_device.cuh for K2, K1's stage probes (whose `full` is K1 in it), the
-// roofline skeleton and the cost probes.
+// ff_device.cuh for K2's strided design, K1's stage probes (whose `full` is
+// K1 in it), the roofline skeleton and the cost probes.
 //
 // One 1024-thread CTA per row, as there.  What changes:
 //

@@ -18,7 +18,7 @@
 // measures only if its variants all run one machine: every kernel here
 // launches kThreads = 1024 threads with smem_bytes(C) of dynamic shared
 // memory, the block and allocation of the strided layout (ff_device.cuh,
-// K2's and the layout K1 had before its run layout, ff_runs.cuh), so one
+// the layout K1 and K2 had before the run layout, ff_runs.cuh), so one
 // CTA runs per SM at 32768 channels whatever the variant uses of it.
 // `full` is K1 in that layout, flag for flag the run layout's K1; only the
 // stage a variant names differs, and K1 itself gains no knob.

@@ -12,8 +12,8 @@
 //   pallas_flagger.py::_dma_block_loop.
 //
 // What bounds it on the card: the minimum traffic is 9 B per visibility
-// (8 B planar read, 1 B flag write; K2 reads 4 B of deviations), 0.710 ms
-// for the 32768 x 8064 dump at 3.35 TB/s.  The row never leaves shared
+// (8 B planar read, 1 B flag write; K2 reads 4 B of deviations: 0.394 ms),
+// 0.710 ms for the 32768 x 8064 dump at 3.35 TB/s.  The row never leaves shared
 // memory, so the limit is on-chip work: the 13-member selection network per
 // channel, the window ladders, and 31 dependent block-wide count reductions
 // per row, each a pass over the row plus a barrier.
@@ -26,10 +26,13 @@
 //    comparators in the median, the rank search's |dev| in registers.  Its
 //    header says what each does about the stage costs, and why the NaN
 //    payload and signed zero of min.NaN/max.NaN cannot reach the flags;
+//    K2 runs K1's rank search and SumThreshold on the same layout, its
+//    deviations loaded coalesced into the padded words;
 //  * the strided layout (ff_device.cuh): C x 4 B of deviations + C x 1 B of
-//    flags, thread t owning channels t, t + 1024, ...  K2 runs on it, and so
-//    do K1's stage probes (flagger_probe.cu, whose `full` is K1 in this
-//    layout), the roofline skeleton and the cost probes' launch.
+//    flags, thread t owning channels t, t + 1024, ...  K2's earlier design,
+//    madnz_threshold_strided_kernel, runs on it and defines the layout's
+//    launch; K1's stage probes (flagger_probe.cu, whose `full` is K1 in this
+//    layout), the roofline skeleton and the cost probes are held to it.
 //
 // Parity with the JAX reference, bit for bit, in both:
 //  * no FMA contraction anywhere (built with -fmad=false), and re*re+im*im
@@ -102,9 +105,32 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// K2.
+// K2, in the run layout: the deviations, coalesced, into the padded words,
+// then K1's rank search and SumThreshold.  Unlike K1's, its deviations come
+// from the caller and may hold NaN, +-inf, -0 or denormals: the rank search
+// counts by float compares and SumThreshold sums in the reference's tree
+// order, both as the plain version does for any float32.
 __global__ void __launch_bounds__(kThreads, 1)
     madnz_threshold_kernel(const float* __restrict__ dev, uint8_t* __restrict__ out, Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = p.channels;
+  float* buf = reinterpret_cast<float*>(smem);
+  runs::u64* flag_masks = reinterpret_cast<runs::u64*>(smem + runs::masks_offset(C));
+  runs::u64* hit_masks = flag_masks + kThreads;
+  int* red = reinterpret_cast<int*>(hit_masks + kThreads);
+  const size_t row = blockIdx.x;
+  for (int c = threadIdx.x; c < C; c += kThreads) buf[runs::phys(c)] = dev[row * C + c];
+  __syncthreads();
+  int bank = 0;
+  const float noise = runs::mad_noise(buf, red, bank, C);
+  runs::sum_threshold(buf, flag_masks, hit_masks, noise, out + row * C, p);
+}
+
+// K2's design before the run layout, kept as the strided layout's
+// launch definition and as the "before" of scripts/k2_ab.py.
+__global__ void __launch_bounds__(kThreads, 1)
+    madnz_threshold_strided_kernel(const float* __restrict__ dev, uint8_t* __restrict__ out,
+                                   Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = p.channels;
   float* buf = reinterpret_cast<float*>(smem);
@@ -114,6 +140,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int c = threadIdx.x; c < C; c += kThreads) buf[c] = dev[row * C + c];
   __syncthreads();
   madnz_threshold_row(buf, flags, red, out + row * C, p);
+}
+
+template <typename Kernel>
+int launch_madnz(Kernel kernel, size_t smem, const void* dev, void* out, int rows, int channels,
+                 float n_sigma, const float* scales, int n_windows, int flag_value,
+                 void* stream) {
+  Params p;
+  int err = make_params(&p, channels, n_sigma, scales, n_windows, flag_value);
+  if (err) return err;
+  if (rows < 1) return (int)cudaErrorInvalidValue;
+  if ((err = set_smem(kernel, smem))) return err;
+  kernel<<<rows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dev), static_cast<uint8_t*>(out), p);
+  return (int)cudaGetLastError();
 }
 
 // Threads per CTA, dynamic shared memory and the CTAs that fit one SM at
@@ -134,11 +174,11 @@ int launch_config(Kernel kernel, size_t smem, int* threads, long long* smem_byte
 
 extern "C" {
 
-// The largest channel count K1 takes (its row in the run layout fits one
-// CTA's shared memory on the current device; 0 on error).
+// The largest channel count K1 and K2 take (a row in the run layout fits
+// one CTA's shared memory on the current device; 0 on error).
 int ff_max_channels(void) { return runs::max_channels(); }
 
-// The same for K2 and every kernel on the strided layout.
+// The same for every kernel on the strided layout.
 int ff_strided_max_channels(void) { return max_channels(); }
 
 const char* ff_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
@@ -151,13 +191,14 @@ int ff_launch_config(int channels, int* threads, long long* smem_bytes_out, int*
                        ctas_per_sm);
 }
 
-// The strided layout's launch configuration at `channels`, K2's: K1's stage
-// probes, the roofline skeleton and the cost probes are held to it.
+// The strided layout's launch configuration at `channels`, that of K2's
+// strided design: K1's stage probes, the roofline skeleton and the cost
+// probes are held to it.
 int ff_strided_launch_config(int channels, int* threads, long long* smem_bytes_out,
                              int* ctas_per_sm) {
   if (channels < 1 || channels > max_channels()) return (int)cudaErrorInvalidValue;
-  return launch_config(madnz_threshold_kernel, smem_bytes(channels), threads, smem_bytes_out,
-                       ctas_per_sm);
+  return launch_config(madnz_threshold_strided_kernel, smem_bytes(channels), threads,
+                       smem_bytes_out, ctas_per_sm);
 }
 
 // K1 over `rows` rows of planar (re, im) float32 pairs, (rows, channels, 2).
@@ -197,15 +238,17 @@ int ff_flagger(const void* vis, const void* in_flags, int mode, void* out, int r
 // K2 over (rows, channels) float32 deviations.
 int ff_madnz_threshold(const void* dev, void* out, int rows, int channels, float n_sigma,
                        const float* scales, int n_windows, int flag_value, void* stream) {
-  Params p;
-  int err = make_params(&p, channels, n_sigma, scales, n_windows, flag_value);
-  if (err) return err;
-  if (rows < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(channels);
-  if ((err = set_smem(madnz_threshold_kernel, smem))) return err;
-  madnz_threshold_kernel<<<rows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(dev), static_cast<uint8_t*>(out), p);
-  return (int)cudaGetLastError();
+  if (channels > runs::max_channels()) return (int)cudaErrorInvalidValue;
+  return launch_madnz(madnz_threshold_kernel, runs::smem_bytes(channels), dev, out, rows,
+                      channels, n_sigma, scales, n_windows, flag_value, stream);
+}
+
+// K2's strided design, the same function (scripts/k2_ab.py).
+int ff_madnz_threshold_strided(const void* dev, void* out, int rows, int channels, float n_sigma,
+                               const float* scales, int n_windows, int flag_value, void* stream) {
+  if (channels > max_channels()) return (int)cudaErrorInvalidValue;
+  return launch_madnz(madnz_threshold_strided_kernel, smem_bytes(channels), dev, out, rows,
+                      channels, n_sigma, scales, n_windows, flag_value, stream);
 }
 
 }  // extern "C"

@@ -31,8 +31,8 @@
 // What bounds it: operations, by design: each rep is a few dependent
 // instructions per element, and the block (1 MiB at 256 x 1024) is read and
 // written once.  The wrapper launches with the strided layout's dynamic
-// shared memory (ff_device.cuh, K2's), so one CTA runs per SM as in K2,
-// K1's stage probes and K10: the cost of an operation depends on
+// shared memory (ff_device.cuh), so one CTA runs per SM as in K2's strided
+// design, K1's stage probes and K10: the cost of an operation depends on
 // the occupancy it runs at, as the TPU's depended on the block's layout.
 
 #include <cuda_runtime.h>

@@ -27,8 +27,8 @@
 // What bounds it: operations.  The inventory's ~150 operations per
 // element against 5 B of traffic (4 B in, 1 B out) put the op bound above
 // the byte bound.  The design is the machine of the strided layout
-// (ff_device.cuh, K2's and K1's stage probes'), so the skeleton's time
-// stands beside theirs: one CTA of kThreads threads per row with the row
+// (ff_device.cuh, K2's strided design's and K1's stage probes'), so the
+// skeleton's time stands beside theirs: one CTA of kThreads threads per row with the row
 // resident in that layout's dynamic shared memory (5 B per channel: values, then
 // flag bytes), so one CTA per SM at 32768 channels.  A channel shift is a
 // read of a neighbour in shared memory; the amplitudes are replaced in

@@ -4,8 +4,8 @@ Hopper counterparts of the TPU probes in ``scripts/``, which time or A/B
 the stages of ``pallas_flagger.py::_flagger_body`` on the TPU.  Here they
 are variants of K1 in the strided layout (``csrc/ff_device.cuh``: thread t
 owns channels t, t + 1024, ... of a row held at 5 B per channel), the
-layout K1 had before its run layout (``csrc/ff_runs.cuh``) and K2 still
-has.  ``full`` is that K1, flag for flag the current one.  Every variant
+layout K1 and K2 had before the run layout (``csrc/ff_runs.cuh``), and
+where K2's strided design stays.  ``full`` is that K1, flag for flag the current one.  Every variant
 launches with that layout's block (1024 threads) and dynamic shared
 memory (:func:`.fused_flagger.strided_launch_config`), one CTA per SM, so
 a difference of two times is the cost of one stage:
@@ -96,7 +96,7 @@ def launch_config(variant: str, channels: int) -> dict:
     """How the kernel of `variant` launches at `channels`, from the library itself.
 
     The same keys as :func:`.fused_flagger.strided_launch_config`: every
-    variant must launch as the strided layout's K2 does.  Needs a CUDA
+    variant must launch as the strided layout's launch says.  Needs a CUDA
     device.
     """
     code = _AMP_PAIRS if variant == "amp_pairs" else _CODE.get(variant)

@@ -13,8 +13,12 @@ kernels live in ``csrc/fused_flagger.cu``:
   (:func:`launch_config`, :func:`max_channels`).
 * **K2** (``madnz_threshold``) replaces
   ``pallas_flagger.py::_madnz_threshold_block``: MAD noise + SumThreshold
-  from deviations, for the hybrid engine, on the strided layout of
-  ``csrc/ff_device.cuh`` (:func:`strided_launch_config`).
+  from deviations, for the hybrid engine, on K1's run layout and up to
+  K1's channel limit (:func:`max_channels`).  Its earlier design on the
+  strided layout of ``csrc/ff_device.cuh`` stays in the library as that
+  layout's launch (:func:`strided_launch_config`), which K1's stage
+  probes and the cost probes are held to, and as the "before" of
+  ``scripts/k2_ab.py``.
 
 Both run as one launch over all rows, which takes the place of the TPU's
 in-kernel DMA block loop (``_dma_block_loop``).  The wrappers take the
@@ -100,11 +104,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     lib.ff_flagger.restype = ctypes.c_int
-    lib.ff_madnz_threshold.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.ff_madnz_threshold.restype = ctypes.c_int
+    for madnz in (lib.ff_madnz_threshold, lib.ff_madnz_threshold_strided):
+        madnz.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        madnz.restype = ctypes.c_int
     return lib
 
 
@@ -192,8 +197,8 @@ def launch_config(channels: int) -> dict:
 
     ``threads`` per CTA, ``smem_bytes`` of dynamic shared memory and
     ``ctas_per_sm``, the CTAs the occupancy calculator fits on one SM.
-    K1 holds a row in the run layout of ``csrc/ff_runs.cuh``.  Needs a
-    CUDA device.
+    K1 holds a row in the run layout of ``csrc/ff_runs.cuh``, as K2 does
+    in the same shared memory.  Needs a CUDA device.
     """
     lib = _library(13)  # the network header's width does not change the launch
     return _query_launch_config(lib, lib.ff_launch_config, channels)
@@ -202,17 +207,18 @@ def launch_config(channels: int) -> dict:
 def strided_launch_config(channels: int) -> dict:
     """How a kernel on the strided layout of ``csrc/ff_device.cuh`` launches.
 
-    The keys of :func:`launch_config`, for K2 at `channels`: thread t owns
-    channels t, t + 1024, ... of a row held at 5 B per channel.  K1's
-    stage probes, the roofline skeleton and the cost probes compile that
-    layout and are held to this configuration.  Needs a CUDA device.
+    The keys of :func:`launch_config`, for K2's strided design at
+    `channels`: thread t owns channels t, t + 1024, ... of a row held at
+    5 B per channel.  K1's stage probes, the roofline skeleton and the
+    cost probes compile that layout and are held to this configuration.
+    Needs a CUDA device.
     """
     lib = _library(13)
     return _query_launch_config(lib, lib.ff_strided_launch_config, channels)
 
 
 def max_channels() -> int:
-    """The most channels a row may hold in K1 (its run layout); needs a CUDA device."""
+    """The most channels a row may hold in K1 and K2 (the run layout); needs a CUDA device."""
     return _library(13).ff_max_channels()
 
 
@@ -359,8 +365,10 @@ def madnz_threshold(dev_t, n_sigma: float = 11.0, n_windows: int = 4, falloff: f
     with its parameters in its order; the TPU layout knobs (``bb`` to
     ``rank_radix``) are accepted and ignored.  On the card the transposed
     view of a contiguous (channels, rows) array is corner-turned by K5
-    first, any other strided layout copied.  Returns (rows, channels)
-    uint8 flags on the input's device.
+    first, any other strided layout copied.  A row holds up to
+    :func:`max_channels` channels on the card (K1's limit, the run
+    layout's); more raise ``ValueError``.  Returns (rows, channels) uint8
+    flags on the input's device.
     """
     del bb, fold, interpret, nref, pipeline, rank_radix
     _check_params(n_windows, flag_value)
@@ -380,7 +388,7 @@ def madnz_threshold(dev_t, n_sigma: float = 11.0, n_windows: int = 4, falloff: f
     with torch.cuda.device(dev_t.device):
         # K2 shares K1's library; the network header's width does not affect it.
         lib = _library(13)
-        _check_limit(channels, lib.ff_strided_max_channels())
+        _check_limit(channels, lib.ff_max_channels())
         dev_t = _row_major(dev_t)
         scales, sigma, stream = _launch_args([dev_t], channels, n_sigma, falloff, n_windows)
         err = lib.ff_madnz_threshold(dev_t.data_ptr(), out.data_ptr(), rows, channels, sigma,

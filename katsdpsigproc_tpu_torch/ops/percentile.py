@@ -12,13 +12,15 @@ reduced to amplitudes first.
   targets in one sweep of the data per digit;
 * ``"sort"``: ``torch.sort`` and a gather;
 * ``"cuda"``: the hand-written kernel K4 in ``csrc/percentile.cu`` (the
-  counterpart of ``"pallas"``), one CTA per row with the row in shared
-  memory.
+  counterpart of ``"pallas"``), one CTA per row with the row's keys in
+  registers and a radix select (:func:`launch_shape`).
 
 :func:`percentile5_cuda` is K4's wrapper: a tensor on the CPU takes the
 plain version beside it (:func:`percentile5_plain`, the 31-round binary
 search of the TPU kernel), a CUDA tensor goes to the kernel or the call
 raises.  :data:`launches` counts its launches.
+:func:`percentile5_radix_plain` is K4's radix select step by step in
+PyTorch, bit for bit :func:`percentile5_plain`.
 """
 
 import ctypes
@@ -45,17 +47,37 @@ def _library() -> ctypes.CDLL:
     lib.pc_error_string.restype = ctypes.c_char_p
     lib.pc_max_shared_columns.argtypes = []
     lib.pc_max_shared_columns.restype = ctypes.c_int
+    lib.pc_launch_shape.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                                    ctypes.POINTER(ctypes.c_int)]
+    lib.pc_launch_shape.restype = ctypes.c_int
     lib.pc_percentile5.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.pc_percentile5.restype = ctypes.c_int
     return lib
 
 
 def max_shared_columns() -> int:
-    """The widest row K4 holds in shared memory on the current CUDA device."""
+    """The widest row whose keys K4 holds in shared memory on the current CUDA device."""
     return _library().pc_max_shared_columns()
+
+
+def launch_shape(rows: int, n: int) -> Tuple[int, int]:
+    """K4's CTA size and register slots a thread for `rows` rows of `n` columns.
+
+    256 threads when the rows fill the SMs and a row fits 32 slots a
+    thread, else 1024; slots 0 mean the row's keys sit in shared memory,
+    -1 that the row is read from device memory on every pass.  Needs a
+    CUDA device.
+    """
+    lib = _library()
+    threads, per = ctypes.c_int(), ctypes.c_int()
+    err = lib.pc_launch_shape(rows, n, ctypes.byref(threads), ctypes.byref(per))
+    if err != 0:
+        raise RuntimeError(f"no launch shape for {rows} x {n}: cudaError {err} "
+                           f"({lib.pc_error_string(err).decode()})")
+    return threads.value, per.value
 
 
 def _targets(n: int) -> Tuple[int, int, int]:
@@ -96,6 +118,55 @@ def percentile5_plain(values: torch.Tensor) -> torch.Tensor:
     return torch.stack([mn, mx, p[:, 0], p[:, 1], p[:, 2]])
 
 
+# K4's radix digits, from the top of the 31-bit key: (shift, bits) per pass.
+RADIX_DIGITS = ((23, 8), (15, 8), (7, 8), (0, 7))
+_INF_KEY, _END_STATE = 0x7F800000, 0x7FFFFFFF
+
+
+def percentile5_radix_plain(values: torch.Tensor) -> torch.Tensor:
+    """K4's radix select, step by step in PyTorch; bit for bit :func:`percentile5_plain`.
+
+    Each non-NaN value becomes a 31-bit key whose order reproduces the
+    binary search's count of ``x < candidate``: 0 for ``x <= +0`` (-0,
+    negatives, -inf), the bit pattern for a positive ``x``.  Each target's
+    key is then resolved digit by digit (:data:`RADIX_DIGITS`): a histogram
+    of the digit of the keys under the target's prefix, and the bin where
+    the running count passes the target's rank.  The search's end state:
+    once it accepts +inf every later candidate is a NaN pattern and is
+    accepted, so a key of +inf, or a rank beyond the non-NaN count, gives
+    the pattern 0x7fffffff.  Returns (5, rows) float32.
+    """
+    _check_2d(values)
+    rows, n = values.shape
+    nan = torch.isnan(values)
+    mn = torch.amin(torch.where(nan, torch.inf, values), dim=1)
+    mx = torch.amax(torch.where(nan, -torch.inf, values), dim=1)
+    bits = values.view(torch.int32).to(torch.int64)
+    keys = torch.where(values > 0, bits, 0)
+    out = [mn, mx]
+    for target in _targets(n):
+        rank = torch.full((rows,), target, dtype=torch.int64, device=values.device)
+        prefix = torch.zeros_like(rank)
+        found = torch.ones(rows, dtype=torch.bool, device=values.device)
+        hi = 31
+        for shift, nbits in RADIX_DIGITS:
+            under = ~nan & ((keys >> hi) == prefix[:, None])
+            digit = (keys >> shift) & ((1 << nbits) - 1)
+            hist = torch.zeros((rows, 1 << nbits), dtype=torch.int64, device=values.device)
+            hist.scatter_add_(1, digit, under.to(torch.int64))
+            cum = torch.cumsum(hist, dim=1)
+            d = (cum <= rank[:, None]).sum(dim=1)  # the bin where the count passes the rank
+            found &= d < (1 << nbits)
+            d = d.clamp(max=(1 << nbits) - 1)
+            below = torch.where(d > 0, cum.gather(1, (d - 1).clamp(min=0)[:, None])[:, 0], 0)
+            rank = rank - below
+            prefix = (prefix << nbits) | d
+            hi = shift
+        key = torch.where(found & (prefix < _INF_KEY), prefix, _END_STATE)
+        out.append(key.to(torch.int32).view(torch.float32))
+    return torch.stack(out)
+
+
 def percentile5_cuda(values: torch.Tensor) -> torch.Tensor:
     """[min, max, p25, p75, p50] of each row of (rows, n) float32 with K4.
 
@@ -106,6 +177,29 @@ def percentile5_cuda(values: torch.Tensor) -> torch.Tensor:
     _check_2d(values)
     if values.device.type == "cpu":
         return percentile5_plain(values)
+    out = _launch(values, 0)
+    launches["percentile5"] += 1
+    return out
+
+
+def launch(values: torch.Tensor, design: int) -> torch.Tensor:
+    """Launch a design of ``csrc/percentile.cu`` on CUDA (rows, n) float32 `values`.
+
+    `design` 0 is K4.  The A/B tool ``scripts/k4_ab.py`` launches the
+    others: 1, the 31-round search from registers; 2, the original design (31
+    rounds from shared memory); 3, K4 with its first pass aggregated
+    within a warp (``__match_any_sync``); 4, K4 with the keys in shared
+    memory.  Counts nothing: the callers do.  The C entry makes the
+    tensor's device current itself, and the stream is read as a raw
+    handle: ``torch.cuda.device`` and ``torch.cuda.current_stream`` would
+    cost the host more than the 64 x 4096 call takes on the card.
+    """
+    _check_2d(values)
+    return _launch(values, design)
+
+
+def _launch(values: torch.Tensor, design: int) -> torch.Tensor:
+    """:func:`launch` on `values` that passed ``_check_2d``."""
     if values.device.type != "cuda":
         raise ValueError(f"unsupported device {values.device}")
     rows, n = values.shape
@@ -117,14 +211,13 @@ def percentile5_cuda(values: torch.Tensor) -> torch.Tensor:
     out = torch.empty((5, rows), dtype=torch.float32, device=values.device)
     if rows == 0:
         return out
-    with torch.cuda.device(values.device):
-        lib = _library()
-        stream = torch.cuda.current_stream(values.device).cuda_stream
-        err = lib.pc_percentile5(values.data_ptr(), row_stride, rows, n, out.data_ptr(), stream)
+    lib = _library()
+    index = values.get_device()
+    err = lib.pc_percentile5(design, index, values.data_ptr(), row_stride, rows, n,
+                             out.data_ptr(), torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(
             f"percentile5 launch failed: cudaError {err} ({lib.pc_error_string(err).decode()})")
-    launches["percentile5"] += 1
     return out
 
 

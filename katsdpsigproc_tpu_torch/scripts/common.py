@@ -3,6 +3,7 @@
 import argparse
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -62,6 +63,20 @@ def parser(doc: str) -> argparse.ArgumentParser:
     ap.add_argument("--reps", type=int, default=5,
                     help="rounds of interleaved samples (default %(default)s)")
     return ap
+
+
+def host_us(fns: dict, calls_each: int = 200) -> dict:
+    """Host microseconds per call of each callable, over `calls_each` calls queued back to back."""
+    out = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls_each):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / calls_each * 1e6
+    return out
 
 
 def report(name: str, median: float, samples, card: str) -> None:

@@ -66,7 +66,6 @@ Usage::
 
 import argparse
 import functools
-import time
 
 import torch
 
@@ -173,20 +172,6 @@ def _versus(stats: dict, new: str, old: str) -> str:
             f"against spreads {spreads[0]:.4f}, {spreads[1]:.4f}: {verdict}")
 
 
-def host_us(fns: dict, calls_each: int = 200) -> dict:
-    """Host microseconds per call of each callable, over `calls_each` calls queued back to back."""
-    out = {}
-    for name, fn in fns.items():
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls_each):
-            fn()
-        torch.cuda.synchronize()
-        out[name] = (time.perf_counter() - t0) / calls_each * 1e6
-    return out
-
-
 def _time(fns: dict, reps: int, iters: int):
     """Each way: ``{way: {name: (median, min, max)}}``, and the samples of each."""
     stats, all_samples = {}, {}
@@ -227,7 +212,7 @@ def run(x: torch.Tensor, *, iters: int = 3, reps: int = 5, card: str = "",
         for way, st in stats.items():
             print(f"    {way}: {_versus(st, new, old)}")
     tiny = calls(x[:1 << 12])
-    launch = host_us({k: f for k, (f, _) in tiny.items()})
+    launch = common.host_us({k: f for k, (f, _) in tiny.items()})
     print("  host time per call, us (2**12 elements): "
           + ", ".join(f"{k} {us:.1f}" for k, us in launch.items()))
     if small and small < n:

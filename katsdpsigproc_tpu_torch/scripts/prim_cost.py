@@ -7,7 +7,7 @@ per row and one thread per lane.  The time over the empty kernel's, per rep
 and per operation of interest, is the operation's cost for the whole
 block.  Chains run at the occupancy of the strided layout's kernels (its
 dynamic shared memory at 32768 channels, so one CTA per SM), where K10,
-K2 and K1's stage probes run: an operation's cost depends on the
+K2's strided design and K1's stage probes run: an operation's cost depends on the
 occupancy it runs at, as the TPU's depended on the layout.
 
 Bodies, with (operations of interest, helper add-class operations) per
@@ -112,7 +112,7 @@ def _library() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def strided_smem_bytes(channels: int = common.CHANNELS) -> int:
-    """The strided layout's dynamic shared memory at `channels`, from K2's library."""
+    """The strided layout's dynamic shared memory at `channels`, from K1's and K2's library."""
     return fused_flagger.strided_launch_config(channels)["smem_bytes"]
 
 

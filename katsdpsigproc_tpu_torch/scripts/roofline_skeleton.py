@@ -6,8 +6,8 @@ inventory (:func:`op_inventory`, a copy of
 ``katsdpsigproc_tpu/models/rfi/roofline.py::op_inventory``).  The skeleton
 kernel (``csrc/roofline_skeleton.cu``) runs that inventory on dummy
 amplitudes, with none of the flagger's masks, valid counts or halfway
-corrections, at the launch of the strided layout that K2 and K1's stage
-probes compile (1024 threads, that layout's dynamic shared memory, one CTA
+corrections, at the launch of the strided layout that K2's strided design and K1's
+stage probes compile (1024 threads, that layout's dynamic shared memory, one CTA
 per SM; :func:`.fused_flagger.strided_launch_config`), so its time can be
 set against the model's:
 

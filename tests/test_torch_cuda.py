@@ -19,7 +19,7 @@ import torch
 
 from katsdpsigproc_tpu_torch.examples import triple, triple_pallas
 from katsdpsigproc_tpu_torch.models.rfi import device, fused_flagger as ff
-from katsdpsigproc_tpu_torch.scripts import examples_ab
+from katsdpsigproc_tpu_torch.scripts import examples_ab, k2_ab, k4_ab
 
 pytestmark = pytest.mark.cuda
 
@@ -94,7 +94,7 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="on cpu"):
         ff.flag_transposed(vis_t, torch.zeros((4, 64), dtype=torch.uint8))
     with pytest.raises(ValueError, match="limit"):
-        ff.madnz_threshold(torch.zeros((1, 50000), device=cuda))
+        ff.madnz_threshold(torch.zeros((1, ff.max_channels() + 1), device=cuda))
     with pytest.raises(ValueError, match="limit"):
         ff.flag_dump(torch.zeros((1, ff.max_channels() + 1, 2), device=cuda))
     with pytest.raises(NotImplementedError, match="leading"):
@@ -161,9 +161,31 @@ def test_k1_at_run_layout_edges_matches_plain_and_full(cuda, channels, mode):
         assert torch.equal(fp.probe(vis_t, "full"), ff.flag_transposed(vis_t))
 
 
+@pytest.mark.parametrize("channels", _EDGE_CHANNELS)
+@pytest.mark.parametrize("kind", ["dump", "adversarial"])
+def test_k2_at_run_layout_edges_matches_plain_and_strided(cuda, channels, kind):
+    """K2 in K1's run layout at K1's edge shapes, on the deviations of a
+    dump and on deviations K1 never makes, against its plain version and,
+    where the strided layout holds the row, its strided design."""
+    if channels == "limit":
+        channels = ff.max_channels()
+    if kind == "dump":
+        vis_t, _ = _dump(channels, 8, seed=channels)
+        dev_t = device.background_median_filter(
+            vis_t.to(cuda).transpose(0, 1), None, 13, False,
+            device.BackgroundFlags.NONE).T.contiguous()
+    else:
+        dev_t = torch.from_numpy(k2_ab.adversarial_deviations(8, channels, channels)).to(cuda)
+    for kw in ({}, {"n_sigma": 5.0, "n_windows": 6, "flag_value": 3}):
+        got = ff.madnz_threshold(dev_t, **kw)
+        assert torch.equal(got, ff.madnz_threshold_plain(dev_t, **kw)), kw
+        if channels <= ff._library(13).ff_strided_max_channels():
+            assert torch.equal(got, k2_ab.strided(dev_t, **kw)), kw
+
+
 def test_k1_channel_limit_and_launch(cuda):
-    """The run layout holds more channels than the strided one, at one CTA
-    of 1024 threads per SM on the dump."""
+    """The run layout (K1's and K2's) holds more channels than the strided
+    layout's launch, at one CTA of 1024 threads per SM on the dump."""
     k1, strided = ff.launch_config(32768), ff.strided_launch_config(32768)
     assert ff.max_channels() >= 46425
     assert k1["threads"] == strided["threads"] == 1024
@@ -197,17 +219,63 @@ def test_resource_waits_for_a_tensor_from_a_side_stream(cuda):
 # K4 (percentile5) and K5 (transpose): exact against their plain versions.
 
 
-@pytest.mark.parametrize("rows,cols", [(37, 7), (37, 241), (37, 500), (64, 4096), (3, 60000)])
-def test_percentile5_matches_plain(cuda, rows, cols):
+def _k4_designs_equal_plain(x):
+    """K4, its measurement builds and the original design against the plain version, bit for bit."""
     from katsdpsigproc_tpu_torch.ops import percentile as pct
 
+    want = pct.percentile5_plain(x).view(torch.int32)
+    assert torch.equal(pct.percentile5_cuda(x).view(torch.int32), want)
+    for name in k4_ab.BUILDS:
+        assert torch.equal(k4_ab.build(x, name).view(torch.int32), want), name
+
+
+@pytest.mark.parametrize("rows,cols", [(37, 7), (37, 241), (37, 500), (64, 4096), (3, 60000)])
+def test_percentile5_matches_plain(cuda, rows, cols):
     rs = np.random.RandomState(rows + cols)
     x = rs.uniform(0.01, 100.0, (rows, cols)).astype(np.float32)
     x[1, ::5] = np.nan
     x[2] = np.nan
-    x = torch.from_numpy(x).to(cuda)
-    got, want = pct.percentile5_cuda(x), pct.percentile5_plain(x)
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    _k4_designs_equal_plain(torch.from_numpy(x).to(cuda))
+
+
+# K4's paths: rows below and above the SM count (1024- and 256-thread CTAs),
+# each width of register slots, and the shared- and device-memory paths.
+@pytest.mark.parametrize("rows,cols", [(20, 1), (20, 2), (20, 3), (20, 7), (20, 4096),
+                                       (20, 4097), (200, 5), (200, 5000), (200, 6145),
+                                       (200, 8192), (200, 8193), (20, 16384), (20, 16385),
+                                       (4, "shared"), (4, "shared+1")])
+def test_percentile5_adversarial_rows_at_path_edges(cuda, rows, cols):
+    from katsdpsigproc_tpu_torch.ops import percentile as pct
+
+    if cols in ("shared", "shared+1"):
+        cols = pct.max_shared_columns() + (cols == "shared+1")
+    x = torch.from_numpy(k4_ab.adversarial_rows(rows, cols, rows + cols)).to(cuda)
+    _k4_designs_equal_plain(x)
+
+
+def test_percentile5_launch_shapes(cuda):
+    from katsdpsigproc_tpu_torch.ops import percentile as pct
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    cols = pct.max_shared_columns()
+    assert pct.launch_shape(4000, 5000) == (256, 20)
+    assert pct.launch_shape(sms, 8192) == (256, 32)
+    assert pct.launch_shape(sms, 8193) == (1024, 12)
+    assert pct.launch_shape(64, 4096) == (1024, 4)
+    assert pct.launch_shape(sms - 1, 5000) == (1024, 8)
+    assert pct.launch_shape(4, 16384) == (1024, 16)
+    assert pct.launch_shape(4, 16385) == (1024, 0)
+    assert pct.launch_shape(4, cols) == (1024, 0) and pct.launch_shape(4, cols + 1) == (1024, -1)
+    assert 50000 < cols < 60000  # 65536 columns take the device-memory path
+
+
+@pytest.mark.parametrize("lo,hi", [(100, 4100), (1, 4998), (3, 4), (2, 4999)])
+def test_percentile5_column_range_view_with_row_stride(cuda, lo, hi):
+    """A view of columns [lo, hi) of 5000-column rows: the row stride exceeds
+    the row, and the rows start on and off 16-byte boundaries."""
+    x = torch.from_numpy(k4_ab.adversarial_rows(300, 5000, seed=lo)).to(cuda)
+    _k4_designs_equal_plain(x[:, lo:hi])
+    _k4_designs_equal_plain(x[:40, lo:hi])
 
 
 def test_percentile5_column_range_view_and_count(cuda):
@@ -337,23 +405,24 @@ def test_amp_pairs_matches_plain(cuda, channels, rows):
 
 
 def test_probes_launch_as_k1_does(cuda):
-    """The strided layout's block and shared memory (K2's, which `full`, K1
-    in that layout, shares) at every size; at 32768 channels the shared
-    memory also pins K2 and every probe to one CTA per SM (at 128 channels
-    the registers set the occupancy, and they differ by variant)."""
+    """The strided layout's launch (that of K2's strided design, which
+    `full`, K1 in that layout, shares) at every size; at 32768 channels the
+    shared memory also pins that launch and every probe to one CTA per SM
+    (at 128 channels the registers set the occupancy, and they differ by
+    variant)."""
     fp = _probe()
     for channels in (128, 32768):
-        k1 = ff.strided_launch_config(channels)
-        assert k1["threads"] == 1024, k1
+        strided = ff.strided_launch_config(channels)
+        assert strided["threads"] == 1024, strided
         if channels == 32768:
-            assert k1["ctas_per_sm"] == 1, k1
+            assert strided["ctas_per_sm"] == 1, strided
         for variant in fp.VARIANTS + ("amp_pairs",):
             cfg = fp.launch_config(variant, channels)
             if channels == 32768:
-                assert cfg == k1, (variant, cfg, k1)
+                assert cfg == strided, (variant, cfg, strided)
             else:
-                assert cfg["threads"] == k1["threads"], (variant, cfg, k1)
-                assert cfg["smem_bytes"] == k1["smem_bytes"], (variant, cfg, k1)
+                assert cfg["threads"] == strided["threads"], (variant, cfg, strided)
+                assert cfg["smem_bytes"] == strided["smem_bytes"], (variant, cfg, strided)
 
 
 def test_probe_launch_counts_and_errors(cuda):
@@ -532,7 +601,7 @@ def test_prim_cost_unrolls_and_launches_as_k1(cuda, unroll):
     x = prim_cost.block(8, 256, cuda)
     assert torch.equal(prim_cost.chain(x, "roll_lane", 3, unroll),
                        prim_cost.chain_plain(x, "roll_lane", 3, unroll))
-    cfg = prim_cost.launch_config("rank_round", 1024, unroll)
+    cfg = prim_cost.launch_config("rank_round", 1024, unroll)  # the strided layout's launch
     assert cfg == dict(ff.strided_launch_config(32768), threads=1024), cfg
     assert cfg["ctas_per_sm"] == 1
 
@@ -570,9 +639,10 @@ def test_skeleton_matches_plain(cuda, channels, rows, width, kind):
 def test_skeleton_launches_as_k1(cuda):
     _, rsk = _cost()
     for channels in (128, 32768):
-        k1 = ff.strided_launch_config(channels)  # the layout K10 compiles
+        strided = ff.strided_launch_config(channels)  # the layout K10 compiles
         cfg = rsk.launch_config(channels)
-        assert cfg["threads"] == k1["threads"] and cfg["smem_bytes"] == k1["smem_bytes"], cfg
+        assert (cfg["threads"] == strided["threads"]
+                and cfg["smem_bytes"] == strided["smem_bytes"]), cfg
     assert rsk.launch_config(32768)["ctas_per_sm"] == 1
     with pytest.raises(ValueError, match="limit"):
         rsk.skeleton(torch.zeros((1, 50000), device=cuda))

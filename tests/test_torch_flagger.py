@@ -21,6 +21,7 @@ import torch
 
 from katsdpsigproc_tpu.models.rfi import device as jdev, host as jhost, pallas_flagger as jpf
 from katsdpsigproc_tpu_torch.models.rfi import device as tdev, fused_flagger as ff, host as thost
+from katsdpsigproc_tpu_torch.scripts import k2_ab
 
 from .helpers import rfi_test_data
 
@@ -99,6 +100,21 @@ def test_madnz_threshold_matches_pallas(nref):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(ff.madnz_threshold_plain(torch.from_numpy(dev_t), **kw).numpy(),
                                   got.numpy())
+
+
+@pytest.mark.parametrize("channels", [1, 13, 99, 1023, 1024, 1025, 4097])
+def test_madnz_threshold_plain_matches_pallas_on_adversarial_deviations(channels):
+    """Deviations K1 never makes (NaN, +-inf, -0, all-zero and all-NaN rows;
+    no denormals, which XLA on the CPU flushes to zero), at one channel,
+    fewer channels than a window and around K2's 1024-thread CTA."""
+    dev_t = k2_ab.adversarial_deviations(8, channels, channels, denormals=False)
+    for kw in (dict(n_sigma=11.0, n_windows=4, falloff=1.2, flag_value=1),
+               dict(n_sigma=5.0, n_windows=6, falloff=1.2, flag_value=3)):
+        got = ff.madnz_threshold_plain(torch.from_numpy(dev_t), **kw)
+        want = jpf.madnz_threshold(jnp.asarray(dev_t), bb=8, interpret=True, **kw)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(ff.madnz_threshold(torch.from_numpy(dev_t), **kw).numpy(),
+                                      got.numpy())
 
 
 def _seed1_dump(channels=512, rows=64):

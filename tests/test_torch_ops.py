@@ -10,6 +10,11 @@ Tolerances:
 
 * K4's plain version (``percentile5_plain``) against the JAX Pallas kernel
   in interpret mode: bit for bit, on amplitudes and on NaN-bearing rows.
+  K4's radix select step by step (``percentile5_radix_plain``) against
+  both: bit for bit, on rows of NaN, +-inf, -0, negatives, denormals and
+  ties.  Against JAX, not on denormals (XLA on the CPU flushes them to
+  zero) and not the min of a row whose min is -0 (its reduction returns
+  +0).
   Every port engine against ``np.percentile(..., method="lower")``: exact
   on float32 amplitudes; on complex64 input rtol 1e-6, as
   ``tests/test_ops.py`` allows (the amplitude may differ from numpy's by
@@ -26,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from katsdpsigproc_tpu.ops import (
     fill as jfill,
@@ -38,6 +44,7 @@ from katsdpsigproc_tpu.ops import (
 from katsdpsigproc_tpu_torch.ops import fill, maskedsum, percentile, reduce as hreduce, transpose
 from katsdpsigproc_tpu_torch.ops import wgreduce
 from katsdpsigproc_tpu_torch.pytest_plugin import patch_autotune  # noqa: F401
+from katsdpsigproc_tpu_torch.scripts import k4_ab
 from katsdpsigproc_tpu_torch.utils import tune
 
 from .helpers import complex_normal
@@ -334,6 +341,36 @@ class TestPercentile5:
             np.testing.assert_array_equal(out[0], np.min(sub, axis=1))
             np.testing.assert_array_equal(
                 out[4], np.percentile(sub, 50, axis=1, method="lower").astype(np.float32))
+
+    @pytest.mark.parametrize("n", [1, 2, 3, 7, 4096, 5000])
+    def test_radix_plain_matches_plain_and_pallas(self, n):
+        x = k4_ab.adversarial_rows(10, n, seed=n)
+        radix = percentile.percentile5_radix_plain(_t(x)).numpy()
+        _bits_equal(radix, percentile.percentile5_plain(_t(x)).numpy())
+        x = k4_ab.adversarial_rows(10, n, seed=n, xla_cpu=True)
+        radix = percentile.percentile5_radix_plain(_t(x)).numpy()
+        _bits_equal(radix, percentile.percentile5_plain(_t(x)).numpy())
+        _bits_equal(radix, jpct.percentile5(jnp.asarray(x), engine="pallas", interpret=True))
+
+    def test_radix_plain_end_states(self):
+        """+inf or a rank beyond the non-NaN count gives 0x7fffffff; key 0 gives +0."""
+        x = np.array([[1, np.inf, np.inf, 2, 3], [-1, -0.0, 0.5, np.nan, 4],
+                      [np.nan, np.nan, np.nan, 1, 2]], np.float32)
+        got = percentile.percentile5_radix_plain(_t(x)).numpy().view(np.int32)
+        _bits_equal(got.view(np.float32), percentile.percentile5_plain(_t(x)).numpy())
+        assert got[3, 0] == 0x7FFFFFFF  # p75 of [1, inf, inf, 2, 3]; numpy's lower gives inf
+        assert got[2, 1] == 0  # p25 of [-1, -0, 0.5, nan, 4]: +0
+        assert got[2, 2] == np.float32(2).view(np.int32)  # rank 1 of the two non-NaN values
+        assert list(got[3:, 2]) == [0x7FFFFFFF] * 2  # ranks 3 and 2 lie beyond them
+
+    @settings(max_examples=60, deadline=None)
+    @given(st.lists(st.lists(st.floats(width=32, allow_nan=True, allow_infinity=True,
+                                       allow_subnormal=True), min_size=9, max_size=9),
+                    min_size=1, max_size=6))
+    def test_radix_plain_matches_plain_on_any_floats(self, rows):
+        x = np.array(rows, np.float32)
+        _bits_equal(percentile.percentile5_radix_plain(_t(x)).numpy(),
+                    percentile.percentile5_plain(_t(x)).numpy())
 
     def test_instantiate_checks(self, ctx):
         tmpl = percentile.Percentile5Template(ctx, 64, True, tuning={"engine": "cuda"})
