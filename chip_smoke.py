@@ -10,12 +10,13 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: builds the kernel libraries with one ``nvcc`` each, all
-   started together (with K1's measurement builds of
+   started together (with K1's measurement build of
    ``scripts/k1_ab.py``), and prints the build time and nvcc's register
-   report; K1's ``flagger_kernel``, K2's ``madnz_threshold_kernel`` and
-   every instance of K4's ``percentile5_radix_kernel`` must spill no
-   bytes, and K1's SASS's local loads and stores are counted
-   (``cuobjdump -sass``);
+   report; K1's ``flagger_kernel``, K2's ``madnz_threshold_kernel``, every
+   instance of K4's ``percentile5_radix_kernel`` and every K11 and K13
+   instance of ``flagger_probe.cu``'s ``probe_kernel`` must spill no
+   bytes, and the SASS local loads and stores of K1 and of each K11 and
+   K13 instance are counted (``cuobjdump -sass``);
 3. each kernel against its plain PyTorch version on the card, exact on
    the uint8 flags: K1 in every flag mode at the edge shapes of its run
    layout (1, 13, 99, 257, 1023, 1024, 1025, 4097 and 32768 channels and
@@ -30,7 +31,7 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
    2016 baselines x 4 pols = 8064 rows, channel-major planar float32)
    through ``flag_dump(vis.transpose(0, 1))``, the bench's call (K5's
    corner turn, then K1), the plain version, K1 in the strided layout
-   (probe ``full``) and the hybrid engine (K2), which must agree flag for
+   (probe ``strided_full``) and the hybrid engine (K2), which must agree flag for
    flag, then CUDA-event timings, and ``scripts/k2_ab``: K2 against its
    strided design on the dump's deviations, 5 interleaved rounds of 3
    calls, with each one's median and spread;
@@ -50,21 +51,21 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
 7. ``FlaggerDevice`` (median background, transposed MAD noise,
    SumThreshold as an ``OperationSequence``) over the whole dump as
    complex64, whose flags must equal K1's on the same rows;
-8. K1's stage probes (``csrc/flagger_probe.cu``), on the strided layout
-   K2 keeps: each variant's launch configuration against K2's, as the two
-   libraries report them (1024 threads, that layout's shared memory, one
-   CTA per SM); every variant against
-   its plain version, exact, at several shapes and on 512 rows of the
-   dump; on the whole dump, ``full``, ``rank_pair``, ``zeros_fold`` and
-   ``shfl_median`` against K1, every ``stage_ablate`` variant against its
-   plain version, and ``amp_pairs`` in both layouts against the plain
-   amplitude; then the profiling path, the
-   four probe tools' ``run`` on the whole dump with the launch counts
-   read, which prints the stage costs; K1's measurement builds against
-   their plain versions and K1; ``scripts/k1_ab``: K1 against ``full``,
-   the K5 + K1 call and the builds, 5 interleaved rounds of 3 calls, with
-   each one's median and spread and the run layout's stage costs; and the
-   plain versions' times;
+8. K1's stage probes (``csrc/flagger_probe.cu``): each variant's launch
+   configuration as the libraries report it, K11's and K13's equal to
+   K1's (the run layout: 1024 threads, K1's shared memory, one CTA per
+   SM), K9's, ``strided_full``'s and K12's equal to K2's strided design's;
+   every variant against its plain version, exact, at several shapes and
+   on 512 rows of the dump; on the whole dump, ``full``, ``rank_pair``,
+   ``zeros_fold``, ``radix_select``, ``strided_full`` and ``shfl_median``
+   against K1, every ``stage_ablate`` variant against its plain version,
+   and ``amp_pairs`` in both layouts against the plain amplitude; then the
+   profiling path, the four probe tools' ``run`` on the whole dump with
+   the launch counts read, which prints the stage costs; K1's measurement
+   build against its plain version and K1; ``scripts/k1_ab``: K1 against
+   ``strided_full``, the K5 + K1 call, the build and K11's ``full`` and
+   stand-ins, 5 interleaved rounds of 3 calls, with each one's median and
+   spread and the run layout's stage costs; and the plain versions' times;
 9. the examples and the cost probes: the tutorial kernels K6 (Triton) and
    K7 (``csrc/examples.cu``) against ``x * 3`` and ``data * scale``,
    exact, at the examples' sizes, at their tiles' edges and at 2**28
@@ -342,6 +343,38 @@ def phase_build(ff, pct, tr, fp, kernels) -> None:
         if name.startswith("flagger_kernel<"):
             print(f"  K1 {name} SASS: {len(re.findall(r'LDL', part))} local loads, "
                   f"{len(re.findall(r'STL', part))} local stores")
+    # K11 and K13, K1 with one stage replaced at K1's launch bounds: no
+    # spills, and their SASS's local loads and stores as K1's.
+    fp_key = kernels.build_key("flagger_probe", ["flagger_probe.cu"],
+                               {"ff_network.h": ff._network_header(13)})
+
+    names = {code: name for name, code in fp._CODE.items()}
+
+    def probe_variant(mangled: str):
+        m = re.search(r"(?<!strided_)probe_kernelILi(\d+)E", mangled)
+        return names[int(m.group(1))] if m else None
+
+    probes = {probe_variant(name): r
+              for name, r in ptxas_report(kernels.build_info[fp_key]["log"]).items()
+              if probe_variant(name)}
+    sass = subprocess.run([cuobjdump, "-sass", str(kernels.BUILD_DIR / fp_key /
+                                                   "libflagger_probe.so")],
+                          capture_output=True, text=True).stdout
+    local = {probe_variant(part.split("\n")[0]): (len(re.findall(r"LDL", part)),
+                                                   len(re.findall(r"STL", part)))
+             for part in sass.split("Function : ")[1:]}
+    run_layout = fp.RUN_LAYOUT + fp.MEASUREMENT
+    for v in run_layout:
+        r = probes.get(v, {})
+        lds, sts = local.get(v, (None, None))
+        print(f"  {'K11' if v in fp.STAGE_ABLATE else 'K13'} probe_kernel<{v}>: "
+              f"{r.get('registers')} registers, {r.get('stack')} B stack frame, "
+              f"{r.get('spill_stores')} B spill stores, {r.get('spill_loads')} B spill loads; "
+              f"SASS {lds} local loads, {sts} local stores")
+    if (set(run_layout) - set(probes)
+            or any(probes[v]["spill_stores"] or probes[v]["spill_loads"] for v in run_layout)):
+        raise AssertionError(f"a K11 or K13 instance spills or is missing from the report: "
+                             f"{probes}")
     # K2 and K4 (and K2's strided design, K4's measurement builds and its
     # original design, printed): no spills either.
     pct_key = kernels.build_key("percentile", ["percentile.cu"], {})
@@ -468,8 +501,8 @@ def phase_main(ff, fp, tr, device, vis_np: np.ndarray, card: str, check: Check) 
     check.flags("flagger", "full dump: K5 + K1 (flag_dump of the view) vs plain", k1, plain)
     check.flags("flagger", "full dump: K1 on the contiguous dump vs K5 + K1", ff.flag_dump(vis_t),
                 k1)
-    check.flags("flagger", "full dump: K1 vs probe full (K1 in the strided layout)",
-                fp.probe(vis_t, "full"), k1)
+    check.flags("flagger", "full dump: K1 vs probe strided_full (K1 in the strided layout)",
+                fp.probe(vis_t, "strided_full"), k1)
     check.flags("madnz_threshold", "full dump: hybrid (K2) vs K1", hybrid.T, k1)
     print(f"  flagged fraction {float(k1.float().mean()):.5f}")
 
@@ -498,7 +531,8 @@ def phase_main(ff, fp, tr, device, vis_np: np.ndarray, card: str, check: Check) 
             lambda: ff.flag_dump(vis.transpose(0, 1))),
         "plain corner turn + K1 flag_dump": time_fn(
             lambda: ff.flag_dump(vis.transpose(0, 1).contiguous())),
-        "K1 in the strided layout (probe full)": time_fn(lambda: fp.probe(vis_t, "full")),
+        "K1 in the strided layout (probe strided_full)": time_fn(
+            lambda: fp.probe(vis_t, "strided_full")),
         "K1 plain (flag_transposed_plain)": time_fn(plain_k1),
         "hybrid engine (plain background + K2)": time_fn(lambda: hybrid_fn(vis)),
         "K2 madnz_threshold": time_fn(lambda: ff.madnz_threshold(dev_t)),
@@ -812,23 +846,25 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
     from katsdpsigproc_tpu_torch.utils.profiling import time_fn
 
     probe_of = {v: name for name, variants in fp.PROBES.items() for v in variants}
+    probe_of.update({v: "rankpair" for v in fp.MEASUREMENT})
     channels, rows = vis_np.shape
     print("K1's stage probes (csrc/flagger_probe.cu):")
 
-    # Every variant launches as the strided layout's K2 does, as both
-    # libraries report it: 1024 threads, that layout's dynamic shared
-    # memory, one CTA per SM.  K1 (the run layout) is printed beside it.
-    k2_cfg = ff.strided_launch_config(channels)
+    # K11 and K13 launch as K1 does (the run layout), K9, strided_full and
+    # K12 as K2's strided design does, as the libraries report it: 1024
+    # threads, the layout's dynamic shared memory, one CTA per SM.
     k1_cfg = ff.launch_config(channels)
-    print(f"  launch K1 (run layout) at {channels} channels: {k1_cfg['threads']} threads, "
-          f"{k1_cfg['smem_bytes']} B dynamic shared memory, {k1_cfg['ctas_per_sm']} CTA per SM")
-    for v, cfg in [("K2 (strided layout)", k2_cfg)] + [(v, fp.launch_config(v, channels))
-                                                       for v in fp.VARIANTS + ("amp_pairs",)]:
-        print(f"  launch {v} at {channels} channels: {cfg['threads']} threads, "
-              f"{cfg['smem_bytes']} B dynamic shared memory, {cfg['ctas_per_sm']} CTA per SM")
-        if cfg != k2_cfg:
-            raise AssertionError(f"{v} does not launch as the strided layout does ({k2_cfg}): "
-                                 f"{cfg}")
+    k2_cfg = ff.strided_launch_config(channels)
+    layouts = [("K1 (run layout)", k1_cfg, ("K1",) + fp.RUN_LAYOUT + fp.MEASUREMENT),
+               ("K2's strided design (strided layout)", k2_cfg,
+                ("K2",) + fp.STRIDED + ("amp_pairs",))]
+    for layout, want, variants in layouts:
+        for v in variants:
+            cfg = want if v in ("K1", "K2") else fp.launch_config(v, channels)
+            print(f"  launch {v} at {channels} channels: {cfg['threads']} threads, "
+                  f"{cfg['smem_bytes']} B dynamic shared memory, {cfg['ctas_per_sm']} CTA per SM")
+            if cfg != want:
+                raise AssertionError(f"{v} does not launch as {layout} does ({want}): {cfg}")
     for label, cfg in (("K1", k1_cfg), ("K2", k2_cfg)):
         if cfg["threads"] != 1024 or cfg["ctas_per_sm"] != 1:
             raise AssertionError(f"{label} no longer launches 1024 threads, one CTA per SM: {cfg}")
@@ -841,7 +877,7 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
     cases.append(("seed-1 dump, 512 rows", device.to_planar(vis_np[:, :512].T)))
     for label, planar in cases:
         vis_t = torch.from_numpy(planar.copy()).cuda()  # (rows, C, 2)
-        for v in fp.VARIANTS:
+        for v in fp.VARIANTS + fp.MEASUREMENT:
             check.flags(probe_of[v], f"{v} vs plain, {label}", fp.probe(vis_t, v),
                         fp.probe_plain(vis_t, v))
         for name in k1_ab.BUILDS:
@@ -855,7 +891,8 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
                     fp.amp_pairs_plain(vis_c, channel_major=True))
 
     # The whole dump: the bit-exact variants against K1, every stage_ablate
-    # variant against its plain version, K12 against the plain amplitude.
+    # variant and radix_select against its plain version, K12 against the
+    # plain amplitude.
     vis = torch.from_numpy(device.to_planar(vis_np)).cuda()  # (C, rows, 2), channel-major
     vis_t = vis.transpose(0, 1).contiguous()
 
@@ -868,15 +905,16 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
             return out
         return run
 
-    plain_fns = {v: slabs(lambda x, v=v: fp.probe_plain(x, v)) for v in fp.STAGE_ABLATE}
+    plain_fns = {v: slabs(lambda x, v=v: fp.probe_plain(x, v))
+                 for v in fp.STAGE_ABLATE + ("radix_select",)}
     k1 = ff.flag_dump(vis_t)
     for v in fp.EXACT:
         check.flags(probe_of[v], f"full dump: {v} vs K1", fp.probe(vis_t, v), k1)
     check.flags("flagger", "full dump: K1 build select_minmax vs K1",
                 k1_ab.build(vis_t, "select_minmax"), k1)
     del k1
-    for v in fp.STAGE_ABLATE:
-        check.flags(probe_of[v], f"full dump: {v} vs plain", fp.probe(vis_t, v), plain_fns[v]())
+    for v, plain_fn in plain_fns.items():
+        check.flags(probe_of[v], f"full dump: {v} vs plain", fp.probe(vis_t, v), plain_fn())
     amp = fp.amp_pairs_plain(vis_t)
     check.exact("deinterleave", "full dump: amp_pairs baseline-major vs plain",
                 fp.amp_pairs(vis_t), amp)
@@ -893,8 +931,8 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
     rank_ms = rankpair_ab.run(vis_t, iters=3, reps=5, card=card)
     roll_ms = rollchain_ab.run(vis_t, iters=3, reps=5, card=card)
     dein_ms = deinterleave_probe.run(vis, iters=3, reps=5, card=card)
-    print(f"K1 (run layout) against K1 in the strided layout, interleaved, 5 rounds of 3 calls, "
-          f"on {card}:")
+    print(f"K1 (run layout) against K1 in the strided layout, its measurement build and K11, "
+          f"interleaved, 5 rounds of 3 calls, on {card}:")
     for name in k1_ab.launches:
         k1_ab.launches[name] = 0
     k1_ab.run(vis_t, vis, iters=3, reps=5, card=card)
@@ -914,26 +952,30 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
     plain["amp_pairs"] = time_fn(lambda: fp.amp_pairs_plain(vis_t), warmup=1, iters=3)
     plain["amp_pairs channel-major"] = time_fn(
         lambda: fp.amp_pairs_plain(vis, channel_major=True), warmup=1, iters=3)
-    kernel = {**stage_ms, "rank_pair": rank_ms["rank_pair"], "zeros_fold": rank_ms["zeros_fold"],
-              "shfl_median": roll_ms["shfl"], "amp_pairs": dein_ms["baseline-major"],
+    kernel = {**stage_ms, **{v: rank_ms[v] for v in fp.RANK_SEARCHES},
+              "strided_full": roll_ms["direct"], "shfl_median": roll_ms["shfl"],
+              "amp_pairs": dein_ms["baseline-major"],
               "amp_pairs channel-major": dein_ms["channel-major"]}
     print(f"kernel vs plain on the whole dump (plain: 1 warm-up, median of 3) on {card}:")
     for v, ms in kernel.items():
-        p = plain.get(v, plain["full"])  # the bit-exact variants' plain version is K1's
+        p = plain.get(v, plain["full"])  # the other bit-exact variants' plain version is K1's
         print(f"  {v}: {ms:.3f} ms vs plain {p:.3f} ms [{card}]")
     print(f"  stage costs (full less the stand-in): "
           + ", ".join(f"{k} {ms:.3f} ms" for k, ms in stages.items())
           + f"; skeleton {stage_ms['skeleton']:.3f} ms against the 0.71 ms traffic floor [{card}]")
-    for v, name in (("rank_pair", "binary"), ("zeros_fold", "binary")):
-        print(f"  {v} - full: {rank_ms[v] - rank_ms[name]:+.3f} ms [{card}]")
-    print(f"  shfl_median - full: {roll_ms['shfl'] - roll_ms['direct']:+.3f} ms [{card}]")
-    # `full`, `rank_pair` and `shfl_median` do K1's work; K12 reads 8 B and
-    # writes 4 B per visibility and does the amplitude's 4 operations.
+    for v in fp.RANK_SEARCHES + fp.MEASUREMENT:
+        print(f"  {v} - full: {rank_ms[v] - rank_ms['binary']:+.3f} ms [{card}]")
+    print(f"  shfl_median - strided_full: {roll_ms['shfl'] - roll_ms['direct']:+.3f} ms [{card}]")
+    # K13's record is its fastest variant, named.
+    fastest = min(fp.RANK_SEARCHES, key=rank_ms.get)
+    # `full`, the K13 variants and `shfl_median` do K1's work; K12 reads 8 B
+    # and writes 4 B per visibility and does the amplitude's 4 operations.
     n_vis = rows * channels
     k1_work = (9 * n_vis, inventory_ops() * n_vis)
     return {
         "stage_ablate": record(counts["stage_ablate"], stage_ms["full"], plain["full"], *k1_work),
-        "rankpair": record(counts["rankpair"], rank_ms["rank_pair"], plain["full"], *k1_work),
+        "rankpair": dict(record(counts["rankpair"], rank_ms[fastest],
+                                plain.get(fastest, plain["full"]), *k1_work), variant=fastest),
         "rollchain": record(counts["rollchain"], roll_ms["shfl"], plain["full"], *k1_work),
         "deinterleave": record(counts["deinterleave"], dein_ms["channel-major"],
                                plain["amp_pairs channel-major"], 12 * n_vis, 4 * n_vis),

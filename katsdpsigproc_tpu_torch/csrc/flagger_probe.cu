@@ -4,9 +4,10 @@
 //       near-free stand-in (`no_median`, `no_rank`, `no_thresh`,
 //       `skeleton`) beside the whole of it (`full`), so each stage's cost
 //       is a difference of two times taken at K1's own occupancy;
-//   K13 rankpair_ab.py::make.kernel: the rank search with two bits per
-//       dependent stage (`rank_pair`), or with the zeros count riding the
-//       first round (`zeros_fold`), bit for bit K1;
+//   K13 rankpair_ab.py::make.kernel: K1 with another rank search, bit for
+//       bit K1: two bits per dependent round (`rank_pair`), the zeros count
+//       riding the first round (`zeros_fold`), or K4's radix select
+//       (`radix_select`);
 //   K9  rollchain_ab.py::make.kernel: the median's shifted members built
 //       another way (`shfl_median`: warp shuffles), bit for bit K1;
 //   K12 deinterleave_probe.py::make.kernel: amplitudes from interleaved
@@ -15,34 +16,46 @@
 //       the main path's own input before its corner turn.
 //
 // What bounds them: what bounds K1 (fused_flagger.cu's header).  A probe
-// measures only if its variants all run one machine: every kernel here
-// launches kThreads = 1024 threads with smem_bytes(C) of dynamic shared
-// memory, the block and allocation of the strided layout (ff_device.cuh,
-// the layout K1 and K2 had before the run layout, ff_runs.cuh), so one
-// CTA runs per SM at 32768 channels whatever the variant uses of it.
-// `full` is K1 in that layout, flag for flag the run layout's K1; only the
-// stage a variant names differs, and K1 itself gains no knob.
+// measures only if its variants all run one machine, so each launches as
+// the kernel it varies: kThreads = 1024 threads, one CTA per SM at 32768
+// channels, and the dynamic shared memory of its layout:
+//  * K11 and K13 are K1 itself, on K1's run layout (ff_runs.cuh,
+//    runs::smem_bytes): `full` is K1's pipeline, and each other variant
+//    changes the one stage it names, so a difference of two times is that
+//    stage's cost in the K1 that runs.  K1 itself gains no knob;
+//  * K9 and K12 stay on the strided layout (ff_device.cuh, smem_bytes),
+//    where K2's strided design keeps its launch, beside `strided_full`,
+//    K1 in that layout and K9's "before".
 //
 // Variants, with the stand-ins' semantics of stage_ablate.py:61-80 (there
 // are no input flags, and C >= FF_WIDTH):
-//   full         amplitude, median, MAD noise, SumThreshold: K1
-//   no_median    median := amp * 0.5
-//   no_rank      noise := 1, so the base threshold is n_sigma
-//   no_thresh    flag := dev > noise
-//   skeleton     flag := amp > 1 (amplitude and store at K1's occupancy)
-//   rank_pair    each pass counts cur|hi, cur|lo and cur|hi|lo with one
-//                block reduction of three ints: 15 pairs and one single bit,
-//                16 dependent stages instead of 31.  The TPU probe packs two
-//                of the counts into one int32 (`pair_i32`) or float32
-//                (`pair_f32`) reduce; on the card a block reduces three ints
-//                behind one barrier, so the two packings are one variant.
-//   zeros_fold   bit 30's candidate does not depend on the target, so its
-//                count rides the zeros pass, both packed in one int
-//                (rankpair_ab.py via pallas_flagger.py:374-377): 31 passes
-//                over the row instead of 32.
-//   shfl_median  the median's members within a warp come from __shfl_sync;
-//                those across warps or tiles from shared memory and the
-//                halo, as in K1.
+//   full          amplitude, median, MAD noise, SumThreshold: K1
+//   no_median     median := amp * 0.5 (deviations written in place)
+//   no_rank       noise := 1, so the base threshold is n_sigma
+//   no_thresh     flag := dev > noise
+//   skeleton      flag := amp > 1 (amplitude and store at K1's occupancy)
+//   rank_pair     each round counts cur|hi, cur|lo and cur|hi|lo against
+//                 the thread's 32 |dev| registers; one reduction of three
+//                 ints behind one barrier: 15 pairs and one single bit, 16
+//                 dependent rounds instead of 31 (the JAX rank_radix=2
+//                 candidates; the TPU probe's `pair_i32` and `pair_f32`
+//                 packings are one variant here)
+//   zeros_fold    bit 30's candidate does not depend on the target, so its
+//                 count rides the zeros pass, both packed in one word
+//                 (rankpair_ab.py via pallas_flagger.py:374-377): 31
+//                 reductions instead of 32
+//   radix_select  K4's radix select (percentile.cu) on the row's |dev| bit
+//                 patterns: 8 + 8 + 8 + 7 bits a pass, a shared histogram of
+//                 the digit of the keys still under the prefix, scanned by
+//                 every warp alike: one barrier a pass, 4 instead of 31
+//   radix_match_any  a measurement instance of radix_select, not a variant
+//                 (scripts/rankpair_ab.py): pass 0 adds each distinct
+//                 exponent digit of a warp once (__match_any_sync), as K4's
+//                 measurement build does
+//   strided_full  K1 in the strided layout (K9's, K1's and phase 5's "before")
+//   shfl_median   strided_full with the median's members within a warp
+//                 taken by __shfl_sync; those across warps or tiles from
+//                 shared memory and the halo
 
 #include "ff_device.cuh"
 
@@ -56,100 +69,21 @@ enum Variant : int {
   kSkeleton = 4,
   kRankPair = 5,
   kZerosFold = 6,
-  kShflMedian = 7,
-  kAmpPairs = 8,              // baseline-major (rows, C, 2)
-  kAmpPairsChannelMajor = 9,  // channel-major (C, rows, 2)
+  kRadixSelect = 7,
+  kRadixMatchAny = 8,  // radix_select's measurement instance
+  kStridedFull = 9,    // the first variant on the strided layout
+  kShflMedian = 10,
+  kAmpPairs = 11,              // baseline-major (rows, C, 2)
+  kAmpPairsChannelMajor = 12,  // channel-major (C, rows, 2)
 };
 
-// K13 rank_pair.  The three counts of a pair share one pass and one
-// barrier over double-banked partials, as K4 reduces its three targets.
-__device__ float mad_noise_pair(const float* dev, int* red, int& bank, int C) {
-  __shared__ int part[2][kWarps][3];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const RankTarget t = rank_target(C, block_sum(count_zeros(dev, C), red, bank));
-  unsigned cur = 0;
-  int r_cur = 0;
-  for (int i = 0; i < 15; ++i) {
-    const unsigned hi = 1u << (30 - 2 * i);
-    const unsigned lo = 1u << (29 - 2 * i);
-    const float c_hi = __uint_as_float(cur | hi);
-    const float c_lo = __uint_as_float(cur | lo);
-    const float c_both = __uint_as_float(cur | hi | lo);
-    int n_hi = 0, n_lo = 0, n_both = 0;
-    for (int c = threadIdx.x; c < C; c += kThreads) {
-      const float a = fabsf(dev[c]);
-      n_hi += a < c_hi;
-      n_lo += a < c_lo;
-      n_both += a < c_both;
-    }
-    n_hi = __reduce_add_sync(0xffffffffu, n_hi);
-    n_lo = __reduce_add_sync(0xffffffffu, n_lo);
-    n_both = __reduce_add_sync(0xffffffffu, n_both);
-    int(*b)[3] = part[i & 1];
-    if (lane == 0) {
-      b[warp][0] = n_hi;
-      b[warp][1] = n_lo;
-      b[warp][2] = n_both;
-    }
-    __syncthreads();
-    n_hi = n_lo = n_both = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      n_hi += b[w][0];
-      n_lo += b[w][1];
-      n_both += b[w][2];
-    }
-    // The low bit is tested against the prefix the high bit resolved.
-    const bool take_hi = n_hi <= t.target;
-    const int n_lo_eff = take_hi ? n_both : n_lo;
-    if (take_hi) {
-      cur |= hi;
-      r_cur = n_hi;
-    }
-    if (n_lo_eff <= t.target) {
-      cur |= lo;
-      r_cur = n_lo_eff;
-    }
-  }
-  const unsigned test = cur | 1u;  // bit 0 alone
-  const int cnt = block_sum(count_less(dev, C, __uint_as_float(test)), red, bank);
-  if (cnt <= t.target) {
-    cur = test;
-    r_cur = cnt;
-  }
-  return noise_from_rank(dev, red, bank, C, cur, r_cur, t);
-}
+__host__ __device__ constexpr bool run_layout(int variant) { return variant < kStridedFull; }
 
-// K13 zeros_fold.  Zeros in the low 16 bits, count(|dev| < 2.0f) (bit 30's
-// candidate) in the high 16: each field is at most C < 2**16, so the
-// unsigned sum wraps nowhere.
-__device__ float mad_noise_zeros_fold(const float* dev, int* red, int& bank, int C) {
-  const float cand30 = __uint_as_float(1u << 30);
-  unsigned packed = 0;
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    const float a = fabsf(dev[c]);
-    packed += (a == 0.f) + ((unsigned)(a < cand30) << 16);
-  }
-  packed = block_sum(packed, red, bank);
-  const RankTarget t = rank_target(C, (int)(packed & 0xffffu));
-  const int c30 = (int)(packed >> 16);
-  unsigned cur = 0;
-  int r_cur = 0;
-  if (c30 <= t.target) {
-    cur = 1u << 30;
-    r_cur = c30;
-  }
-  for (int i = 1; i < 31; ++i) {
-    const unsigned test = cur | (1u << (30 - i));
-    const int cnt = block_sum(count_less(dev, C, __uint_as_float(test)), red, bank);
-    if (cnt <= t.target) {
-      cur = test;
-      r_cur = cnt;
-    }
-  }
-  return noise_from_rank(dev, red, bank, C, cur, r_cur, t);
-}
+// ---- The strided layout (ff_device.cuh): K9, strided_full and K12 ----
+//
+// Defined before ff_runs.cuh is included below: that header redefines the
+// selection network's comparators as min.NaN/max.NaN, and K9's network is
+// expanded here with ff_device.cuh's nan_min/nan_max, as strided_full's.
 
 // K9 shfl_median: K1's fast-path median with the members within a warp
 // taken by shuffles.  A rotation by d serves every lane with one shuffle:
@@ -198,57 +132,27 @@ __device__ void median_to_deviations_shfl(float* buf, float* halo, int C) {
   }
 }
 
-// Every variant but the skeleton: K1's stages, with the variant's own in
-// place of one of them.
-template <int kVariant>
-__device__ void flag_row(const float2* v, float* buf, uint8_t* flags, int* red, float* halo,
-                         uint8_t* o, const Params& p) {
-  const int C = p.channels;
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    const float a = amplitude(v[c]);
-    buf[c] = kVariant == kNoMedian ? __fsub_rn(a, __fmul_rn(a, 0.5f)) : a;
-  }
-  __syncthreads();
-  if constexpr (kVariant == kShflMedian) {
-    median_to_deviations_shfl(buf, halo, C);
-  } else if constexpr (kVariant != kNoMedian) {
-    median_to_deviations<true, false>(buf, halo, C);
-  }
-  int bank = 0;
-  float noise;
-  if constexpr (kVariant == kNoRank) {
-    noise = 1.0f;
-  } else if constexpr (kVariant == kRankPair) {
-    noise = mad_noise_pair(buf, red, bank, C);
-  } else if constexpr (kVariant == kZerosFold) {
-    noise = mad_noise_zeros_fold(buf, red, bank, C);
-  } else {
-    noise = mad_noise(buf, red, bank, C);
-  }
-  if constexpr (kVariant == kNoThresh) {
-    const uint8_t fv = (uint8_t)p.flag_value;
-    for (int c = threadIdx.x; c < C; c += kThreads) o[c] = buf[c] > noise ? fv : 0;
-  } else {
-    sum_threshold_row(buf, flags, noise, o, p);
-  }
-}
-
+// strided_full and shfl_median: K1's stages in the strided layout.
 template <int kVariant>
 __global__ void __launch_bounds__(kThreads, 1)
-    probe_kernel(const float2* __restrict__ vis, uint8_t* __restrict__ out, Params p) {
+    strided_probe_kernel(const float2* __restrict__ vis, uint8_t* __restrict__ out, Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = p.channels;
   const size_t row = blockIdx.x;
   const float2* v = vis + row * C;
-  uint8_t* o = out + row * C;
-  if constexpr (kVariant == kSkeleton) {
-    const uint8_t fv = (uint8_t)p.flag_value;
-    for (int c = threadIdx.x; c < C; c += kThreads) o[c] = amplitude(v[c]) > 1.0f ? fv : 0;
+  float* buf = reinterpret_cast<float*>(smem);
+  int* red = reinterpret_cast<int*>(smem + scratch_offset(C));
+  float* halo = reinterpret_cast<float*>(red + 2 * kWarps);
+  for (int c = threadIdx.x; c < C; c += kThreads) buf[c] = amplitude(v[c]);
+  __syncthreads();
+  if constexpr (kVariant == kShflMedian) {
+    median_to_deviations_shfl(buf, halo, C);
   } else {
-    int* red = reinterpret_cast<int*>(smem + scratch_offset(C));
-    flag_row<kVariant>(v, reinterpret_cast<float*>(smem), smem + flags_offset(C), red,
-                       reinterpret_cast<float*>(red + 2 * kWarps), o, p);
+    median_to_deviations<true, false>(buf, halo, C);
   }
+  int bank = 0;
+  const float noise = mad_noise(buf, red, bank, C);
+  sum_threshold_row(buf, smem + flags_offset(C), noise, out + row * C, p);
 }
 
 // K12.  One CTA per row writes the row's amplitudes; reading channel-major
@@ -263,6 +167,392 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+}  // namespace
+
+// ---- K1's run layout (ff_runs.cuh): K11 and K13 ----
+
+#include "ff_runs.cuh"
+
+namespace {
+namespace runs {
+
+constexpr unsigned kFull32 = 0xffffffffu;
+
+// The flag masks double as the rank searches' scratch: SumThreshold first
+// writes them after the rank search's last barrier (block_max32's).
+//   rank_pair:    two banks of three counts per warp (192 words);
+//   radix_select: the four passes' histograms, 256 + 256 + 256 + 128 words,
+//                 cleared before the row's first barrier.
+constexpr int kHistWords = 3 * 256 + 128;
+static_assert(kHistWords <= kThreads && kHistWords * 4 <= kThreads * 8, "scratch in the masks");
+
+// |dev| of channels t + 1024 j, j < kRankRegs, into registers (+inf past
+// C, which no candidate counts), and the zeros among all of the thread's
+// channels, as K1's mad_noise loads them.
+__device__ __forceinline__ int load_abs(const float* dev, float (&a)[kRankRegs], int C) {
+  int zeros = 0;
+#pragma unroll
+  for (int j = 0; j < kRankRegs; ++j) {
+    const int c = threadIdx.x + j * kThreads;
+    a[j] = c < C ? fabsf(dev[phys(c)]) : CUDART_INF_F;
+    zeros += a[j] == 0.f;
+  }
+  for (int c = threadIdx.x + kRankRegs * kThreads, p = phys(c); c < C; c += kThreads, p += kStride) {
+    zeros += fabsf(dev[p]) == 0.f;
+  }
+  return zeros;
+}
+
+// This thread's count of |dev| < cand, registers first, then the channels
+// past them from shared memory.
+__device__ __forceinline__ int count_below(const float* dev, const float (&a)[kRankRegs], int C,
+                                           float cand) {
+  int cnt = 0;
+#pragma unroll
+  for (int j = 0; j < kRankRegs; ++j) cnt += a[j] < cand;
+  for (int c = threadIdx.x + kRankRegs * kThreads, p = phys(c); c < C; c += kThreads, p += kStride) {
+    cnt += fabsf(dev[p]) < cand;
+  }
+  return cnt;
+}
+
+// K1's halfway rule, as at the end of mad_noise: `below` is this thread's
+// largest |dev| bit pattern under the result.
+__device__ __forceinline__ float noise_from(unsigned cur, int r_cur, unsigned below,
+                                            RankTarget t, int* red, int& bank) {
+  const float result = __uint_as_float(cur);
+  const float prev = __uint_as_float(block_max32(below, red, bank));
+  const float med =
+      (t.halfway && r_cur == t.target) ? __fmul_rn(__fadd_rn(result, prev), 0.5f) : result;
+  return __fmul_rn(1.4826f, med);
+}
+
+__device__ __forceinline__ float noise_below(const float* dev, const float (&a)[kRankRegs], int C,
+                                             unsigned cur, int r_cur, RankTarget t, int* red,
+                                             int& bank) {
+  const float result = __uint_as_float(cur);
+  unsigned below = 0;  // bits of the largest |dev| < result, or of +0
+#pragma unroll
+  for (int j = 0; j < kRankRegs; ++j) {
+    if (a[j] < result) below = max(below, __float_as_uint(a[j]));
+  }
+  for (int c = threadIdx.x + kRankRegs * kThreads, p = phys(c); c < C; c += kThreads, p += kStride) {
+    const float x = fabsf(dev[p]);
+    if (x < result) below = max(below, __float_as_uint(x));
+  }
+  return noise_from(cur, r_cur, below, t, red, bank);
+}
+
+// K13 rank_pair.  A thread holds at most 32 + 20 channels (52310 at the
+// limit), so its three counts fit 10-bit fields of one word; the warps'
+// sums go to scratch as three ints each, behind one barrier.
+__device__ float mad_noise_pair(const float* dev, int* part, int* red, int& bank, int C) {
+  float a[kRankRegs];
+  const RankTarget t = rank_target(C, block_sum32(load_abs(dev, a, C), red, bank));
+  const int lane = threadIdx.x & 31;
+  unsigned cur = 0;
+  int r_cur = 0;
+  for (int i = 0; i < 15; ++i) {
+    const unsigned hi = 1u << (30 - 2 * i);
+    const unsigned lo = hi >> 1;
+    const float c_hi = __uint_as_float(cur | hi);
+    const float c_lo = __uint_as_float(cur | lo);
+    const float c_both = __uint_as_float(cur | hi | lo);
+    unsigned packed = 0;
+#pragma unroll
+    for (int j = 0; j < kRankRegs; ++j) {
+      packed += (a[j] < c_hi ? 1u : 0u) + (a[j] < c_lo ? 1u << 10 : 0u) +
+                (a[j] < c_both ? 1u << 20 : 0u);
+    }
+    for (int c = threadIdx.x + kRankRegs * kThreads, p = phys(c); c < C;
+         c += kThreads, p += kStride) {
+      const float x = fabsf(dev[p]);
+      packed += (x < c_hi ? 1u : 0u) + (x < c_lo ? 1u << 10 : 0u) + (x < c_both ? 1u << 20 : 0u);
+    }
+    int* b = part + (i & 1) * 3 * kWarps;
+    const int w_hi = __reduce_add_sync(kFull32, (int)(packed & 1023u));
+    const int w_lo = __reduce_add_sync(kFull32, (int)((packed >> 10) & 1023u));
+    const int w_both = __reduce_add_sync(kFull32, (int)(packed >> 20));
+    if (lane == 0) {
+      b[threadIdx.x >> 5] = w_hi;
+      b[kWarps + (threadIdx.x >> 5)] = w_lo;
+      b[2 * kWarps + (threadIdx.x >> 5)] = w_both;
+    }
+    __syncthreads();  // the bank is rewritten two rounds on, after the next barrier
+    const int n_hi = __reduce_add_sync(kFull32, b[lane]);
+    const int n_lo = __reduce_add_sync(kFull32, b[kWarps + lane]);
+    const int n_both = __reduce_add_sync(kFull32, b[2 * kWarps + lane]);
+    // The low bit is tested against the prefix the high bit resolved.
+    const bool take_hi = n_hi <= t.target;
+    const int n_lo_eff = take_hi ? n_both : n_lo;
+    if (take_hi) {
+      cur |= hi;
+      r_cur = n_hi;
+    }
+    if (n_lo_eff <= t.target) {
+      cur |= lo;
+      r_cur = n_lo_eff;
+    }
+  }
+  const unsigned test = cur | 1u;  // bit 0 alone
+  const int cnt = block_sum32(count_below(dev, a, C, __uint_as_float(test)), red, bank);
+  if (cnt <= t.target) {
+    cur = test;
+    r_cur = cnt;
+  }
+  return noise_below(dev, a, C, cur, r_cur, t, red, bank);
+}
+
+// K13 zeros_fold.  Zeros in the low 16 bits, count(|dev| < 2.0f) (bit 30's
+// candidate) in the high 16: each field is at most C <= 52310 < 2**16, so
+// the unsigned sums wrap nowhere.
+__device__ float mad_noise_zeros_fold(const float* dev, int* red, int& bank, int C) {
+  const float cand30 = __uint_as_float(1u << 30);
+  float a[kRankRegs];
+  unsigned packed = 0;
+#pragma unroll
+  for (int j = 0; j < kRankRegs; ++j) {
+    const int c = threadIdx.x + j * kThreads;
+    a[j] = c < C ? fabsf(dev[phys(c)]) : CUDART_INF_F;
+    packed += (a[j] == 0.f ? 1u : 0u) + (a[j] < cand30 ? 1u << 16 : 0u);
+  }
+  for (int c = threadIdx.x + kRankRegs * kThreads, p = phys(c); c < C; c += kThreads, p += kStride) {
+    const float x = fabsf(dev[p]);
+    packed += (x == 0.f ? 1u : 0u) + (x < cand30 ? 1u << 16 : 0u);
+  }
+  packed = (unsigned)block_sum32((int)packed, red, bank);  // REDUX and the adds wrap mod 2**32
+  const RankTarget t = rank_target(C, (int)(packed & 0xffffu));
+  const int c30 = (int)(packed >> 16);
+  unsigned cur = 0;
+  int r_cur = 0;
+  if (c30 <= t.target) {
+    cur = 1u << 30;
+    r_cur = c30;
+  }
+  for (int i = 1; i < 31; ++i) {
+    const unsigned test = cur | (1u << (30 - i));
+    const int cnt = block_sum32(count_below(dev, a, C, __uint_as_float(test)), red, bank);
+    if (cnt <= t.target) {
+      cur = test;
+      r_cur = cnt;
+    }
+  }
+  return noise_below(dev, a, C, cur, r_cur, t, red, bank);
+}
+
+// K13 radix_select: K4's radix select (percentile.cu) of the one target.
+// A key is the bit pattern of |dev|, whose unsigned order is the float
+// order of the non-NaN values; NaN (and a slot past C) takes kNanKey,
+// which no digit or prefix matches, as the binary search counts NaN below
+// no candidate.
+constexpr unsigned kNanKey = 0xffffffffu;
+constexpr unsigned kInfKey = 0x7f800000u;
+constexpr unsigned kEndState = 0x7fffffffu;
+
+__device__ __forceinline__ unsigned abs_key(float d) {
+  const unsigned b = __float_as_uint(d) & 0x7fffffffu;
+  return b > kInfKey ? kNanKey : b;
+}
+
+// The bin of a histogram of kBins (256 or 128) bins where the running count
+// passes `rank`: its digit, and the rank among the keys in it.  False when
+// the histogram holds no more than `rank` keys.  A lane reads kBins / 32
+// consecutive bins as 16-byte words (conflict-free: a quarter-warp's eight
+// loads cover the 32 banks once), then one warp scan and a ballot.  Every
+// warp reads the same histogram and reaches the same answer, so no barrier
+// publishes it.
+template <int kBins>
+__device__ __forceinline__ bool select_bin(const unsigned* hist, int rank, unsigned& digit,
+                                           int& rest) {
+  constexpr int kPer = kBins / 32;
+  const unsigned lane = threadIdx.x & 31;
+  unsigned h[kPer];
+  const uint4* q = reinterpret_cast<const uint4*>(hist) + lane * (kPer / 4);
+#pragma unroll
+  for (int v = 0; v < kPer / 4; ++v) {
+    const uint4 x = q[v];
+    h[4 * v] = x.x;
+    h[4 * v + 1] = x.y;
+    h[4 * v + 2] = x.z;
+    h[4 * v + 3] = x.w;
+  }
+  unsigned s = 0;
+#pragma unroll
+  for (int b = 0; b < kPer; ++b) s += h[b];
+  unsigned incl = s;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned o = __shfl_up_sync(kFull32, incl, off);
+    if (lane >= (unsigned)off) incl += o;
+  }
+  const unsigned past = __ballot_sync(kFull32, incl > (unsigned)rank);
+  if (past == 0) return false;
+  unsigned run = incl - s;  // keys in the bins below this lane's
+  unsigned d = 0;
+  int r = 0;
+  bool done = false;
+#pragma unroll
+  for (int b = 0; b < kPer; ++b) {
+    if (!done && run + h[b] > (unsigned)rank) {
+      d = lane * kPer + b;
+      r = rank - (int)run;
+      done = true;
+    }
+    run += h[b];
+  }
+  const int owner = __ffs(past) - 1;
+  digit = __shfl_sync(kFull32, d, owner);
+  rest = __shfl_sync(kFull32, r, owner);
+  return true;
+}
+
+// Pass p >= 1: the digit (kShift, kBits) of every key whose bits above kHi
+// equal `prefix`, counted into `hist` with shared atomics; one barrier;
+// then the bin of `rank` extends the prefix.
+template <int kHi, int kShift, int kBits>
+__device__ __forceinline__ bool radix_pass(const float* dev, const unsigned (&k)[kRankRegs],
+                                           unsigned* hist, int C, unsigned& prefix, int& rank) {
+  constexpr unsigned kMask = (1u << kBits) - 1;
+#pragma unroll
+  for (int j = 0; j < kRankRegs; ++j) {
+    if ((k[j] >> kHi) == prefix) atomicAdd(&hist[(k[j] >> kShift) & kMask], 1u);
+  }
+  for (int c = threadIdx.x + kRankRegs * kThreads, p = phys(c); c < C; c += kThreads, p += kStride) {
+    const unsigned key = abs_key(dev[p]);
+    if ((key >> kHi) == prefix) atomicAdd(&hist[(key >> kShift) & kMask], 1u);
+  }
+  __syncthreads();
+  unsigned digit;
+  int r;
+  if (!select_bin<(1 << kBits)>(hist, rank, digit, r)) return false;
+  prefix = (prefix << kBits) | digit;
+  rank = r;
+  return true;
+}
+
+// `hist` holds kHistWords zeroed words, published by a barrier since.
+// kMatchAny: the measurement instance's pass 0, each distinct digit of a
+// warp's register slot added once (the channels past the registers, which
+// not every lane of a warp has, add one at a time as in radix_select).
+template <bool kMatchAny>
+__device__ float mad_noise_radix(const float* dev, unsigned* hist, int* red, int& bank, int C) {
+  // Pass 0 rides the zeros count: the exponent digit of every counted key.
+  unsigned k[kRankRegs];
+  int zeros = 0;
+#pragma unroll
+  for (int j = 0; j < kRankRegs; ++j) {
+    const int c = threadIdx.x + j * kThreads;
+    k[j] = c < C ? abs_key(dev[phys(c)]) : kNanKey;
+    zeros += k[j] == 0u;
+    if constexpr (kMatchAny) {
+      const unsigned d = k[j] >> 23;  // 511 for kNanKey
+      const unsigned peers = __match_any_sync(kFull32, d);
+      if (d < 256 && (threadIdx.x & 31) == (unsigned)(__ffs(peers) - 1)) {
+        atomicAdd(&hist[d], (unsigned)__popc(peers));
+      }
+    } else if (k[j] != kNanKey) {
+      atomicAdd(&hist[k[j] >> 23], 1u);
+    }
+  }
+  for (int c = threadIdx.x + kRankRegs * kThreads, p = phys(c); c < C; c += kThreads, p += kStride) {
+    const unsigned key = abs_key(dev[p]);
+    zeros += key == 0u;
+    if (key != kNanKey) atomicAdd(&hist[key >> 23], 1u);
+  }
+  // The zeros' barrier also publishes pass 0's histogram.
+  const RankTarget t = rank_target(C, block_sum32(zeros, red, bank));
+  unsigned prefix = 0;
+  int rank = 0;
+  // `found` is the same on every thread, so the passes' barriers are too.
+  bool found = select_bin<256>(hist, t.target, prefix, rank);
+  if (found) found = radix_pass<23, 15, 8>(dev, k, hist + 256, C, prefix, rank);
+  if (found) found = radix_pass<15, 7, 8>(dev, k, hist + 512, C, prefix, rank);
+  if (found) found = radix_pass<7, 0, 7>(dev, k, hist + 768, C, prefix, rank);
+  // The search's end state: once the binary search accepts +inf, every
+  // later candidate is a NaN pattern, counts nothing and is accepted, so a
+  // key of +inf, or a target at or past the non-NaN count, ends at
+  // 0x7fffffff, the last accepted count 0 (the candidate 0x7fffffff's).
+  // Otherwise the last accepted candidate is the key itself, whose count
+  // is the keys below it: the target less its rank within its own bin.
+  const bool finite = found && prefix < kInfKey;
+  const unsigned cur = finite ? prefix : kEndState;
+  const int r_cur = finite ? t.target - rank : 0;
+  const unsigned lim = finite ? prefix : 0u;  // no |dev| is below a NaN pattern
+  unsigned below = 0;
+#pragma unroll
+  for (int j = 0; j < kRankRegs; ++j) {
+    if (k[j] < lim) below = max(below, k[j]);
+  }
+  for (int c = threadIdx.x + kRankRegs * kThreads, p = phys(c); c < C; c += kThreads, p += kStride) {
+    const unsigned key = abs_key(dev[p]);
+    if (key < lim) below = max(below, key);
+  }
+  return noise_from(cur, r_cur, below, t, red, bank);
+}
+
+}  // namespace runs
+
+// K11 and K13: K1's flagger_kernel<0> (fused_flagger.cu) with the stage the
+// variant names replaced, in K1's shared memory.
+template <int kVariant>
+__global__ void __launch_bounds__(kThreads, 1)
+    probe_kernel(const float2* __restrict__ vis, uint8_t* __restrict__ out, Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = p.channels;
+  float* buf = reinterpret_cast<float*>(smem);
+  runs::u64* flag_masks = reinterpret_cast<runs::u64*>(smem + runs::masks_offset(C));
+  runs::u64* hit_masks = flag_masks + kThreads;
+  int* red = reinterpret_cast<int*>(hit_masks + kThreads);
+  const size_t row = blockIdx.x;
+  const float2* v = vis + row * C;
+  uint8_t* o = out + row * C;
+  const uint8_t fv = (uint8_t)p.flag_value;
+  if constexpr (kVariant == kSkeleton) {
+    for (int c = threadIdx.x; c < C; c += kThreads) o[c] = amplitude(v[c]) > 1.0f ? fv : 0;
+    return;
+  }
+  unsigned* scratch = reinterpret_cast<unsigned*>(flag_masks);
+  if constexpr (kVariant == kRadixSelect || kVariant == kRadixMatchAny) {
+    if (threadIdx.x < runs::kHistWords) scratch[threadIdx.x] = 0;
+  }
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    const float a = amplitude(v[c]);
+    if constexpr (kVariant == kNoMedian) {
+      buf[runs::phys(c)] = __fsub_rn(a, __fmul_rn(a, 0.5f));  // no reads: in place
+    } else {
+      buf[c] = a;
+    }
+  }
+  __syncthreads();
+  if constexpr (kVariant != kNoMedian) {
+    // K1's branch, kept so that `full` compiles to K1's code; the probes
+    // take C >= FF_WIDTH, so the masked path never runs.
+    if (C >= FF_WIDTH) {
+      runs::median_to_deviations<true, false>(buf, C);
+    } else {
+      runs::median_to_deviations<false, false>(buf, C);
+    }
+  }
+  int bank = 0;
+  float noise;
+  if constexpr (kVariant == kNoRank) {
+    noise = 1.0f;
+  } else if constexpr (kVariant == kRankPair) {
+    noise = runs::mad_noise_pair(buf, reinterpret_cast<int*>(scratch), red, bank, C);
+  } else if constexpr (kVariant == kZerosFold) {
+    noise = runs::mad_noise_zeros_fold(buf, red, bank, C);
+  } else if constexpr (kVariant == kRadixSelect || kVariant == kRadixMatchAny) {
+    noise = runs::mad_noise_radix<kVariant == kRadixMatchAny>(buf, scratch, red, bank, C);
+  } else {
+    noise = runs::mad_noise(buf, red, bank, C);
+  }
+  if constexpr (kVariant == kNoThresh) {
+    for (int c = threadIdx.x; c < C; c += kThreads) o[c] = buf[runs::phys(c)] > noise ? fv : 0;
+  } else {
+    runs::sum_threshold(buf, flag_masks, hit_masks, noise, o, p);
+  }
+}
+
 // Calls f with the flag-producing kernel of `variant`.
 template <typename F>
 int with_probe_kernel(int variant, F&& f) {
@@ -274,7 +564,10 @@ int with_probe_kernel(int variant, F&& f) {
     case kSkeleton: return f(probe_kernel<kSkeleton>);
     case kRankPair: return f(probe_kernel<kRankPair>);
     case kZerosFold: return f(probe_kernel<kZerosFold>);
-    case kShflMedian: return f(probe_kernel<kShflMedian>);
+    case kRadixSelect: return f(probe_kernel<kRadixSelect>);
+    case kRadixMatchAny: return f(probe_kernel<kRadixMatchAny>);
+    case kStridedFull: return f(strided_probe_kernel<kStridedFull>);
+    case kShflMedian: return f(strided_probe_kernel<kShflMedian>);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -288,12 +581,20 @@ int with_amp_kernel(int variant, F&& f) {
   }
 }
 
+// The channel limit and dynamic shared memory of `variant`'s layout.
+int layout_limit(int variant) { return run_layout(variant) ? runs::max_channels() : max_channels(); }
+size_t layout_smem(int variant, int channels) {
+  return run_layout(variant) ? runs::smem_bytes(channels) : smem_bytes(channels);
+}
+
 }  // namespace
 
 extern "C" {
 
-// As in fused_flagger.cu, so the wrappers share their checks.
-int ff_max_channels(void) { return max_channels(); }
+// As in fused_flagger.cu, so the wrappers share their checks: the run
+// layout's channel limit (K11, K13) and the strided layout's (K9, K12).
+int ff_max_channels(void) { return runs::max_channels(); }
+int ff_strided_max_channels(void) { return max_channels(); }
 
 const char* ff_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
@@ -301,11 +602,11 @@ const char* ff_error_string(int err) { return cudaGetErrorString((cudaError_t)er
 // dynamic shared memory, and the CTAs that fit one SM at once.
 int fp_launch_config(int variant, int channels, int* threads, long long* smem_bytes_out,
                      int* ctas_per_sm) {
-  if (channels < FF_WIDTH || channels > max_channels()) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(channels);
+  if (channels < FF_WIDTH || channels > layout_limit(variant)) return (int)cudaErrorInvalidValue;
+  const size_t smem = layout_smem(variant, channels);
   auto query = [&](auto kernel) {
-    int err = set_smem(kernel, smem);
-    if (err) return err;
+    int e = set_smem(kernel, smem);
+    if (e) return e;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kernel, kThreads,
                                                               smem);
   };
@@ -324,8 +625,10 @@ int fp_probe(int variant, const void* vis, void* out, int rows, int channels, fl
   Params p;
   int err = make_params(&p, channels, n_sigma, scales, n_windows, flag_value);
   if (err) return err;
-  if (rows < 1 || channels < FF_WIDTH) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(channels);
+  if (rows < 1 || channels < FF_WIDTH || channels > layout_limit(variant)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = layout_smem(variant, channels);
   const float2* v = static_cast<const float2*>(vis);
   uint8_t* o = static_cast<uint8_t*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -339,7 +642,8 @@ int fp_probe(int variant, const void* vis, void* out, int rows, int channels, fl
 }
 
 // K12 over (rows, channels) amplitudes; vis is (rows, channels, 2) when
-// channel_major is 0, else (channels, rows, 2).
+// channel_major is 0, else (channels, rows, 2).  The strided layout's
+// launch and limit.
 int fp_amp_pairs(const void* vis, int channel_major, void* out, int rows, int channels,
                  void* stream) {
   if (rows < 1 || channels < 1 || channels > max_channels()) return (int)cudaErrorInvalidValue;

@@ -31,8 +31,9 @@
 //  * the strided layout (ff_device.cuh): C x 4 B of deviations + C x 1 B of
 //    flags, thread t owning channels t, t + 1024, ...  K2's earlier design,
 //    madnz_threshold_strided_kernel, runs on it and defines the layout's
-//    launch; K1's stage probes (flagger_probe.cu, whose `full` is K1 in this
-//    layout), the roofline skeleton and the cost probes are held to it.
+//    launch; the probes still on it (flagger_probe.cu's K9, K12 and
+//    `strided_full`, K1 in this layout), the roofline skeleton and the
+//    cost probes are held to it.
 //
 // Parity with the JAX reference, bit for bit, in both:
 //  * no FMA contraction anywhere (built with -fmad=false), and re*re+im*im
@@ -49,19 +50,11 @@
 
 #include "ff_runs.cuh"  // includes ff_device.cuh
 
-// Measurement builds of K1 (scripts/k1_ab.py) replace one stage by the
-// stand-in of K1's stage probes (flagger_probe.cu), to price the stage in
-// the run layout: FF_RUNS_ABLATE 1, median := amp * 0.5; 2, noise := 1;
-// 3, flags := dev > noise.  0, the default, is K1.
-#ifndef FF_RUNS_ABLATE
-#define FF_RUNS_ABLATE 0
-#endif
-
 namespace {
 
-constexpr int kAblate = FF_RUNS_ABLATE;
-
 // K1.  kMode 0: no input flags; 1: FULL (rows, C) u8; 2: CHANNEL (C,) u8.
+// Its stage probes (flagger_probe.cu, K11 and K13) repeat kMode 0 with one
+// stage replaced, at this launch.
 template <int kMode>
 __global__ void __launch_bounds__(kThreads, 1)
     flagger_kernel(const float2* __restrict__ vis, const uint8_t* __restrict__ in_flags,
@@ -79,30 +72,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     float a = amplitude(v[c]);
     if (kMode == 1 && in_flags[row * C + c] != 0) a = CUDART_INF_F;
     if (kMode == 2 && in_flags[c] != 0) a = CUDART_INF_F;
-    if (kAblate == 1) {
-      buf[runs::phys(c)] = __fsub_rn(a, __fmul_rn(a, 0.5f));  // no reads: in place
-    } else {
-      buf[c] = a;
-    }
+    buf[c] = a;
   }
   __syncthreads();
-  if constexpr (kAblate != 1) {
-    if (kMode == 0 && C >= FF_WIDTH) {
-      runs::median_to_deviations<true, false>(buf, C);
-    } else {
-      runs::median_to_deviations<false, kMode != 0>(buf, C);
-    }
+  if (kMode == 0 && C >= FF_WIDTH) {
+    runs::median_to_deviations<true, false>(buf, C);
+  } else {
+    runs::median_to_deviations<false, kMode != 0>(buf, C);
   }
   int bank = 0;
-  const float noise = kAblate == 2 ? 1.0f : runs::mad_noise(buf, red, bank, C);
-  if (kAblate == 3) {
-    const uint8_t fv = (uint8_t)p.flag_value;
-    for (int c = threadIdx.x; c < C; c += kThreads) {
-      out[row * C + c] = buf[runs::phys(c)] > noise ? fv : 0;
-    }
-  } else {
-    runs::sum_threshold(buf, flag_masks, hit_masks, noise, out + row * C, p);
-  }
+  const float noise = runs::mad_noise(buf, red, bank, C);
+  runs::sum_threshold(buf, flag_masks, hit_masks, noise, out + row * C, p);
 }
 
 // K2, in the run layout: the deviations, coalesced, into the padded words,
@@ -192,8 +172,8 @@ int ff_launch_config(int channels, int* threads, long long* smem_bytes_out, int*
 }
 
 // The strided layout's launch configuration at `channels`, that of K2's
-// strided design: K1's stage probes, the roofline skeleton and the cost
-// probes are held to it.
+// strided design: the probes on that layout (K9, K12, `strided_full`), the
+// roofline skeleton and the cost probes are held to it.
 int ff_strided_launch_config(int channels, int* threads, long long* smem_bytes_out,
                              int* ctas_per_sm) {
   if (channels < 1 || channels > max_channels()) return (int)cudaErrorInvalidValue;

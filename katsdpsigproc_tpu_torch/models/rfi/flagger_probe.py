@@ -1,23 +1,30 @@
 """Stage probes of the fused flagger K1: wrappers around ``csrc/flagger_probe.cu``.
 
 Hopper counterparts of the TPU probes in ``scripts/``, which time or A/B
-the stages of ``pallas_flagger.py::_flagger_body`` on the TPU.  Here they
-are variants of K1 in the strided layout (``csrc/ff_device.cuh``: thread t
-owns channels t, t + 1024, ... of a row held at 5 B per channel), the
-layout K1 and K2 had before the run layout (``csrc/ff_runs.cuh``), and
-where K2's strided design stays.  ``full`` is that K1, flag for flag the current one.  Every variant
-launches with that layout's block (1024 threads) and dynamic shared
-memory (:func:`.fused_flagger.strided_launch_config`), one CTA per SM, so
-a difference of two times is the cost of one stage:
+the stages of ``pallas_flagger.py::_flagger_body`` on the TPU.  Each
+variant launches as the kernel it varies (1024 threads, one CTA per SM at
+32768 channels), so a difference of two times is the cost of one stage:
 
 * **K11** ``stage_ablate.py::make_fn.kernel`` (:52): :data:`STAGE_ABLATE`,
   K1 (``full``) and K1 with one stage replaced by a near-free stand-in;
-* **K13** ``rankpair_ab.py::make.kernel`` (:47): ``rank_pair`` and
-  ``zeros_fold``, other rank searches, bit for bit K1;
+* **K13** ``rankpair_ab.py::make.kernel`` (:47): :data:`RANK_SEARCHES`,
+  K1 with another rank search, bit for bit K1: ``rank_pair``,
+  ``zeros_fold`` and ``radix_select`` (K4's radix select, whose search is
+  :func:`madnz_radix_plain` step by step);
 * **K9** ``rollchain_ab.py::make.kernel`` (:81): ``shfl_median``, the
   median's members by warp shuffles, bit for bit K1;
 * **K12** ``deinterleave_probe.py::make.kernel`` (:41): :func:`amp_pairs`,
   amplitudes from interleaved pairs, baseline-major or channel-major.
+
+K11 and K13 (:data:`RUN_LAYOUT`) are K1 on its run layout
+(``csrc/ff_runs.cuh``) and launch exactly as K1 does
+(:func:`.fused_flagger.launch_config`), up to K1's channel limit
+(:func:`.fused_flagger.max_channels`).  K9 and K12 stay on the strided
+layout (``csrc/ff_device.cuh``: thread t owns channels t, t + 1024, ...
+of a row held at 5 B per channel) beside ``strided_full``, K1 in that
+layout, flag for flag the current one (:data:`STRIDED`); they launch as
+K2's strided design does (:func:`.fused_flagger.strided_launch_config`),
+up to that layout's limit.
 
 The TPU probes' layout knobs (``bb``, ``fold``, ``interpret``) have no
 counterpart.  As in the TPU probes there are no input flags, a row holds
@@ -35,27 +42,38 @@ import functools
 
 import torch
 
-from . import device, fused_flagger as ff
+from ...ops.percentile import RADIX_DIGITS
+from . import MAD_NORMAL, device, fused_flagger as ff
 
 STAGE_ABLATE = ("full", "no_median", "no_rank", "no_thresh", "skeleton")
-# Variants whose flags must equal K1's, flag for flag.
-EXACT = ("full", "rank_pair", "zeros_fold", "shfl_median")
-VARIANTS = STAGE_ABLATE + ("rank_pair", "zeros_fold", "shfl_median")
+RANK_SEARCHES = ("rank_pair", "zeros_fold", "radix_select")
+# On K1's run layout, launched as K1 is (K11, K13).
+RUN_LAYOUT = STAGE_ABLATE + RANK_SEARCHES
+# On the strided layout, launched as K2's strided design is (K9 and its "before").
+STRIDED = ("strided_full", "shfl_median")
+VARIANTS = RUN_LAYOUT + STRIDED
+# A measurement instance of `radix_select`, not a variant
+# (``scripts/rankpair_ab.py``): pass 0 adds each distinct exponent digit of
+# a warp once (``__match_any_sync``), as K4's measurement build does; on
+# the run layout.
+MEASUREMENT = ("radix_match_any",)
+# Those whose flags must equal K1's, flag for flag.
+EXACT = ("full",) + RANK_SEARCHES + MEASUREMENT + STRIDED
 # The TPU probe each variant ports, under the probe's name.
 PROBES = {
     "stage_ablate": STAGE_ABLATE,
-    "rankpair": ("rank_pair", "zeros_fold"),
-    "rollchain": ("shfl_median",),
+    "rankpair": RANK_SEARCHES,
+    "rollchain": STRIDED,
     "deinterleave": ("amp_pairs",),
 }
-_CODE = {name: i for i, name in enumerate(VARIANTS)}
+_CODE = {name: i for i, name in enumerate(RUN_LAYOUT + MEASUREMENT + STRIDED)}
 # The threshold's parameters, fixed as the TPU probes fix them.
 PARAMS = dict(n_sigma=11.0, n_windows=4, falloff=1.2, flag_value=1)
-_AMP_PAIRS, _AMP_PAIRS_CHANNEL_MAJOR = 8, 9
+_AMP_PAIRS = len(_CODE)  # then the channel-major kernel
 
 # Kernel launches since the counts were last reset, per variant.  Each
 # wrapper adds one where it launches its kernel, and nowhere else.
-launches = {name: 0 for name in VARIANTS + ("amp_pairs",)}
+launches = {name: 0 for name in VARIANTS + MEASUREMENT + ("amp_pairs",)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,8 +82,9 @@ def _library(width: int) -> ctypes.CDLL:
 
     lib = kernels.load("flagger_probe", ["flagger_probe.cu"],
                        {"ff_network.h": ff._network_header(width)})
-    lib.ff_max_channels.argtypes = []
-    lib.ff_max_channels.restype = ctypes.c_int
+    for limit in (lib.ff_max_channels, lib.ff_strided_max_channels):
+        limit.argtypes = []
+        limit.restype = ctypes.c_int
     lib.ff_error_string.argtypes = [ctypes.c_int]
     lib.ff_error_string.restype = ctypes.c_char_p
     lib.fp_launch_config.argtypes = [ctypes.c_int, ctypes.c_int] + ff._LAUNCH_CONFIG_OUT
@@ -95,9 +114,10 @@ def _check_vis(vis, name: str):
 def launch_config(variant: str, channels: int) -> dict:
     """How the kernel of `variant` launches at `channels`, from the library itself.
 
-    The same keys as :func:`.fused_flagger.strided_launch_config`: every
-    variant must launch as the strided layout's launch says.  Needs a CUDA
-    device.
+    The keys of :func:`.fused_flagger.launch_config`.  A variant of
+    :data:`RUN_LAYOUT` must launch as K1 does; one of :data:`STRIDED` and
+    ``amp_pairs`` as :func:`.fused_flagger.strided_launch_config` says.
+    Needs a CUDA device.
     """
     code = _AMP_PAIRS if variant == "amp_pairs" else _CODE.get(variant)
     if code is None:
@@ -106,16 +126,78 @@ def launch_config(variant: str, channels: int) -> dict:
     return ff._query_launch_config(lib, lib.fp_launch_config, code, channels)
 
 
+def max_channels(variant: str) -> int:
+    """The most channels a row may hold in `variant` (or ``amp_pairs``); needs a CUDA device."""
+    if variant not in launches:
+        raise ValueError(f"unknown variant {variant!r}")
+    lib = _library(13)
+    return (lib.ff_max_channels() if variant in RUN_LAYOUT + MEASUREMENT
+            else lib.ff_strided_max_channels())
+
+
+def madnz_radix_plain(dev_t):
+    """``radix_select``'s MAD noise, step by step in PyTorch: (rows,) float32.
+
+    K4's radix select (:func:`..ops.percentile.percentile5_radix_plain`)
+    of one target on the rows of (rows, channels) deviations.  A key is
+    the bit pattern of ``|dev|``, NaN counted nowhere; the target is K1's,
+    the strict rank ``(channels + zeros) // 2``, halfway when that sum is
+    even.  Each pass of :data:`..ops.percentile.RADIX_DIGITS` takes a
+    histogram of the digit of the keys still under the prefix, and the bin
+    where the running count passes the rank.  It ends where K1's 31-round
+    float-compare search ends, not at the order statistic: once the search
+    accepts +inf every later candidate is a NaN pattern and is accepted, so
+    a key of +inf, or a target at or past the non-NaN count, gives the
+    pattern 0x7fffffff (a NaN noise), the last accepted count 0; otherwise
+    the last accepted count, which the halfway rule compares with the
+    target, is the keys below the result: the target less its rank within
+    the last bin.  ``device.madnz`` counts by integer digits, which end at
+    +inf instead on a row whose target lies on +inf: a noise that flags
+    nothing either way.
+    """
+    absdev = dev_t.abs().to(torch.float32)
+    rows, channels = absdev.shape
+    nan = torch.isnan(absdev)
+    keys = absdev.view(torch.int32).to(torch.int64)
+    zeros = (absdev == 0).sum(dim=1)
+    target = (channels + zeros) // 2
+    halfway = (channels + zeros) % 2 == 0
+    rank, prefix = target.clone(), torch.zeros_like(target)
+    found = torch.ones(rows, dtype=torch.bool, device=absdev.device)
+    hi = 31
+    for shift, nbits in RADIX_DIGITS:
+        under = ~nan & ((keys >> hi) == prefix[:, None])
+        digit = (keys >> shift) & ((1 << nbits) - 1)
+        hist = torch.zeros((rows, 1 << nbits), dtype=torch.int64, device=absdev.device)
+        hist.scatter_add_(1, digit, under.to(torch.int64))
+        cum = torch.cumsum(hist, dim=1)
+        d = (cum <= rank[:, None]).sum(dim=1)  # the bin where the count passes the rank
+        found &= d < (1 << nbits)
+        d = d.clamp(max=(1 << nbits) - 1)
+        rank = rank - torch.where(d > 0, cum.gather(1, (d - 1).clamp(min=0)[:, None])[:, 0], 0)
+        prefix = (prefix << nbits) | d
+        hi = shift
+    finite = found & (prefix < 0x7F800000)
+    result = torch.where(finite, prefix, 0x7FFFFFFF).to(torch.int32).view(torch.float32)
+    r_cur = torch.where(finite, target - rank, 0)
+    lim = torch.where(finite, prefix, 0)  # no |dev| lies below a NaN pattern
+    prev = torch.amax(torch.where(~nan & (keys < lim[:, None]), absdev, 0.0), dim=1)
+    med = torch.where(halfway & (r_cur == target), (result + prev) * 0.5, result)
+    return (MAD_NORMAL * med).to(torch.float32)
+
+
 def probe_plain(vis_t, variant: str, *, width: int = 13):
     """The plain PyTorch version of `variant`, composed of the :mod:`.device` stages.
 
     ``full`` and the bit-exact variants are K1's plain version
-    (:func:`.fused_flagger.flag_transposed_plain`); the stand-ins follow
-    ``stage_ablate.py:61-80``.
+    (:func:`.fused_flagger.flag_transposed_plain`), but ``radix_select``
+    and its measurement instance, whose noise is :func:`madnz_radix_plain`;
+    the stand-ins follow ``stage_ablate.py:61-80``.
     """
-    if variant in EXACT:
+    radix = variant in ("radix_select",) + MEASUREMENT
+    if variant in EXACT and not radix:
         return ff.flag_transposed_plain(vis_t, width=width, **PARAMS)
-    if variant not in VARIANTS:
+    if variant not in _CODE:
         raise ValueError(f"unknown variant {variant!r}")
     amp = device.amplitude(vis_t)
     if variant == "skeleton":
@@ -128,6 +210,8 @@ def probe_plain(vis_t, variant: str, *, width: int = 13):
             fast_path=True).transpose(0, 1)
     if variant == "no_rank":
         noise = torch.ones(dev.shape[0], dtype=torch.float32, device=dev.device)
+    elif radix:
+        noise = madnz_radix_plain(dev)
     else:
         noise = device.madnz(dev)
     if variant == "no_thresh":
@@ -144,7 +228,7 @@ def probe(vis_t, variant: str, *, width: int = 13):
     vis_t
         (rows, channels, 2) float32 (re, im) pairs, channels >= width.
     variant
-        One of :data:`VARIANTS`.
+        One of :data:`VARIANTS`, or :data:`MEASUREMENT`.
     width
         The median's window, as K1's (:func:`.fused_flagger.flag_transposed`).
 
@@ -152,8 +236,8 @@ def probe(vis_t, variant: str, *, width: int = 13):
     -------
     (rows, channels) uint8 flags on the input's device.
     """
-    if variant not in VARIANTS:
-        raise ValueError(f"unknown variant {variant!r}; expected one of {VARIANTS}")
+    if variant not in _CODE:
+        raise ValueError(f"unknown variant {variant!r}; expected one of {VARIANTS + MEASUREMENT}")
     if width % 2 != 1 or not 3 <= width <= ff.MAX_WIDTH:
         raise ValueError(f"width must be odd and in 3..{ff.MAX_WIDTH}, got {width}")
     _check_vis(vis_t, "vis_t")
@@ -166,8 +250,8 @@ def probe(vis_t, variant: str, *, width: int = 13):
     if rows == 0:
         return out
     with torch.cuda.device(vis_t.device):
+        ff._check_limit(channels, max_channels(variant))
         lib = _library(width)
-        ff._check_limit(channels, lib.ff_max_channels())
         scales, sigma, stream = ff._launch_args([vis_t], channels, PARAMS["n_sigma"],
                                                 PARAMS["falloff"], PARAMS["n_windows"])
         err = lib.fp_probe(_CODE[variant], vis_t.data_ptr(), out.data_ptr(), rows, channels,
@@ -205,7 +289,7 @@ def amp_pairs(vis, *, channel_major: bool = False):
         return out
     with torch.cuda.device(vis.device):
         lib = _library(13)  # the network header's width does not affect K12
-        limit = lib.ff_max_channels()
+        limit = lib.ff_strided_max_channels()
         if channels > limit:
             raise ValueError(f"{channels} channels exceed the strided layout's limit of "
                              f"{limit} channels")

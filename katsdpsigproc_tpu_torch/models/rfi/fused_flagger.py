@@ -16,15 +16,17 @@ kernels live in ``csrc/fused_flagger.cu``:
   from deviations, for the hybrid engine, on K1's run layout and up to
   K1's channel limit (:func:`max_channels`).  Its earlier design on the
   strided layout of ``csrc/ff_device.cuh`` stays in the library as that
-  layout's launch (:func:`strided_launch_config`), which K1's stage
-  probes and the cost probes are held to, and as the "before" of
+  layout's launch (:func:`strided_launch_config`), which the probes on
+  that layout (K9, K12, ``strided_full``) and the cost probes are held
+  to, and as the "before" of
   ``scripts/k2_ab.py``.
 
 Both run as one launch over all rows, which takes the place of the TPU's
 in-kernel DMA block loop (``_dma_block_loop``).  The wrappers take the
 JAX functions' parameters in their order.  The TPU layout knobs (``bb``,
 ``fold``, ``interpret``, ``nref``, ``pipeline``, ``rank_radix``,
-``slab``) are accepted and ignored: a row is one CTA.  The TPU's other
+``slab``) are accepted and ignored: a row is one CTA.  ``rank_radix`` is
+checked as the JAX functions check it (1..4).  The TPU's other
 layouts (``layout="leading"``, ``ingest="amp"``) are not ported and
 raise ``NotImplementedError``.
 
@@ -120,6 +122,12 @@ def _check_params(n_windows: int, flag_value: int) -> None:
         raise ValueError(f"flag_value must fit uint8, got {flag_value}")
 
 
+def _check_rank_radix(rank_radix: int) -> None:
+    """``rank_radix`` as the JAX functions take it: 1..4 bits a rank round."""
+    if rank_radix not in (1, 2, 3, 4):
+        raise ValueError("rank_radix must be 1..4")
+
+
 def _check_layout(layout: str, ingest: str) -> None:
     """The JAX package's other input layouts are TPU layouts, not ported."""
     if layout != "trailing":
@@ -197,8 +205,9 @@ def launch_config(channels: int) -> dict:
 
     ``threads`` per CTA, ``smem_bytes`` of dynamic shared memory and
     ``ctas_per_sm``, the CTAs the occupancy calculator fits on one SM.
-    K1 holds a row in the run layout of ``csrc/ff_runs.cuh``, as K2 does
-    in the same shared memory.  Needs a CUDA device.
+    K1 holds a row in the run layout of ``csrc/ff_runs.cuh``, as K2 and
+    K1's stage and rank-search probes (K11, K13) do in the same shared
+    memory.  Needs a CUDA device.
     """
     lib = _library(13)  # the network header's width does not change the launch
     return _query_launch_config(lib, lib.ff_launch_config, channels)
@@ -209,8 +218,9 @@ def strided_launch_config(channels: int) -> dict:
 
     The keys of :func:`launch_config`, for K2's strided design at
     `channels`: thread t owns channels t, t + 1024, ... of a row held at
-    5 B per channel.  K1's stage probes, the roofline skeleton and the
-    cost probes compile that layout and are held to this configuration.
+    5 B per channel.  The probes K9 and K12 with ``strided_full``, the
+    roofline skeleton and the cost probes compile that layout and are held
+    to this configuration.
     Needs a CUDA device.
     """
     lib = _library(13)
@@ -281,7 +291,8 @@ def flag_transposed(vis_t, input_flags=None, width: int = 13, n_sigma: float = 1
         The flagger's parameters, as in the JAX function.
     bb, fold, interpret, nref, rank_radix
         The TPU kernel's layout knobs.  Accepted and ignored: they do not
-        change the result, and a row here is one CTA.
+        change the result, and a row here is one CTA.  ``rank_radix``
+        outside 1..4 raises ``ValueError``, as in the JAX function.
     layout, ingest
         Only ``"trailing"`` and ``"planar"``; the TPU's other layouts raise
         ``NotImplementedError``.
@@ -290,6 +301,7 @@ def flag_transposed(vis_t, input_flags=None, width: int = 13, n_sigma: float = 1
     -------
     (rows, channels) uint8 flags on the input's device.
     """
+    _check_rank_radix(rank_radix)
     del bb, fold, interpret, nref, rank_radix
     _check_layout(layout, ingest)
     if input_flags is not None and channel_flags is not None:
@@ -363,13 +375,15 @@ def madnz_threshold(dev_t, n_sigma: float = 11.0, n_windows: int = 4, falloff: f
 
     Port of ``katsdpsigproc_tpu/models/rfi/pallas_flagger.py::madnz_threshold``,
     with its parameters in its order; the TPU layout knobs (``bb`` to
-    ``rank_radix``) are accepted and ignored.  On the card the transposed
+    ``rank_radix``) are accepted and ignored, but a ``rank_radix`` outside
+    1..4 raises ``ValueError`` as in the JAX function.  On the card the transposed
     view of a contiguous (channels, rows) array is corner-turned by K5
     first, any other strided layout copied.  A row holds up to
     :func:`max_channels` channels on the card (K1's limit, the run
     layout's); more raise ``ValueError``.  Returns (rows, channels) uint8
     flags on the input's device.
     """
+    _check_rank_radix(rank_radix)
     del bb, fold, interpret, nref, pipeline, rank_radix
     _check_params(n_windows, flag_value)
     if not isinstance(dev_t, torch.Tensor) or dev_t.ndim != 2:

@@ -7,25 +7,26 @@ falls on all of them alike:
                  ``csrc/ff_runs.cuh`` (per-thread channel runs, bit-mask
                  flags, window sums by doubling, one-instruction NaN
                  min/max);
-  full           ``flagger_probe.probe(..., "full")``: K1 in the strided
-                 layout of ``csrc/ff_device.cuh``, flag for flag the same
-                 function;
+  strided_full   ``flagger_probe.probe(..., "strided_full")``: K1 in the
+                 strided layout of ``csrc/ff_device.cuh``, flag for flag the
+                 same function;
   k5 + k1        ``fused_flagger.flag_dump(vis.transpose(0, 1))``: the
                  bench's call on the channel-major dump, K5's corner turn
                  then K1 (only when the channel-major dump is given);
   select_minmax  K1's source built with ``FF_RUNS_SELECT_MINMAX``: the run
                  layout with the strided design's select-based NaN min/max,
                  flag for flag K1;
-  no_median, no_rank, no_thresh
-                 K1's source built with one stage replaced by the stand-in
-                 of the strided stage probes (``FF_RUNS_ABLATE``; their
-                 flags are :func:`.flagger_probe.probe_plain`'s).
+  full, no_median, no_rank, no_thresh
+                 K11, K1's stage probes on its run layout and at its launch
+                 (``flagger_probe.STAGE_ABLATE``): K1's pipeline, and K1
+                 with one stage replaced by a stand-in.
 
-Each prints its median, min and max over the rounds; then k1 / full, and
-whether their gap exceeds both spreads (max - min); each stage's cost in
-the run layout (k1 less its stand-in); and the one-instruction min/max's
-gain (select_minmax less k1).  The measurement builds are separate
-libraries; no entry point of the package launches them.
+Each prints its median, min and max over the rounds; then k1 / strided_full,
+and whether their gap exceeds both spreads (max - min); k1 against K11's
+``full``, which runs K1's code; each stage's cost in the run layout
+(``full`` less its stand-in); and the one-instruction min/max's gain
+(select_minmax less k1).  The measurement build is a separate library; no
+entry point of the package launches it.
 
 Usage::
 
@@ -39,12 +40,10 @@ import torch
 
 from ..models.rfi import flagger_probe as fp, fused_flagger as ff
 from ..utils import profiling
-from . import common
+from . import common, stage_ablate
 
-# The measurement builds of K1's source: name -> macro definition.
-BUILDS = {"select_minmax": "FF_RUNS_SELECT_MINMAX", "no_median": "FF_RUNS_ABLATE=1",
-          "no_rank": "FF_RUNS_ABLATE=2", "no_thresh": "FF_RUNS_ABLATE=3"}
-STAGES = (("median", "no_median"), ("rank", "no_rank"), ("threshold", "no_thresh"))
+# The measurement build of K1's source: name -> macro definition.
+BUILDS = {"select_minmax": "FF_RUNS_SELECT_MINMAX"}
 
 # Launches since the counts were last reset, per build.  The wrapper adds
 # one where it launches, and nowhere else.
@@ -60,10 +59,10 @@ def _library(name: str) -> ctypes.CDLL:
 
 
 def build_plain(vis_t, name: str):
-    """The plain version of the build `name`: K1's, or the strided stage probe's."""
-    if name == "select_minmax":
-        return ff.flag_transposed_plain(vis_t, **fp.PARAMS)
-    return fp.probe_plain(vis_t, name)
+    """The plain version of the build `name`: K1's."""
+    if name not in BUILDS:
+        raise ValueError(f"unknown build {name!r}; expected one of {tuple(BUILDS)}")
+    return ff.flag_transposed_plain(vis_t, **fp.PARAMS)
 
 
 def build(vis_t, name: str):
@@ -91,30 +90,40 @@ def build(vis_t, name: str):
     return out
 
 
+def _verdict(gap: float, *spreads: float) -> str:
+    return "beyond both" if abs(gap) > max(spreads) else "within"
+
+
 def run(vis_t, vis=None, *, iters: int = 3, reps: int = 5, card: str = ""):
-    """Time K1, ``full`` and the builds on (rows, channels, 2) `vis_t`, and K5 + K1 on `vis`.
+    """Time K1, ``strided_full``, the build and K11 on (rows, channels, 2) `vis_t`, K5 + K1 on `vis`.
 
     `vis` is the same dump channel-major, (channels, rows, 2), or None.
     Returns ``{name: (median, min, max)}`` in ms per call, and the stage
-    costs ``{stage: ms}`` in the run layout.
+    costs ``{stage: ms}`` in the run layout (K11's ``full`` less each
+    stand-in).
     """
     fns = {"k1": functools.partial(ff.flag_transposed, vis_t),
-           "full": functools.partial(fp.probe, vis_t, "full")}
+           "strided_full": functools.partial(fp.probe, vis_t, "strided_full")}
     if vis is not None:
         fns["k5 + k1"] = lambda: ff.flag_dump(vis.transpose(0, 1))
     fns.update({name: functools.partial(build, vis_t, name) for name in BUILDS})
+    fns.update({v: functools.partial(fp.probe, vis_t, v)
+                for v in ["full"] + [name for _, name in stage_ablate.STAGES]})
     med, samples = profiling.time_interleaved(fns, reps=reps, iters=iters)
     out = {}
     for name in fns:
         common.report(name, med[name], samples[name], card)
         out[name] = (med[name], min(samples[name]), max(samples[name]))
     spread = {name: hi - lo for name, (_, lo, hi) in out.items()}
+    gap = med["strided_full"] - med["k1"]
+    print(f"k1 / strided_full = {med['k1'] / med['strided_full']:.3f}; gap {gap:.3f} ms against "
+          f"spreads k1 {spread['k1']:.3f}, strided_full {spread['strided_full']:.3f} ms: "
+          f"{_verdict(gap, spread['k1'], spread['strided_full'])} [{card}]")
     gap = med["full"] - med["k1"]
-    print(f"k1 / full = {med['k1'] / med['full']:.3f}; gap {gap:.3f} ms against spreads "
-          f"k1 {spread['k1']:.3f}, full {spread['full']:.3f} ms: "
-          f"{'beyond both' if gap > max(spread['k1'], spread['full']) else 'within'} [{card}]")
-    stages = {label: med["k1"] - med[name] for label, name in STAGES}
-    print("run-layout stage costs (k1 less the stand-in): "
+    print(f"K11 full - k1 = {gap:+.3f} ms against spreads k1 {spread['k1']:.3f}, full "
+          f"{spread['full']:.3f} ms: {_verdict(gap, spread['k1'], spread['full'])} [{card}]")
+    stages = {label: med["full"] - med[name] for label, name in stage_ablate.STAGES}
+    print("run-layout stage costs (K11 full less the stand-in): "
           + ", ".join(f"{label} {ms:.3f} ms" for label, ms in stages.items())
           + f"; min.NaN/max.NaN gain (select_minmax - k1) "
           f"{med['select_minmax'] - med['k1']:+.3f} ms [{card}]")

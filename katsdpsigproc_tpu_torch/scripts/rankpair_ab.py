@@ -1,17 +1,24 @@
-"""Paired rank rounds against the binary search, interleaved on the card.
+"""Other rank searches against K1's binary search, interleaved on the card.
 
 Port of ``scripts/rankpair_ab.py``.  K1's rank search is 31 dependent
-rounds, each a count over the row and a block-wide reduction.
+rounds, each a count over the thread's 32 |dev| registers and a
+block-wide reduction behind a barrier.  Every variant is K1 on its run
+layout and at its launch with another search (``csrc/flagger_probe.cu``):
 ``rank_pair`` resolves two bits per round from three independent counts
 (cur|hi, cur|lo, cur|hi|lo) in one pass and one reduction: 16 dependent
 rounds instead of 31, at three compares per element instead of one.
 ``zeros_fold`` counts bit 30's candidate in the zeros pass: 31 passes
-instead of 32.  The TPU probe's ``pair_i32`` and ``pair_f32`` pack two of
-the counts into one reduce; on the card one block reduction takes three
-ints, so both are ``rank_pair``.
+instead of 32.  ``radix_select`` is K4's radix select: four passes of
+8 + 8 + 8 + 7 bits, each a shared histogram of the keys still under the
+prefix behind one barrier; ``radix_match_any``, its measurement
+instance, adds pass 0's equal digits of a warp once.  The TPU probe's
+``pair_i32`` and ``pair_f32`` pack two of the counts into one reduce; on
+the card one block reduction takes three ints, so both are
+``rank_pair``.
 
-Parity: the same cur/count invariants, so the flags must equal K1's
-(``binary``) flag for flag; checked here before timing.
+Parity: each ends where the binary search ends, so the flags must equal
+K1's (``binary``, K11's ``full``) flag for flag; checked here before
+timing.
 
 Usage::
 
@@ -24,7 +31,8 @@ from ..models.rfi import flagger_probe as fp
 from ..utils import profiling
 from . import common
 
-RUNS = {"binary": "full", "rank_pair": "rank_pair", "zeros_fold": "zeros_fold"}
+RUNS = {"binary": "full", "rank_pair": "rank_pair", "zeros_fold": "zeros_fold",
+        "radix_select": "radix_select", "radix_match_any": "radix_match_any"}
 
 
 def check_parity(vis_t, runs) -> None:

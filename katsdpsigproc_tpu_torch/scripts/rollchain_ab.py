@@ -1,13 +1,14 @@
 """The median's members by warp shuffles against shared-memory loads, interleaved.
 
-Port of ``scripts/rollchain_ab.py``.  K1 builds each channel's 13 median
-members with 12 shared-memory loads at offsets -6..6.  ``shfl`` takes the
-members inside a warp from ``__shfl_sync`` (one rotation per offset) and
-loads from shared memory only the two values 32 channels away that the
-warp's edge lanes need.  On the TPU the question was the cost of lane
-rolls by distance; on the card it is shuffles against shared-memory
-loads.  Bit-exact either way (same values, same network), checked here
-before timing.
+Port of ``scripts/rollchain_ab.py``, on the strided layout
+(``csrc/ff_device.cuh``), where K1's earlier design ``strided_full``
+builds each channel's 13 median members with 12 shared-memory loads at
+offsets -6..6.  ``shfl`` takes the members inside a warp from
+``__shfl_sync`` (one rotation per offset) and loads from shared memory
+only the two values 32 channels away that the warp's edge lanes need.
+On the TPU the question was the cost of lane rolls by distance; on the
+card it is shuffles against shared-memory loads.  Bit-exact either way
+(same values, same network), checked here before timing.
 
 Usage::
 
@@ -16,7 +17,7 @@ Usage::
 
 from . import common, rankpair_ab
 
-RUNS = {"direct": "full", "shfl": "shfl_median"}
+RUNS = {"direct": "strided_full", "shfl": "shfl_median"}
 
 
 def run(vis_t, *, iters: int = 3, reps: int = 5, card: str = ""):

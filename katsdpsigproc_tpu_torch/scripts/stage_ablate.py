@@ -2,12 +2,13 @@
 
 Port of ``scripts/stage_ablate.py``.  Times K1 (``full``) and K1 with one
 stage replaced by a near-free stand-in, all variants interleaved in one
-process, each at K1's block size and shared memory (one CTA per SM at
-32768 channels); the difference to ``full`` is that stage's cost in
-place.  The stand-ins' flags mean nothing; only their times do.
+process, each on K1's run layout (``csrc/ff_runs.cuh``) and at K1's own
+launch (1024 threads, K1's shared memory, one CTA per SM at 32768
+channels); the difference to ``full`` is that stage's cost in the K1 that
+runs.  The stand-ins' flags mean nothing; only their times do.
 
 Variants (``katsdpsigproc_tpu_torch/csrc/flagger_probe.cu``):
-  full         amplitude -> median -> MAD noise -> SumThreshold -> store
+  full         amplitude -> median -> MAD noise -> SumThreshold -> store: K1
   no_median    median := amp * 0.5
   no_rank      noise := 1.0
   no_thresh    flags := dev > noise (one compare)

@@ -99,6 +99,10 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         ff.flag_dump(torch.zeros((1, ff.max_channels() + 1, 2), device=cuda))
     with pytest.raises(NotImplementedError, match="leading"):
         ff.flag_dump(vis_t, layout="leading")
+    with pytest.raises(ValueError, match="rank_radix"):
+        ff.flag_transposed(vis_t, rank_radix=8)
+    with pytest.raises(ValueError, match="rank_radix"):
+        ff.madnz_threshold(torch.zeros((4, 64), device=cuda), rank_radix=0)
 
 
 def test_strided_input_is_corner_turned_by_k5(cuda):
@@ -156,9 +160,12 @@ def test_k1_at_run_layout_edges_matches_plain_and_full(cuda, channels, mode):
         got = ff.flag_transposed(vis_t, **kw, n_windows=n_windows, flag_value=flag_value)
         want = ff.flag_transposed_plain(vis_t, **kw, n_windows=n_windows, flag_value=flag_value)
         assert torch.equal(got, want), (n_windows, int((got != want).sum()))
-    if mode == "none" and 13 <= channels <= fp._library(13).ff_max_channels():
-        # probe `full` is K1 in the strided layout, flag for flag
+    if mode == "none" and channels >= 13:
+        # K11's `full` runs K1's code; `strided_full` is K1 in the strided
+        # layout, flag for flag, where that layout holds the row
         assert torch.equal(fp.probe(vis_t, "full"), ff.flag_transposed(vis_t))
+        if channels <= fp.max_channels("strided_full"):
+            assert torch.equal(fp.probe(vis_t, "strided_full"), ff.flag_transposed(vis_t))
 
 
 @pytest.mark.parametrize("channels", _EDGE_CHANNELS)
@@ -366,7 +373,8 @@ def _probe():
 
 @pytest.mark.parametrize("channels,rows", [(99, 8), (300, 8), (2048, 6), (32768, 2)])
 @pytest.mark.parametrize("variant", ["full", "no_median", "no_rank", "no_thresh", "skeleton",
-                                     "rank_pair", "zeros_fold", "shfl_median"])
+                                     "rank_pair", "zeros_fold", "shfl_median", "radix_select",
+                                     "strided_full", "radix_match_any"])
 def test_probe_matches_plain(cuda, variant, channels, rows):
     fp = _probe()
     vis_t, _ = _dump(channels, rows, seed=channels + rows)
@@ -392,6 +400,31 @@ def test_exact_probes_match_k1_at_tile_edges(cuda, channels):
             assert torch.equal(fp.probe(vis_t, variant, width=width), k1), (variant, width)
 
 
+@pytest.mark.parametrize("channels", _EDGE_CHANNELS[1:])  # the probes take C >= width
+def test_run_layout_probes_at_k1s_edges(cuda, channels):
+    """K11 and K13 at K1's run-layout edge shapes and its channel limit,
+    widths 5, 13 and 31, rows holding NaN and +inf: every variant equals its
+    plain version, and the bit-exact ones K1."""
+    fp = _probe()
+    if channels == "limit":
+        channels = ff.max_channels()
+    vis_t, _ = _dump(channels, 5, seed=channels + 1)
+    vis_t[1, channels // 2, 0] = float("nan")  # NaN through the median
+    vis_t[2] = torch.tensor([1.0, 0.0])  # deviations 0, and +inf at every third
+    vis_t[2, ::3, 0] = float("inf")  # channel: the noise's target lies on +inf
+    vis_t[3, ::4, 1] = float("nan")  # every deviation NaN: the target past the count
+    vis_t[4, ::5] = float("inf")  # +inf deviations above a finite target
+    vis_t = vis_t.to(cuda)
+    for width in (w for w in (5, 13, 31) if w <= channels):
+        k1 = ff.flag_transposed(vis_t, width=width)
+        for variant in fp.RUN_LAYOUT + fp.MEASUREMENT:
+            got = fp.probe(vis_t, variant, width=width)
+            want = fp.probe_plain(vis_t, variant, width=width)
+            assert torch.equal(got, want), (variant, width, int((got != want).sum()))
+            if variant in fp.EXACT:
+                assert torch.equal(got, k1), (variant, width)
+
+
 @pytest.mark.parametrize("channels,rows", [(99, 8), (2048, 6), (32768, 3)])
 def test_amp_pairs_matches_plain(cuda, channels, rows):
     fp = _probe()
@@ -405,18 +438,35 @@ def test_amp_pairs_matches_plain(cuda, channels, rows):
 
 
 def test_probes_launch_as_k1_does(cuda):
-    """The strided layout's launch (that of K2's strided design, which
-    `full`, K1 in that layout, shares) at every size; at 32768 channels the
-    shared memory also pins that launch and every probe to one CTA per SM
-    (at 128 channels the registers set the occupancy, and they differ by
-    variant)."""
+    """K11 and K13 launch as K1 does, on its run layout: 1024 threads and
+    K1's dynamic shared memory (151840 B at 32768 channels) at every size,
+    and at 32768 channels one CTA per SM (at 128 channels the registers
+    set the occupancy, and they differ by variant)."""
+    fp = _probe()
+    for channels in (128, 32768):
+        k1 = ff.launch_config(channels)
+        assert k1["threads"] == 1024, k1
+        if channels == 32768:
+            assert k1["ctas_per_sm"] == 1 and k1["smem_bytes"] == 151840, k1
+        for variant in fp.RUN_LAYOUT + fp.MEASUREMENT:
+            cfg = fp.launch_config(variant, channels)
+            if channels == 32768:
+                assert cfg == k1, (variant, cfg, k1)
+            else:
+                assert cfg["threads"] == k1["threads"], (variant, cfg, k1)
+                assert cfg["smem_bytes"] == k1["smem_bytes"], (variant, cfg, k1)
+
+
+def test_strided_probes_launch_as_k2s_strided_design_does(cuda):
+    """K9, `strided_full` and K12 launch as K2's strided design does (the
+    strided layout), one CTA per SM at 32768 channels."""
     fp = _probe()
     for channels in (128, 32768):
         strided = ff.strided_launch_config(channels)
         assert strided["threads"] == 1024, strided
         if channels == 32768:
             assert strided["ctas_per_sm"] == 1, strided
-        for variant in fp.VARIANTS + ("amp_pairs",):
+        for variant in fp.STRIDED + ("amp_pairs",):
             cfg = fp.launch_config(variant, channels)
             if channels == 32768:
                 assert cfg == strided, (variant, cfg, strided)
@@ -441,8 +491,18 @@ def test_probe_launch_counts_and_errors(cuda):
         fp.probe(torch.zeros((64, 4, 2), device=cuda).transpose(0, 1), "full")
     with pytest.raises(ValueError, match="contiguous"):
         fp.amp_pairs(torch.zeros((64, 4, 2), device=cuda).transpose(0, 1))
+    # Each layout's own limit: K11 and K13 take K1's, K9 and K12 the strided one.
+    run_limit, strided_limit = ff.max_channels(), fp.max_channels("shfl_median")
+    assert fp.max_channels("skeleton") == run_limit > 50000 > strided_limit
+    assert fp.max_channels("amp_pairs") == strided_limit
+    for variant in ("skeleton", "radix_select"):
+        with pytest.raises(ValueError, match="limit"):
+            fp.probe(torch.zeros((1, run_limit + 1, 2), device=cuda), variant)
+    for variant in fp.STRIDED:
+        with pytest.raises(ValueError, match="limit"):
+            fp.probe(torch.zeros((1, strided_limit + 1, 2), device=cuda), variant)
     with pytest.raises(ValueError, match="limit"):
-        fp.probe(torch.zeros((1, 50000, 2), device=cuda), "skeleton")
+        fp.amp_pairs(torch.zeros((1, strided_limit + 1, 2), device=cuda))
 
 
 def test_time_fn_times_the_card(cuda):

@@ -185,6 +185,37 @@ def test_validation():
         ff.madnz_threshold(torch.zeros((4, 64), dtype=torch.float64))
 
 
+@pytest.mark.parametrize("rank_radix", [0, 5, 8])
+def test_rank_radix_validation(rank_radix):
+    """As the JAX package's test_rank_radix_validation: a rank_radix outside
+    1..4 raises ValueError in flag_transposed and madnz_threshold, before
+    the wrapper looks at the tensor's device."""
+    vis, _, _ = rfi_test_data(shape=(128, 8), seed=10)
+    vt = _vis_t(vis)
+    dev_t = np.random.RandomState(10).standard_normal((8, 128)).astype(np.float32)
+    with pytest.raises(ValueError, match="rank_radix"):
+        jpf.flag_transposed(jnp.asarray(vt), bb=8, interpret=True, rank_radix=rank_radix)
+    with pytest.raises(ValueError, match="rank_radix"):
+        jpf.madnz_threshold(jnp.asarray(dev_t), bb=8, interpret=True, rank_radix=rank_radix)
+    with pytest.raises(ValueError, match="rank_radix"):
+        ff.flag_transposed(torch.from_numpy(vt), rank_radix=rank_radix)
+    with pytest.raises(ValueError, match="rank_radix"):
+        ff.madnz_threshold(torch.from_numpy(dev_t), rank_radix=rank_radix)
+    with pytest.raises(ValueError, match="rank_radix"):  # not a tensor the port takes
+        ff.madnz_threshold(torch.zeros((8, 128), dtype=torch.float16), rank_radix=rank_radix)
+
+
+@pytest.mark.parametrize("rank_radix", [1, 2, 3, 4])
+def test_rank_radix_1_to_4_is_accepted_and_ignored(rank_radix):
+    vis, _, _ = rfi_test_data(shape=(128, 8), seed=10)
+    vt = torch.from_numpy(_vis_t(vis))
+    np.testing.assert_array_equal(ff.flag_transposed(vt, rank_radix=rank_radix).numpy(),
+                                  ff.flag_transposed(vt).numpy())
+    dev_t = torch.from_numpy(k2_ab.adversarial_deviations(8, 128, 10, denormals=False))
+    np.testing.assert_array_equal(ff.madnz_threshold(dev_t, rank_radix=rank_radix).numpy(),
+                                  ff.madnz_threshold(dev_t).numpy())
+
+
 def test_network_header_renders_the_port_networks():
     text = ff._network_header(13)
     assert "#define FF_WIDTH 13" in text

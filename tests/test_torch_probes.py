@@ -8,9 +8,14 @@ The JAX scripts are loaded by path, unedited.  K11 (``stage_ablate``), K13
 edge's fill parity); K12 (``deinterleave_probe``) hard-codes the TPU's
 compiler parameters and has no interpret path, so the port is held to
 the script's own numpy expectation (``deinterleave_probe.py:88-92``).
+``radix_select``'s search, step by step in PyTorch
+(``flagger_probe.madnz_radix_plain``), is held to the port's and the JAX
+package's rank searches on rows of NaN, +inf, zeros and ties.
 
-Tolerance: exact throughout, on every uint8 mask and every float32
-amplitude.  The JAX kernels run under jit, where XLA on the CPU may
+Tolerance: exact throughout, on every uint8 mask, every float32
+amplitude and every noise (bit for bit; where the float-compare search
+ends at its NaN end state, the integer-digit searches end at +inf or a
+NaN, and there the noises are held to that).  The JAX kernels run under jit, where XLA on the CPU may
 contract re*re + im*im into an FMA (see tests/test_torch_device.py); at
 these sizes no amplitude sits close enough to a threshold, a median tie
 or the skeleton's 1.0 for that ulp to flip a flag.
@@ -94,6 +99,8 @@ def test_stage_ablate_matches_the_tpu_probe(scripts, variant, channels):
     ("rank_pair", {"rank_pair": True}),  # "pair_i32"
     ("rank_pair", {"rank_pair": "f32"}),  # "pair_f32": one variant on the card
     ("zeros_fold", {"zeros_fold": True}),
+    ("radix_select", {}),  # K4's radix select, against the binary search
+    ("radix_select", {"rank_radix": 4}),  # and the JAX kernel's own 4-bit rounds
 ])
 def test_rankpair_matches_the_tpu_probe(scripts, variant, kw, channels):
     vt = _vis_t(channels, seed=6)
@@ -104,7 +111,8 @@ def test_rankpair_matches_the_tpu_probe(scripts, variant, kw, channels):
 
 
 @pytest.mark.parametrize("channels", [256, 257])
-@pytest.mark.parametrize("variant,median", [("full", "direct"), ("shfl_median", "chained")])
+@pytest.mark.parametrize("variant,median", [("full", "direct"), ("strided_full", "direct"),
+                                           ("shfl_median", "chained")])
 def test_rollchain_matches_the_tpu_probe(scripts, variant, median, channels):
     module = scripts["rollchain_ab"]
     fn = jpf._median_parity_fill if median == "direct" else module._median_incremental
@@ -137,7 +145,7 @@ def test_exact_variants_equal_k1_and_cpu_takes_the_plain_versions(width):
     vt = torch.from_numpy(_vis_t(300, seed=8))
     before = dict(fp.launches)
     k1 = ff.flag_transposed(vt, width=width, **fp.PARAMS)
-    for variant in fp.VARIANTS:
+    for variant in fp.VARIANTS + fp.MEASUREMENT:
         got = fp.probe(vt, variant, width=width)
         assert torch.equal(got, fp.probe_plain(vt, variant, width=width))
         if variant in fp.EXACT:
@@ -146,11 +154,110 @@ def test_exact_variants_equal_k1_and_cpu_takes_the_plain_versions(width):
     assert fp.launches == before  # no kernel on the CPU
 
 
+def _rank_rows(channels: int, seed: int) -> np.ndarray:
+    """(12, channels) deviations whose |dev| rows hold NaN, +-inf, zeros and
+    ties, with targets on +inf and past the non-NaN count (no -0, no
+    denormals)."""
+    rs = np.random.RandomState(seed)
+    d = rs.standard_normal((12, channels)).astype(np.float32)
+    d[0, ::7] = np.nan  # NaN counted nowhere, a finite target
+    d[1, :channels * 3 // 4] = np.nan  # the target past the non-NaN count
+    d[2, :channels * 2 // 3] = np.inf  # the target on +inf
+    d[2, -1] = -np.inf
+    d[3] = 0.0  # all zeros: the target at the end
+    d[4, :channels // 3] = 0.0  # zeros counted out of the median
+    d[5] = np.round(d[5] * 2) / 2  # ties: the halfway rule
+    d[6] = 1.5  # one value
+    d[7, ::2] = 0.0
+    d[7, 1::4] = np.nan
+    d[8] = np.nan
+    d[9, :channels // 2] = -np.inf
+    d[10] = (d[10] * 1e30).astype(np.float32)  # wide exponents
+    d[11, channels // 2:] = np.inf  # +inf above the target
+    return d
+
+
+def _hold_noise(got, want, *, end_state_free: bool, label: str):
+    """Bit for bit; with `end_state_free`, where `got` is the binary search's
+    NaN end state, `want` may be +inf or any NaN (an integer-digit search)."""
+    got, want = np.asarray(got, np.float32).ravel(), np.asarray(want, np.float32).ravel()
+    end = np.isnan(got)
+    if end_state_free:
+        assert (np.isnan(want[end]) | np.isposinf(want[end])).all(), label
+        got, want = got[~end], want[~end]
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32), err_msg=label)
+
+
+@pytest.mark.parametrize("channels", [1, 2, 13, 256, 1000])
+def test_radix_select_plain_matches_the_rank_searches(channels):
+    """madnz_radix_plain, bit for bit: against the JAX kernel's binary search
+    (``_madnz_band``, rank_radix 1, interpret mode, called as the JAX
+    package's test_rank_pair_matches_binary calls it), and, off the end
+    state, against its 4-bit rounds and the port's device.madnz at radix 1
+    and 4, which count integer digits."""
+    from katsdpsigproc_tpu.models.rfi.pallas_flagger import _band_matrix, _madnz_band
+
+    dev = _rank_rows(channels, seed=channels)
+    got = fp.madnz_radix_plain(torch.from_numpy(dev)).numpy()
+    if channels >= 13:
+        assert np.isfinite(got[[0, 4, 5, 6, 10]]).all() and np.isnan(got[[1, 2, 3, 8]]).all()
+    absdev = jnp.asarray(np.abs(dev))
+    g = _band_matrix(dev.shape[0], 1)
+    for radix in (1, 4):
+        want = np.asarray(_madnz_band(absdev, g, 1, channels, True, rank_radix=radix))
+        _hold_noise(got, want, end_state_free=radix != 1, label=f"JAX rank_radix={radix}")
+        want = fp.device.madnz(torch.from_numpy(dev), radix_bits=radix).numpy()
+        _hold_noise(got, want, end_state_free=True, label=f"device.madnz radix_bits={radix}")
+
+
+def test_radix_select_plain_on_denormal_and_negative_zero_rows():
+    """XLA on the CPU flushes denormals and rewrites -0, so these rows are held
+    to the port's binary search (device.madnz, radix 1) only."""
+    rs = np.random.RandomState(3)
+    dev = (rs.standard_normal((6, 300)) * 1e-40).astype(np.float32)  # denormals
+    dev[1, ::2] = -0.0
+    dev[2] = -0.0
+    dev[3, ::3] = np.float32(1e-45)  # the smallest denormal, tied
+    dev[4] = rs.standard_normal(300).astype(np.float32)
+    dev[4, ::2] = -0.0
+    dev[5, :100] = np.nan
+    assert (np.abs(dev[0]) < np.finfo(np.float32).tiny).all()
+    got = fp.madnz_radix_plain(torch.from_numpy(dev)).numpy()
+    want = fp.device.madnz(torch.from_numpy(dev), radix_bits=1).numpy()
+    _hold_noise(got, want, end_state_free=True, label="device.madnz radix_bits=1")
+    assert np.isfinite(got[[0, 1, 3, 4]]).all() and (got[[0, 3]] > 0).all()
+
+
+def test_radix_select_flags_equal_k1_on_nan_and_inf_rows():
+    """Where the noises part (the end state's NaN against device.madnz's
+    +inf), neither flags a channel: radix_select's plain version gives K1's
+    flags on rows whose target lies on +inf or past the non-NaN count."""
+    vt = _vis_t(300, seed=9)
+    vt[1, 17, 0] = np.nan  # NaN through the median
+    vt[2] = (1.0, 0.0)  # deviations 0, and +inf at every third channel:
+    vt[2, ::3, 0] = np.inf  # the target lies on +inf
+    vt[3, ::4, 1] = np.nan  # every deviation NaN: the target past the count
+    vt = torch.from_numpy(vt)
+    dev = fp.device.background_median_filter(
+        vt.transpose(0, 1), None, 13, False, fp.device.BackgroundFlags.NONE,
+        fast_path=True).transpose(0, 1)
+    noise = fp.madnz_radix_plain(dev)
+    assert torch.isfinite(noise[[0, 1]]).all() and torch.isnan(noise[[2, 3]]).all()
+    assert torch.isposinf(fp.device.madnz(dev)[2])
+    want = ff.flag_transposed_plain(vt, **fp.PARAMS)
+    np.testing.assert_array_equal(fp.probe(vt, "radix_select").numpy(), want.numpy())
+    assert not want[[2, 3]].any() and want[0].any()
+
+
 def test_variants_and_probes_cover_each_other():
     named = [v for variants in fp.PROBES.values() for v in variants]
     assert sorted(named) == sorted(fp.VARIANTS + ("amp_pairs",))
-    assert set(fp.launches) == set(named)
-    assert set(fp.EXACT) <= set(fp.VARIANTS)
+    assert set(fp.launches) == set(named) | set(fp.MEASUREMENT)
+    assert set(fp.EXACT) <= set(fp.VARIANTS + fp.MEASUREMENT)
+    # K11 and K13 on K1's run layout, K9 and its "before" on the strided one.
+    assert fp.RUN_LAYOUT == fp.PROBES["stage_ablate"] + fp.PROBES["rankpair"]
+    assert fp.STRIDED == fp.PROBES["rollchain"]
+    assert fp.VARIANTS == fp.RUN_LAYOUT + fp.STRIDED
 
 
 def test_probe_validation():
@@ -171,6 +278,8 @@ def test_probe_validation():
         fp.amp_pairs(torch.zeros((2, 64, 3)))
     with pytest.raises(ValueError, match="unknown variant"):
         fp.launch_config("binary", 1024)
+    with pytest.raises(ValueError, match="unknown variant"):
+        fp.max_channels("binary")
 
 
 def test_build_key_hashes_every_shared_header(tmp_path, monkeypatch):
@@ -202,6 +311,10 @@ def test_build_key_hashes_the_macro_definitions():
                                          for d in k1_ab.BUILDS.values()}
     assert len(keys) == 1 + len(k1_ab.BUILDS)
     assert kernels.build_key(*args, ()) == kernels.build_key(*args)
+    # K11 took the place of K1's stage-ablation builds: one measurement macro is left.
+    source = (kernels.CSRC_DIR / "fused_flagger.cu").read_text()
+    assert "FF_RUNS_ABLATE" not in source
+    assert list(k1_ab.BUILDS.values()) == ["FF_RUNS_SELECT_MINMAX"]
 
 
 def _small_dump(channels=64, rows=6):
@@ -237,24 +350,27 @@ def test_parity_mismatch_raises(monkeypatch):
 
 
 def test_k1_ab_runs_on_cpu_tensors(capsys):
-    """The A/B tool's calls on CPU tensors: K1, `full`, K5 + K1 and the
-    measurement builds, each build its plain version (select_minmax K1's)."""
+    """The A/B tool's calls on CPU tensors: K1, `strided_full`, K5 + K1, the
+    measurement build (its plain version K1's) and K11's run-layout variants,
+    whose differences are the run layout's stage costs."""
     vis = _small_dump(channels=96)
     vis_t = vis.transpose(0, 1).contiguous()
     before = dict(k1_ab.launches)
     out, stages = k1_ab.run(vis_t, vis, iters=1, reps=2, card="cpu")
-    assert set(out) == {"k1", "full", "k5 + k1"} | set(k1_ab.BUILDS)
+    assert set(out) == ({"k1", "strided_full", "k5 + k1", "full", "no_median", "no_rank",
+                         "no_thresh"} | set(k1_ab.BUILDS))
     assert all(lo <= med <= hi for med, lo, hi in out.values())
-    assert set(stages) == {"median", "rank", "threshold"}
+    assert stages == {label: out["full"][0] - out[name][0] for label, name in stage_ablate.STAGES}
     k1 = ff.flag_transposed(vis_t, **fp.PARAMS)
     assert torch.equal(k1_ab.build(vis_t, "select_minmax"), k1)
-    for name in ("no_median", "no_rank", "no_thresh"):
-        assert torch.equal(k1_ab.build(vis_t, name), fp.probe_plain(vis_t, name))
+    assert torch.equal(k1_ab.build_plain(vis_t, "select_minmax"), k1)
     assert k1_ab.launches == before  # no kernel on the CPU
     text = capsys.readouterr().out
-    assert "k1 / full" in text and "run-layout stage costs" in text
-    with pytest.raises(ValueError, match="unknown build"):
-        k1_ab.build(vis_t, "full")
+    assert "k1 / strided_full" in text and "K11 full - k1" in text
+    assert "run-layout stage costs (K11 full less the stand-in)" in text
+    for name in ("full", "no_median"):
+        with pytest.raises(ValueError, match="unknown build"):
+            k1_ab.build(vis_t, name)
 
 
 @pytest.mark.parametrize("tool", [stage_ablate, rankpair_ab, rollchain_ab, deinterleave_probe,
