@@ -13,10 +13,11 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
    started together (with K1's measurement build of
    ``scripts/k1_ab.py``), and prints the build time and nvcc's register
    report; K1's ``flagger_kernel``, K2's ``madnz_threshold_kernel``, every
-   instance of K4's ``percentile5_radix_kernel`` and every K11 and K13
-   instance of ``flagger_probe.cu``'s ``probe_kernel`` must spill no
-   bytes, and the SASS local loads and stores of K1 and of each K11 and
-   K13 instance are counted (``cuobjdump -sass``);
+   instance of K4's ``percentile5_radix_kernel``, every K9, K11 and K13
+   instance of ``flagger_probe.cu``'s ``probe_kernel`` and K10's
+   ``skeleton_kernel`` must spill no bytes, and the SASS local loads and
+   stores of K1, of each K9, K11 and K13 instance and of K10 are counted
+   (``cuobjdump -sass``);
 3. each kernel against its plain PyTorch version on the card, exact on
    the uint8 flags: K1 in every flag mode at the edge shapes of its run
    layout (1, 13, 99, 257, 1023, 1024, 1025, 4097 and 32768 channels and
@@ -52,16 +53,17 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
    SumThreshold as an ``OperationSequence``) over the whole dump as
    complex64, whose flags must equal K1's on the same rows;
 8. K1's stage probes (``csrc/flagger_probe.cu``): each variant's launch
-   configuration as the libraries report it, K11's and K13's equal to
-   K1's (the run layout: 1024 threads, K1's shared memory, one CTA per
-   SM), K9's, ``strided_full``'s and K12's equal to K2's strided design's;
+   configuration as the libraries report it, K9's, K11's and K13's equal
+   to K1's (the run layout: 1024 threads, K1's shared memory, one CTA per
+   SM), ``strided_full``'s and K12's equal to K2's strided design's;
    every variant against its plain version, exact, at several shapes and
    on 512 rows of the dump; on the whole dump, ``full``, ``rank_pair``,
-   ``zeros_fold``, ``radix_select``, ``strided_full`` and ``shfl_median``
-   against K1, every ``stage_ablate`` variant against its plain version,
-   and ``amp_pairs`` in both layouts against the plain amplitude; then the
-   profiling path, the four probe tools' ``run`` on the whole dump with
-   the launch counts read, which prints the stage costs; K1's measurement
+   ``zeros_fold``, ``radix_select``, ``shfl_median``, ``window_median``
+   and ``strided_full`` against K1, every ``stage_ablate`` variant against
+   its plain version, and ``amp_pairs`` in both layouts against the plain
+   amplitude; then the profiling path, the four probe tools' ``run`` on the
+   whole dump with the launch counts read, which prints the stage costs
+   and each K9 variant less ``full`` against both spreads; K1's measurement
    build against its plain version and K1; ``scripts/k1_ab``: K1 against
    ``strided_full``, the K5 + K1 call, the build and K11's ``full`` and
    stand-ins, 5 interleaved rounds of 3 calls, with each one's median and
@@ -78,10 +80,11 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
    its uint8 output and its rank carry, at several shapes and on 512 rows
    and the whole of the dump; the cost-probe path (K8's per-op table,
    then K10 on the whole dump priced by that table) with the launch
-   counts read; then the streaming ingest example at the full dump (5
-   dumps through one device slot and K1), each dump's flags equal to
-   ``flag_dump``'s on the card, with the upload, flag and pipeline times.
-   K8 and K10 are held to the strided layout's launch, as the probes are.
+   counts read, K10 beside K11's ``full`` in the same rounds; then the
+   streaming ingest example at the full dump (5 dumps through one device
+   slot and K1), each dump's flags equal to ``flag_dump``'s on the card,
+   with the upload, flag and pipeline times.  K10 is held to K1's launch
+   (the run layout), K8 to the strided layout's.
 
 Any failure raises and exits non-zero before the result lines.  The
 second-to-last line is a JSON record of each kernel, with its bound: the
@@ -343,38 +346,47 @@ def phase_build(ff, pct, tr, fp, kernels) -> None:
         if name.startswith("flagger_kernel<"):
             print(f"  K1 {name} SASS: {len(re.findall(r'LDL', part))} local loads, "
                   f"{len(re.findall(r'STL', part))} local stores")
-    # K11 and K13, K1 with one stage replaced at K1's launch bounds: no
-    # spills, and their SASS's local loads and stores as K1's.
+    # K9, K11 and K13, K1 with one stage replaced at K1's launch bounds, and
+    # K10 on K1's run layout: no spills, and their SASS's local loads and
+    # stores beside K1's.
     fp_key = kernels.build_key("flagger_probe", ["flagger_probe.cu"],
+                               {"ff_network.h": ff._network_header(13)})
+    rs_key = kernels.build_key("roofline_skeleton", ["roofline_skeleton.cu"],
                                {"ff_network.h": ff._network_header(13)})
 
     names = {code: name for name, code in fp._CODE.items()}
 
     def probe_variant(mangled: str):
-        m = re.search(r"(?<!strided_)probe_kernelILi(\d+)E", mangled)
-        return names[int(m.group(1))] if m else None
+        m = re.search(r"probe_kernelILi(\d+)E", mangled)
+        if m:
+            return names[int(m.group(1))]
+        return "skeleton_kernel" if "skeleton_kernel" in mangled else None
 
-    probes = {probe_variant(name): r
-              for name, r in ptxas_report(kernels.build_info[fp_key]["log"]).items()
-              if probe_variant(name)}
-    sass = subprocess.run([cuobjdump, "-sass", str(kernels.BUILD_DIR / fp_key /
-                                                   "libflagger_probe.so")],
-                          capture_output=True, text=True).stdout
-    local = {probe_variant(part.split("\n")[0]): (len(re.findall(r"LDL", part)),
-                                                   len(re.findall(r"STL", part)))
-             for part in sass.split("Function : ")[1:]}
-    run_layout = fp.RUN_LAYOUT + fp.MEASUREMENT
-    for v in run_layout:
-        r = probes.get(v, {})
+    reports, local = {}, {}
+    for key, lib in ((fp_key, "libflagger_probe.so"), (rs_key, "libroofline_skeleton.so")):
+        reports.update({probe_variant(name): r
+                        for name, r in ptxas_report(kernels.build_info[key]["log"]).items()
+                        if probe_variant(name)})
+        sass = subprocess.run([cuobjdump, "-sass", str(kernels.BUILD_DIR / key / lib)],
+                              capture_output=True, text=True).stdout
+        local.update({probe_variant(part.split("\n")[0]): (len(re.findall(r"LDL", part)),
+                                                           len(re.findall(r"STL", part)))
+                      for part in sass.split("Function : ")[1:]})
+    probe_id = {v: kid for kid, probe in (("K11", "stage_ablate"), ("K13", "rankpair"),
+                                          ("K9", "rollchain")) for v in fp.PROBES[probe]}
+    checked = fp.RUN_LAYOUT + fp.MEASUREMENT + ("skeleton_kernel",)
+    for v in checked:
+        r = reports.get(v, {})
         lds, sts = local.get(v, (None, None))
-        print(f"  {'K11' if v in fp.STAGE_ABLATE else 'K13'} probe_kernel<{v}>: "
-              f"{r.get('registers')} registers, {r.get('stack')} B stack frame, "
+        label = "K10 skeleton_kernel" if v == "skeleton_kernel" else (
+            f"{probe_id.get(v, 'K13')} probe_kernel<{v}>")
+        print(f"  {label}: {r.get('registers')} registers, {r.get('stack')} B stack frame, "
               f"{r.get('spill_stores')} B spill stores, {r.get('spill_loads')} B spill loads; "
               f"SASS {lds} local loads, {sts} local stores")
-    if (set(run_layout) - set(probes)
-            or any(probes[v]["spill_stores"] or probes[v]["spill_loads"] for v in run_layout)):
-        raise AssertionError(f"a K11 or K13 instance spills or is missing from the report: "
-                             f"{probes}")
+    if (set(checked) - set(reports)
+            or any(reports[v]["spill_stores"] or reports[v]["spill_loads"] for v in checked)):
+        raise AssertionError(f"a K9, K10, K11 or K13 instance spills or is missing from the "
+                             f"report: {reports}")
     # K2 and K4 (and K2's strided design, K4's measurement builds and its
     # original design, printed): no spills either.
     pct_key = kernels.build_key("percentile", ["percentile.cu"], {})
@@ -847,10 +859,12 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
 
     probe_of = {v: name for name, variants in fp.PROBES.items() for v in variants}
     probe_of.update({v: "rankpair" for v in fp.MEASUREMENT})
+    # K1 in the strided layout, the old K11 `full`
+    probe_of.update({v: "stage_ablate" for v in fp.STRIDED})
     channels, rows = vis_np.shape
     print("K1's stage probes (csrc/flagger_probe.cu):")
 
-    # K11 and K13 launch as K1 does (the run layout), K9, strided_full and
+    # K9, K11 and K13 launch as K1 does (the run layout), strided_full and
     # K12 as K2's strided design does, as the libraries report it: 1024
     # threads, the layout's dynamic shared memory, one CTA per SM.
     k1_cfg = ff.launch_config(channels)
@@ -928,14 +942,14 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
     for name in fp.launches:
         fp.launches[name] = 0
     stage_ms, stages = stage_ablate.run(vis_t, iters=3, reps=5, card=card)
-    rank_ms = rankpair_ab.run(vis_t, iters=3, reps=5, card=card)
+    rank_ms, _ = rankpair_ab.run(vis_t, iters=3, reps=5, card=card)
     roll_ms = rollchain_ab.run(vis_t, iters=3, reps=5, card=card)
     dein_ms = deinterleave_probe.run(vis, iters=3, reps=5, card=card)
     print(f"K1 (run layout) against K1 in the strided layout, its measurement build and K11, "
           f"interleaved, 5 rounds of 3 calls, on {card}:")
     for name in k1_ab.launches:
         k1_ab.launches[name] = 0
-    k1_ab.run(vis_t, vis, iters=3, reps=5, card=card)
+    k1_out, _ = k1_ab.run(vis_t, vis, iters=3, reps=5, card=card)
     torch.cuda.synchronize()
     card_state("after the probe tools")
     print(f"  launches of K1's measurement builds: {dict(k1_ab.launches)}")
@@ -953,7 +967,7 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
     plain["amp_pairs channel-major"] = time_fn(
         lambda: fp.amp_pairs_plain(vis, channel_major=True), warmup=1, iters=3)
     kernel = {**stage_ms, **{v: rank_ms[v] for v in fp.RANK_SEARCHES},
-              "strided_full": roll_ms["direct"], "shfl_median": roll_ms["shfl"],
+              **{v: roll_ms[v] for v in fp.MEDIANS}, "strided_full": k1_out["strided_full"][0],
               "amp_pairs": dein_ms["baseline-major"],
               "amp_pairs channel-major": dein_ms["channel-major"]}
     print(f"kernel vs plain on the whole dump (plain: 1 warm-up, median of 3) on {card}:")
@@ -965,18 +979,21 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
           + f"; skeleton {stage_ms['skeleton']:.3f} ms against the 0.71 ms traffic floor [{card}]")
     for v in fp.RANK_SEARCHES + fp.MEASUREMENT:
         print(f"  {v} - full: {rank_ms[v] - rank_ms['binary']:+.3f} ms [{card}]")
-    print(f"  shfl_median - strided_full: {roll_ms['shfl'] - roll_ms['direct']:+.3f} ms [{card}]")
-    # K13's record is its fastest variant, named.
+    for v in fp.MEDIANS:
+        print(f"  {v} - full: {roll_ms[v] - roll_ms['full']:+.3f} ms [{card}]")
+    # K13's and K9's records are their fastest variants, named.
     fastest = min(fp.RANK_SEARCHES, key=rank_ms.get)
-    # `full`, the K13 variants and `shfl_median` do K1's work; K12 reads 8 B
-    # and writes 4 B per visibility and does the amplitude's 4 operations.
+    fastest_median = min(fp.MEDIANS, key=roll_ms.get)
+    # `full`, the K13 and the K9 variants do K1's work; K12 reads 8 B and
+    # writes 4 B per visibility and does the amplitude's 4 operations.
     n_vis = rows * channels
     k1_work = (9 * n_vis, inventory_ops() * n_vis)
     return {
         "stage_ablate": record(counts["stage_ablate"], stage_ms["full"], plain["full"], *k1_work),
         "rankpair": dict(record(counts["rankpair"], rank_ms[fastest],
                                 plain.get(fastest, plain["full"]), *k1_work), variant=fastest),
-        "rollchain": record(counts["rollchain"], roll_ms["shfl"], plain["full"], *k1_work),
+        "rollchain": dict(record(counts["rollchain"], roll_ms[fastest_median], plain["full"],
+                                 *k1_work), variant=fastest_median),
         "deinterleave": record(counts["deinterleave"], dein_ms["channel-major"],
                                plain["amp_pairs channel-major"], 12 * n_vis, 4 * n_vis),
     }
@@ -1064,17 +1081,23 @@ def phase_cost_probes(ff, device, vis_np: np.ndarray, card: str, check: Check) -
             check.close("prim_cost", f"K8 {body}", got, want, rtol=1e-6)
         else:
             check.exact("prim_cost", f"K8 {body or 'empty'}", got, want)
-    k2_cfg = ff.strided_launch_config(channels)
-    for label, cfg in (("K8 rank_round", prim_cost.launch_config("rank_round")),
-                       ("K10", rsk.launch_config(channels))):
-        print(f"  launch {label}: {cfg['threads']} threads, {cfg['smem_bytes']} B dynamic shared "
-              f"memory, {cfg['ctas_per_sm']} CTA per SM (the strided layout's K2: {k2_cfg})")
-        if cfg["ctas_per_sm"] != k2_cfg["ctas_per_sm"] or cfg["threads"] != k2_cfg["threads"]:
-            raise AssertionError(f"{label} does not run at the strided layout's occupancy: {cfg}")
+    # K8 runs at the strided layout's occupancy, K10 exactly as K1 launches.
+    k2_cfg, k1_cfg = ff.strided_launch_config(channels), ff.launch_config(channels)
+    cfg = prim_cost.launch_config("rank_round")
+    print(f"  launch K8 rank_round: {cfg['threads']} threads, {cfg['smem_bytes']} B dynamic "
+          f"shared memory, {cfg['ctas_per_sm']} CTA per SM (the strided layout's K2: {k2_cfg})")
+    if cfg["ctas_per_sm"] != k2_cfg["ctas_per_sm"] or cfg["threads"] != k2_cfg["threads"]:
+        raise AssertionError(f"K8 does not run at the strided layout's occupancy: {cfg}")
+    cfg = rsk.launch_config(channels)
+    print(f"  launch K10: {cfg['threads']} threads, {cfg['smem_bytes']} B dynamic shared memory, "
+          f"{cfg['ctas_per_sm']} CTA per SM (K1: {k1_cfg})")
+    if cfg != k1_cfg:
+        raise AssertionError(f"K10 does not launch as K1 does ({k1_cfg}): {cfg}")
 
     print("K10 (csrc/roofline_skeleton.cu) against its plain version, output and rank carry:")
     vis = torch.from_numpy(device.to_planar(vis_np)).to(dev)  # (C, rows, 2)
     amp = fp.amp_pairs(vis, channel_major=True)  # (rows, C), the dump's amplitudes
+    vis_t = vis.transpose(0, 1).contiguous()  # for K11's full beside the skeleton
     del vis
     rs = np.random.RandomState(11)
     cases = [(f"uniform {r}x{c}", torch.from_numpy(
@@ -1114,7 +1137,8 @@ def phase_cost_probes(ff, device, vis_np: np.ndarray, card: str, check: Check) -
     for name in prim_cost.launches:
         prim_cost.launches[name] = 0
     rsk.launches["skeleton"] = 0
-    result = rsk.run(amp, iters=3, reps=5, card=card)
+    result = rsk.run(vis_t, iters=3, reps=5, card=card)
+    del vis_t
     torch.cuda.synchronize()
     card_state("after the cost-probe tools")
     launches = {"prim_cost": sum(prim_cost.launches.values()),
@@ -1132,7 +1156,8 @@ def phase_cost_probes(ff, device, vis_np: np.ndarray, card: str, check: Check) -
                         iters=2)
     skel_plain = time_fn(plain_whole(), warmup=1, iters=2)
     print(f"kernel vs plain on {card}: K8 add chain {add_ms:.3f} ms vs {add_plain:.3f} ms; "
-          f"K10 whole dump {result['skeleton_ms']:.3f} ms vs {skel_plain:.3f} ms")
+          f"K10 whole dump {result['skeleton_ms']:.3f} ms vs {skel_plain:.3f} ms; K10 / K11 "
+          f"full {result['skeleton_ms'] / result['full_ms']:.3f} in the same rounds")
     elems, n_vis = block.numel(), rows * channels
     return {
         # The chain reads and writes the block once; y0, 2 operations a rep, x + y.

@@ -9,9 +9,10 @@
 // that is on-chip work.  On an H100 SXM at 700 W the channel-strided
 // design of ff_device.cuh spent it as SumThreshold 5.3 ms, median 4.0,
 // rank search 2.2, load + store 1.2 per dump.  That design stays in
-// ff_device.cuh for K2's strided design, the probes K9 and K12 beside
-// `strided_full` (K1 in it), the roofline skeleton and the cost probes.
-// K1's stage and rank-search probes (K11, K13) run on this layout.
+// ff_device.cuh for K2's strided design, the probe K12 beside
+// `strided_full` (K1 in it) and the cost probe K8.  K1's stage,
+// rank-search and median-member probes (K11, K13, K9) and the roofline
+// skeleton K10 run on this layout.
 //
 // One 1024-thread CTA per row, as there.  What changes:
 //

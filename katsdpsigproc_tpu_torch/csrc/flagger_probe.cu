@@ -8,8 +8,12 @@
 //       bit K1: two bits per dependent round (`rank_pair`), the zeros count
 //       riding the first round (`zeros_fold`), or K4's radix select
 //       (`radix_select`);
-//   K9  rollchain_ab.py::make.kernel: the median's shifted members built
-//       another way (`shfl_median`: warp shuffles), bit for bit K1;
+//   K9  rollchain_ab.py::make.kernel: K1 with the median's 12 shifted
+//       members built another way than by 12 shared-memory loads, bit for
+//       bit K1: warp shuffles (`shfl_median`), or each thread's V
+//       consecutive channels from V + 12 members loaded once as 16-byte
+//       words (`window_median`, the TPU probe's roll-by-1 chains as the
+//       card does them: member d of channel c + 1 is member d + 1 of c);
 //   K12 deinterleave_probe.py::make.kernel: amplitudes from interleaved
 //       (re, im) pairs (`amp_pairs`), baseline-major (rows, C, 2) as the
 //       TPU probe reads them, or channel-major (C, rows, 2) read in place,
@@ -19,13 +23,13 @@
 // measures only if its variants all run one machine, so each launches as
 // the kernel it varies: kThreads = 1024 threads, one CTA per SM at 32768
 // channels, and the dynamic shared memory of its layout:
-//  * K11 and K13 are K1 itself, on K1's run layout (ff_runs.cuh,
+//  * K9, K11 and K13 are K1 itself, on K1's run layout (ff_runs.cuh,
 //    runs::smem_bytes): `full` is K1's pipeline, and each other variant
 //    changes the one stage it names, so a difference of two times is that
 //    stage's cost in the K1 that runs.  K1 itself gains no knob;
-//  * K9 and K12 stay on the strided layout (ff_device.cuh, smem_bytes),
-//    where K2's strided design keeps its launch, beside `strided_full`,
-//    K1 in that layout and K9's "before".
+//  * K12 stays on the strided layout (ff_device.cuh, smem_bytes), where
+//    K2's strided design keeps its launch, beside `strided_full`, K1 in
+//    that layout and the "before" of scripts/k1_ab.py.
 //
 // Variants, with the stand-ins' semantics of stage_ablate.py:61-80 (there
 // are no input flags, and C >= FF_WIDTH):
@@ -48,14 +52,17 @@
 //                 patterns: 8 + 8 + 8 + 7 bits a pass, a shared histogram of
 //                 the digit of the keys still under the prefix, scanned by
 //                 every warp alike: one barrier a pass, 4 instead of 31
+//   shfl_median   K1's median tiles with an interior tile's members taken by
+//                 __shfl_sync: one load a lane, and one more for the lanes
+//                 at a warp's edge, where K1 loads 13
+//   window_median K1's median on tiles of 1024 x kWindowV channels, a
+//                 thread's kWindowV consecutive channels from one load of
+//                 their members as float4 words, 1.25 loads a channel
 //   radix_match_any  a measurement instance of radix_select, not a variant
 //                 (scripts/rankpair_ab.py): pass 0 adds each distinct
 //                 exponent digit of a warp once (__match_any_sync), as K4's
 //                 measurement build does
-//   strided_full  K1 in the strided layout (K9's, K1's and phase 5's "before")
-//   shfl_median   strided_full with the median's members within a warp
-//                 taken by __shfl_sync; those across warps or tiles from
-//                 shared memory and the halo
+//   strided_full  K1 in the strided layout (k1_ab's and phase 5's "before")
 
 #include "ff_device.cuh"
 
@@ -70,72 +77,25 @@ enum Variant : int {
   kRankPair = 5,
   kZerosFold = 6,
   kRadixSelect = 7,
-  kRadixMatchAny = 8,  // radix_select's measurement instance
-  kStridedFull = 9,    // the first variant on the strided layout
-  kShflMedian = 10,
-  kAmpPairs = 11,              // baseline-major (rows, C, 2)
-  kAmpPairsChannelMajor = 12,  // channel-major (C, rows, 2)
+  kShflMedian = 8,
+  kWindowMedian = 9,
+  kRadixMatchAny = 10,  // radix_select's measurement instance
+  kStridedFull = 11,    // the one variant on the strided layout
+  kAmpPairs = 12,              // baseline-major (rows, C, 2)
+  kAmpPairsChannelMajor = 13,  // channel-major (C, rows, 2)
 };
 
 __host__ __device__ constexpr bool run_layout(int variant) { return variant < kStridedFull; }
 
-// ---- The strided layout (ff_device.cuh): K9, strided_full and K12 ----
+// ---- The strided layout (ff_device.cuh): strided_full and K12 ----
 //
 // Defined before ff_runs.cuh is included below: that header redefines the
-// selection network's comparators as min.NaN/max.NaN, and K9's network is
-// expanded here with ff_device.cuh's nan_min/nan_max, as strided_full's.
+// selection network's comparators as min.NaN/max.NaN, and strided_full's
+// network is expanded here with ff_device.cuh's nan_min/nan_max.
 
-// K9 shfl_median: K1's fast-path median with the members within a warp
-// taken by shuffles.  A rotation by d serves every lane with one shuffle:
-// the lanes whose member lies past the warp's edge read it from the source
-// lane the rotation wraps to, which supplies the value 32 channels away
-// (`right` for d > 0, `left` for d < 0) instead of its own.  Those two are
-// the only members read from shared memory or the halo, once per lane and
-// tile.  Every lane takes part in every shuffle, past C included.
-__device__ void median_to_deviations_shfl(float* buf, float* halo, int C) {
-  const int lane = threadIdx.x & 31;
-  for (int base = 0; base < C; base += kThreads) {
-    const int c = base + threadIdx.x;
-    const bool in = c < C;
-    const float self = in ? buf[c] : 0.f;
-    float right = 0.f;  // channel c + 32, needed by lanes < kHalf
-    float left = 0.f;   // channel c - 32, needed by lanes >= 32 - kHalf
-    if (lane < kHalf && c + 32 < C) right = buf[c + 32];
-    const int j_left = c - 32;
-    if (lane >= 32 - kHalf && j_left >= 0 && j_left < C) {
-      left = j_left < base ? halo[j_left - base + kHalf] : buf[j_left];
-    }
-    float w[FF_WIDTH];
-#pragma unroll
-    for (int k = 0; k < FF_WIDTH; ++k) {
-      const int d = k - kHalf;
-      if (d == 0) {
-        w[k] = self;
-        continue;
-      }
-      const float give = d > 0 ? (lane < d ? right : self) : (lane >= 32 + d ? left : self);
-      const float x = __shfl_sync(0xffffffffu, give, (lane + d) & 31);
-      const int j = c + d;
-      w[k] = (j < 0 || j >= C) ? edge_fill(c, d, C) : x;
-    }
-    float dev = 0.f;
-    if (in) {
-      FF_NET_FAST(w);
-      dev = __fsub_rn(self, fast_median(w, c, C));
-    }
-    __syncthreads();  // every window of this tile has read its members
-    if (in) {
-      if (threadIdx.x >= kThreads - kHalf) halo[threadIdx.x - (kThreads - kHalf)] = self;
-      buf[c] = dev;
-    }
-    __syncthreads();
-  }
-}
-
-// strided_full and shfl_median: K1's stages in the strided layout.
-template <int kVariant>
+// strided_full: K1's stages in the strided layout.
 __global__ void __launch_bounds__(kThreads, 1)
-    strided_probe_kernel(const float2* __restrict__ vis, uint8_t* __restrict__ out, Params p) {
+    strided_full_kernel(const float2* __restrict__ vis, uint8_t* __restrict__ out, Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = p.channels;
   const size_t row = blockIdx.x;
@@ -145,11 +105,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* halo = reinterpret_cast<float*>(red + 2 * kWarps);
   for (int c = threadIdx.x; c < C; c += kThreads) buf[c] = amplitude(v[c]);
   __syncthreads();
-  if constexpr (kVariant == kShflMedian) {
-    median_to_deviations_shfl(buf, halo, C);
-  } else {
-    median_to_deviations<true, false>(buf, halo, C);
-  }
+  median_to_deviations<true, false>(buf, halo, C);
   int bank = 0;
   const float noise = mad_noise(buf, red, bank, C);
   sum_threshold_row(buf, smem + flags_offset(C), noise, out + row * C, p);
@@ -169,7 +125,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 }  // namespace
 
-// ---- K1's run layout (ff_runs.cuh): K11 and K13 ----
+// ---- K1's run layout (ff_runs.cuh): K9, K11 and K13 ----
 
 #include "ff_runs.cuh"
 
@@ -490,10 +446,137 @@ __device__ float mad_noise_radix(const float* dev, unsigned* hist, int* red, int
   return noise_from(cur, r_cur, below, t, red, bank);
 }
 
+// ---- K9: the median's members built another way, bit for bit K1 ----
+//
+// Both variants keep K1's row (amplitudes unpadded at word c, deviations
+// padded at phys(c)), its top-down tiles with one barrier each, and its
+// network (FF_NET_FAST on min.NaN/max.NaN), so their flags are K1's.
+
+// K1's median of channel c < C as its tiles take it that are not interior
+// (runs::median_to_deviations<true, false>): members from the unpadded
+// amplitudes, the +-inf parity fills past the row's edges.
+__device__ __forceinline__ float edge_deviation(const float* buf, int c, int C) {
+  float w[FF_WIDTH];
+#pragma unroll
+  for (int k = 0; k < FF_WIDTH; ++k) {
+    const int d = k - kHalf;
+    const int j = c + d;
+    w[k] = (j < 0 || j >= C) ? edge_fill(c, d, C) : buf[j];
+  }
+  const float amp = w[kHalf];
+  FF_NET_FAST(w);
+  return __fsub_rn(amp, fast_median(w, c, C));
+}
+
+// K9 shfl_median: K1's tiles, an interior tile's members by shuffles.  A
+// rotation by d serves every lane with one shuffle: the lanes whose member
+// lies past the warp's edge read it from the source lane the rotation
+// wraps to, which supplies its channel 32 away (`right` for d > 0, `left`
+// for d < 0) instead of its own.  Those two are plain shared loads, the
+// only ones besides `self`: c + 32 < C in an interior tile, and c - 32 >=
+// base - kHalf >= 0 is still an amplitude, since a tile's stores land at
+// phys(c) >= c + 32 past its base (ff_runs.cuh).  An interior tile is
+// whole, so every lane of a warp takes part in every shuffle.
+__device__ void median_to_deviations_shfl(float* buf, int C) {
+  const int lane = threadIdx.x & 31;
+  for (int base = (C - 1) / kThreads * kThreads; base >= 0; base -= kThreads) {
+    const int c = base + threadIdx.x;
+    const bool interior = base >= kHalf && base + kThreads + kHalf <= C;
+    float dev = 0.f;
+    if (interior) {
+      const float self = buf[c];
+      const float right = lane < kHalf ? buf[c + 32] : 0.f;
+      const float left = lane >= 32 - kHalf ? buf[c - 32] : 0.f;
+      float w[FF_WIDTH];
+#pragma unroll
+      for (int k = 0; k < FF_WIDTH; ++k) {
+        const int d = k - kHalf;
+        if (d == 0) {
+          w[k] = self;
+          continue;
+        }
+        const float give = d > 0 ? (lane < d ? right : self) : (lane >= 32 + d ? left : self);
+        w[k] = __shfl_sync(kFull32, give, (lane + d) & 31);
+      }
+      FF_NET_FAST(w);
+      dev = __fsub_rn(self, w[kHalf]);
+    } else if (c < C) {
+      dev = edge_deviation(buf, c, C);
+    }
+    __syncthreads();  // every window of this tile has read its members
+    if (c < C) buf[phys(c)] = dev;
+  }
+  __syncthreads();
+}
+
+// K9 window_median: tiles of kThreads * kWindowV channels, thread t taking
+// channels c0 .. c0 + kWindowV - 1, c0 = base + kWindowV t.  Its members,
+// c0 - kHalf .. c0 + kWindowV - 1 + kHalf, come from one load of the
+// aligned float4 words c0 - kPad .. c0 + kWindowV + kPad - 1 (kPad: kHalf
+// rounded up to a word); member d of channel c + 1 is member d + 1 of
+// channel c, so the kWindowV networks read registers.  At width 13 that
+// is 5 loads for 4 channels where K1 makes 52.  Lane stride 16 B: a
+// quarter-warp's eight 16-byte loads cover the 32 banks once.  The stores
+// go one word at a time to phys(c): for word i of its run, lane l writes
+// bank 4 (l mod 8) + l / 8 + i (+ a constant), each bank once a warp.
+//
+// In place, as K1's tiles: a tile reads only before its barrier and
+// stores only after it.  Its stores land at phys(c) >= base + base / 32,
+// and the tile below reads words below base + kPad; a tile above the
+// lowest has base >= kThreads * kWindowV, so base / 32 >= 128 > kPad
+// (kPad <= 16).  The lowest tile has no tile below it.  So the choice of
+// path can be a thread's, not a tile's: a thread whose loads would leave
+// the row (c0 < kPad, or c0 + kWindowV + kPad > C: near the row's two
+// ends only) takes K1's per-channel path with the edge fills, and in
+// every other thread each channel c has kHalf <= c <= C - 1 - kHalf,
+// where K1's median is rank kHalf.  (Chosen by tile, as K1 chooses, the
+// two end tiles would put a quarter of a 32768-channel row on the
+// per-channel path.)
+constexpr int kWindowV = 4;  // one float4 word a load
+
+__device__ void median_to_deviations_window(float* buf, int C) {
+  constexpr int kPad = (kHalf + kWindowV - 1) / kWindowV * kWindowV;
+  constexpr int kWords = kWindowV + 2 * kPad;
+  constexpr int kTile = kThreads * kWindowV;
+  for (int base = (C - 1) / kTile * kTile; base >= 0; base -= kTile) {
+    const int c0 = base + kWindowV * (int)threadIdx.x;
+    float dev[kWindowV];
+    if (c0 >= kPad && c0 + kWindowV + kPad <= C) {
+      float x[kWords];
+      const float4* q = reinterpret_cast<const float4*>(buf + c0 - kPad);
+#pragma unroll
+      for (int i = 0; i < kWords / 4; ++i) {
+        const float4 f = q[i];
+        x[4 * i] = f.x;
+        x[4 * i + 1] = f.y;
+        x[4 * i + 2] = f.z;
+        x[4 * i + 3] = f.w;
+      }
+#pragma unroll
+      for (int i = 0; i < kWindowV; ++i) {
+        float w[FF_WIDTH];
+#pragma unroll
+        for (int k = 0; k < FF_WIDTH; ++k) w[k] = x[kPad - kHalf + i + k];
+        FF_NET_FAST(w);
+        dev[i] = __fsub_rn(x[kPad + i], w[kHalf]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kWindowV; ++i) dev[i] = c0 + i < C ? edge_deviation(buf, c0 + i, C) : 0.f;
+    }
+    __syncthreads();  // every window of this tile has read its members
+#pragma unroll
+    for (int i = 0; i < kWindowV; ++i) {
+      if (c0 + i < C) buf[phys(c0 + i)] = dev[i];
+    }
+  }
+  __syncthreads();
+}
+
 }  // namespace runs
 
-// K11 and K13: K1's flagger_kernel<0> (fused_flagger.cu) with the stage the
-// variant names replaced, in K1's shared memory.
+// K9, K11 and K13: K1's flagger_kernel<0> (fused_flagger.cu) with the
+// stage the variant names replaced, in K1's shared memory.
 template <int kVariant>
 __global__ void __launch_bounds__(kThreads, 1)
     probe_kernel(const float2* __restrict__ vis, uint8_t* __restrict__ out, Params p) {
@@ -524,7 +607,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
   __syncthreads();
-  if constexpr (kVariant != kNoMedian) {
+  if constexpr (kVariant == kShflMedian) {
+    runs::median_to_deviations_shfl(buf, C);
+  } else if constexpr (kVariant == kWindowMedian) {
+    runs::median_to_deviations_window(buf, C);
+  } else if constexpr (kVariant != kNoMedian) {
     // K1's branch, kept so that `full` compiles to K1's code; the probes
     // take C >= FF_WIDTH, so the masked path never runs.
     if (C >= FF_WIDTH) {
@@ -565,9 +652,10 @@ int with_probe_kernel(int variant, F&& f) {
     case kRankPair: return f(probe_kernel<kRankPair>);
     case kZerosFold: return f(probe_kernel<kZerosFold>);
     case kRadixSelect: return f(probe_kernel<kRadixSelect>);
+    case kShflMedian: return f(probe_kernel<kShflMedian>);
+    case kWindowMedian: return f(probe_kernel<kWindowMedian>);
     case kRadixMatchAny: return f(probe_kernel<kRadixMatchAny>);
-    case kStridedFull: return f(strided_probe_kernel<kStridedFull>);
-    case kShflMedian: return f(strided_probe_kernel<kShflMedian>);
+    case kStridedFull: return f(strided_full_kernel);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -592,7 +680,8 @@ size_t layout_smem(int variant, int channels) {
 extern "C" {
 
 // As in fused_flagger.cu, so the wrappers share their checks: the run
-// layout's channel limit (K11, K13) and the strided layout's (K9, K12).
+// layout's channel limit (K9, K11, K13) and the strided layout's
+// (`strided_full`, K12).
 int ff_max_channels(void) { return runs::max_channels(); }
 int ff_strided_max_channels(void) { return max_channels(); }
 

@@ -31,9 +31,9 @@
 //  * the strided layout (ff_device.cuh): C x 4 B of deviations + C x 1 B of
 //    flags, thread t owning channels t, t + 1024, ...  K2's earlier design,
 //    madnz_threshold_strided_kernel, runs on it and defines the layout's
-//    launch; the probes still on it (flagger_probe.cu's K9, K12 and
-//    `strided_full`, K1 in this layout), the roofline skeleton and the
-//    cost probes are held to it.
+//    launch; the probes still on it (flagger_probe.cu's K12 and
+//    `strided_full`, K1 in this layout) and the cost probe K8 are held to
+//    it.
 //
 // Parity with the JAX reference, bit for bit, in both:
 //  * no FMA contraction anywhere (built with -fmad=false), and re*re+im*im
@@ -172,8 +172,8 @@ int ff_launch_config(int channels, int* threads, long long* smem_bytes_out, int*
 }
 
 // The strided layout's launch configuration at `channels`, that of K2's
-// strided design: the probes on that layout (K9, K12, `strided_full`), the
-// roofline skeleton and the cost probes are held to it.
+// strided design: the probes on that layout (K12, `strided_full`) and the
+// cost probe K8 are held to it.
 int ff_strided_launch_config(int channels, int* threads, long long* smem_bytes_out,
                              int* ctas_per_sm) {
   if (channels < 1 || channels > max_channels()) return (int)cudaErrorInvalidValue;

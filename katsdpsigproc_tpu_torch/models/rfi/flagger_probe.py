@@ -11,20 +11,24 @@ variant launches as the kernel it varies (1024 threads, one CTA per SM at
   K1 with another rank search, bit for bit K1: ``rank_pair``,
   ``zeros_fold`` and ``radix_select`` (K4's radix select, whose search is
   :func:`madnz_radix_plain` step by step);
-* **K9** ``rollchain_ab.py::make.kernel`` (:81): ``shfl_median``, the
-  median's members by warp shuffles, bit for bit K1;
+* **K9** ``rollchain_ab.py::make.kernel`` (:81): :data:`MEDIANS`, K1 with
+  the median's shifted members built another way than by 12 shared-memory
+  loads, bit for bit K1: ``shfl_median`` (warp shuffles) and
+  ``window_median`` (a thread's 4 consecutive channels from one load of
+  their members as 16-byte words: the TPU probe's roll-by-1 chains, where
+  member d of channel c + 1 is member d + 1 of channel c);
 * **K12** ``deinterleave_probe.py::make.kernel`` (:41): :func:`amp_pairs`,
   amplitudes from interleaved pairs, baseline-major or channel-major.
 
-K11 and K13 (:data:`RUN_LAYOUT`) are K1 on its run layout
+K9, K11 and K13 (:data:`RUN_LAYOUT`) are K1 on its run layout
 (``csrc/ff_runs.cuh``) and launch exactly as K1 does
 (:func:`.fused_flagger.launch_config`), up to K1's channel limit
-(:func:`.fused_flagger.max_channels`).  K9 and K12 stay on the strided
-layout (``csrc/ff_device.cuh``: thread t owns channels t, t + 1024, ...
-of a row held at 5 B per channel) beside ``strided_full``, K1 in that
-layout, flag for flag the current one (:data:`STRIDED`); they launch as
-K2's strided design does (:func:`.fused_flagger.strided_launch_config`),
-up to that layout's limit.
+(:func:`.fused_flagger.max_channels`).  K12 stays on the strided layout
+(``csrc/ff_device.cuh``: thread t owns channels t, t + 1024, ... of a row
+held at 5 B per channel) beside ``strided_full``, K1 in that layout, flag
+for flag the current one (:data:`STRIDED`); they launch as K2's strided
+design does (:func:`.fused_flagger.strided_launch_config`), up to that
+layout's limit.
 
 The TPU probes' layout knobs (``bb``, ``fold``, ``interpret``) have no
 counterpart.  As in the TPU probes there are no input flags, a row holds
@@ -47,10 +51,12 @@ from . import MAD_NORMAL, device, fused_flagger as ff
 
 STAGE_ABLATE = ("full", "no_median", "no_rank", "no_thresh", "skeleton")
 RANK_SEARCHES = ("rank_pair", "zeros_fold", "radix_select")
-# On K1's run layout, launched as K1 is (K11, K13).
-RUN_LAYOUT = STAGE_ABLATE + RANK_SEARCHES
-# On the strided layout, launched as K2's strided design is (K9 and its "before").
-STRIDED = ("strided_full", "shfl_median")
+MEDIANS = ("shfl_median", "window_median")
+# On K1's run layout, launched as K1 is (K11, K13, K9).
+RUN_LAYOUT = STAGE_ABLATE + RANK_SEARCHES + MEDIANS
+# On the strided layout, launched as K2's strided design is: K1 in that
+# layout, the "before" of ``scripts/k1_ab.py``.
+STRIDED = ("strided_full",)
 VARIANTS = RUN_LAYOUT + STRIDED
 # A measurement instance of `radix_select`, not a variant
 # (``scripts/rankpair_ab.py``): pass 0 adds each distinct exponent digit of
@@ -58,12 +64,13 @@ VARIANTS = RUN_LAYOUT + STRIDED
 # the run layout.
 MEASUREMENT = ("radix_match_any",)
 # Those whose flags must equal K1's, flag for flag.
-EXACT = ("full",) + RANK_SEARCHES + MEASUREMENT + STRIDED
-# The TPU probe each variant ports, under the probe's name.
+EXACT = ("full",) + RANK_SEARCHES + MEDIANS + MEASUREMENT + STRIDED
+# The TPU probe each variant ports, under the probe's name (``strided_full``
+# ports none).
 PROBES = {
     "stage_ablate": STAGE_ABLATE,
     "rankpair": RANK_SEARCHES,
-    "rollchain": STRIDED,
+    "rollchain": MEDIANS,
     "deinterleave": ("amp_pairs",),
 }
 _CODE = {name: i for i, name in enumerate(RUN_LAYOUT + MEASUREMENT + STRIDED)}
@@ -115,8 +122,9 @@ def launch_config(variant: str, channels: int) -> dict:
     """How the kernel of `variant` launches at `channels`, from the library itself.
 
     The keys of :func:`.fused_flagger.launch_config`.  A variant of
-    :data:`RUN_LAYOUT` must launch as K1 does; one of :data:`STRIDED` and
-    ``amp_pairs`` as :func:`.fused_flagger.strided_launch_config` says.
+    :data:`RUN_LAYOUT` or :data:`MEASUREMENT` must launch as K1 does;
+    ``strided_full`` and ``amp_pairs`` as
+    :func:`.fused_flagger.strided_launch_config` says.
     Needs a CUDA device.
     """
     code = _AMP_PAIRS if variant == "amp_pairs" else _CODE.get(variant)

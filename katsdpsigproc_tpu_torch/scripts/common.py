@@ -79,6 +79,11 @@ def host_us(fns: dict, calls_each: int = 200) -> dict:
     return out
 
 
+def verdict(gap: float, *spreads: float) -> str:
+    """Whether a gap between two medians exceeds every spread (max - min) given."""
+    return "beyond both" if abs(gap) > max(spreads) else "within"
+
+
 def report(name: str, median: float, samples, card: str) -> None:
     """One variant's median, min and samples in ms, with the card."""
     print(f"{name:12s} med {median:8.3f} ms  min {min(samples):8.3f} ms  "

@@ -90,10 +90,6 @@ def build(vis_t, name: str):
     return out
 
 
-def _verdict(gap: float, *spreads: float) -> str:
-    return "beyond both" if abs(gap) > max(spreads) else "within"
-
-
 def run(vis_t, vis=None, *, iters: int = 3, reps: int = 5, card: str = ""):
     """Time K1, ``strided_full``, the build and K11 on (rows, channels, 2) `vis_t`, K5 + K1 on `vis`.
 
@@ -118,10 +114,10 @@ def run(vis_t, vis=None, *, iters: int = 3, reps: int = 5, card: str = ""):
     gap = med["strided_full"] - med["k1"]
     print(f"k1 / strided_full = {med['k1'] / med['strided_full']:.3f}; gap {gap:.3f} ms against "
           f"spreads k1 {spread['k1']:.3f}, strided_full {spread['strided_full']:.3f} ms: "
-          f"{_verdict(gap, spread['k1'], spread['strided_full'])} [{card}]")
+          f"{common.verdict(gap, spread['k1'], spread['strided_full'])} [{card}]")
     gap = med["full"] - med["k1"]
     print(f"K11 full - k1 = {gap:+.3f} ms against spreads k1 {spread['k1']:.3f}, full "
-          f"{spread['full']:.3f} ms: {_verdict(gap, spread['k1'], spread['full'])} [{card}]")
+          f"{spread['full']:.3f} ms: {common.verdict(gap, spread['k1'], spread['full'])} [{card}]")
     stages = {label: med["full"] - med[name] for label, name in stage_ablate.STAGES}
     print("run-layout stage costs (K11 full less the stand-in): "
           + ", ".join(f"{label} {ms:.3f} ms" for label, ms in stages.items())

@@ -47,13 +47,14 @@ def check_parity(vis_t, runs) -> None:
 
 
 def run(vis_t, *, iters: int = 3, reps: int = 5, card: str = "", runs=RUNS):
-    """Check parity, then time the runs interleaved; print and return ms."""
+    """Check parity, then time the runs interleaved; print them and return the
+    median ms and the samples of each, by name."""
     check_parity(vis_t, runs)
     fns = {name: functools.partial(fp.probe, vis_t, v) for name, v in runs.items()}
     med, samples = profiling.time_interleaved(fns, reps=reps, iters=iters)
     for name in runs:
         common.report(name, med[name], samples[name], card)
-    return med
+    return med, samples
 
 
 def main(argv=None) -> None:

@@ -6,10 +6,12 @@ inventory (:func:`op_inventory`, a copy of
 ``katsdpsigproc_tpu/models/rfi/roofline.py::op_inventory``).  The skeleton
 kernel (``csrc/roofline_skeleton.cu``) runs that inventory on dummy
 amplitudes, with none of the flagger's masks, valid counts or halfway
-corrections, at the launch of the strided layout that K2's strided design and K1's
-stage probes compile (1024 threads, that layout's dynamic shared memory, one CTA
-per SM; :func:`.fused_flagger.strided_launch_config`), so its time can be
-set against the model's:
+corrections, on K1's machine: its run layout (``csrc/ff_runs.cuh``) at
+K1's launch (1024 threads, K1's dynamic shared memory, one CTA per SM;
+:func:`.fused_flagger.launch_config`), up to K1's channel limit.  So its
+time prices K1's design: it is the floor of the K1 that runs, set against
+K11's ``full`` (K1's own code) timed in the same rounds, and against the
+model:
 
 - skeleton ms ~ model ms: the floor is priced right, and K1's time above
   it is real headroom or real work beyond the floor;
@@ -17,9 +19,10 @@ set against the model's:
 - skeleton ms << model ms: a chain folded or the inventory overcounts.
 
 The model is priced with the primitive costs of K8
-(:mod:`.prim_cost`) measured in the same call: no table on disk and no
-default costs (``roofline.py``'s ``prim_ns.json`` and
-``DEFAULT_PRIM_NS`` are not ported).
+(:mod:`.prim_cost`) measured in the same call, at the strided layout's
+occupancy where K8 still runs: no table on disk and no default costs
+(``roofline.py``'s ``prim_ns.json`` and ``DEFAULT_PRIM_NS`` are not
+ported).
 
 Per row of C float32 amplitudes x (``skeleton_block`` :64-112; a channel
 shift by d reads channel c + d, wrapped)::
@@ -85,7 +88,7 @@ def _library(width: int) -> ctypes.CDLL:
 
 def launch_config(channels: int, width: int = 13) -> dict:
     """How the skeleton launches at `channels`: the keys of
-    :func:`.fused_flagger.strided_launch_config`."""
+    :func:`.fused_flagger.launch_config`, which it must equal."""
     lib = _library(width)
     return ff._query_launch_config(lib, lib.rs_launch_config, channels)
 
@@ -218,36 +221,45 @@ def compute_roofline(baselines: int, channels: int, prim_table: Mapping[str, flo
             "block_ns": block_ns, "stage_ns": stage_ns}
 
 
-def run(amp, *, width: int = 13, iters: int = 3, reps: int = 5, card: str = "",
+def run(vis_t, *, width: int = 13, iters: int = 3, reps: int = 5, card: str = "",
         prim_block: Optional[torch.Tensor] = None, prim_steps: int = 512,
         prim_unroll: int = 16) -> Dict[str, object]:
-    """Time the skeleton on (rows, channels) `amp` and set it against the model.
+    """Time the skeleton on the amplitudes of (rows, channels, 2) `vis_t` and
+    set it against the model and K1.
 
     The primitive costs are measured first, in this call, by
     :func:`.prim_cost.measure` on `prim_block` (default: the (256, 1024)
-    block of ``prim_cost``).  Returns the skeleton's median ms, the
-    model's ms, their ratio and the primitive costs.
+    block of ``prim_cost``).  K11's ``full`` (K1's code) on `vis_t` is
+    timed in the skeleton's rounds.  Returns the skeleton's median ms, the
+    model's ms, their ratio, the primitive costs and ``full``'s ms.
     """
+    amp = fp.amp_pairs(vis_t)
     if prim_block is None:
         prim_block = prim_cost.block(256, 1024, amp.device)
     prim_ns = prim_cost.measure(prim_block, steps=prim_steps, unroll=prim_unroll, iters=iters,
                                 reps=reps, card=card)
-    med, samples = profiling.time_interleaved(
-        {"skeleton": functools.partial(skeleton, amp, width=width)}, reps=reps, iters=iters)
+    fns = {"skeleton": functools.partial(skeleton, amp, width=width),
+           "full": functools.partial(fp.probe, vis_t, "full", width=width)}
+    med, samples = profiling.time_interleaved(fns, reps=reps, iters=iters)
     rows, channels = amp.shape
     ms = med["skeleton"]
     model = compute_roofline(rows, channels, prim_ns, width=width,
                              rows=prim_block.numel() // 1024)
     model_ms = model["seconds_per_dump"] * 1e3
-    common.report("skeleton", ms, samples["skeleton"], card)
-    print(f"skeleton: {ms:.3f} ms over {rows} rows x {channels} channels, one launch [{card}]")
+    for name in fns:
+        common.report(name, med[name], samples[name], card)
+    print(f"skeleton: {ms:.3f} ms over {rows} rows x {channels} channels, one launch at K1's; "
+          f"K11 full (K1's code) {med['full']:.3f} ms, skeleton / full = "
+          f"{ms / med['full']:.3f} [{card}]")
     print(f"model:    {model_ms:.3f} ms (block_ns={model['block_ns']:.1f}, primitive costs "
-          f"measured in this call at {tuple(prim_block.shape)}; stages "
+          f"measured by K8 in this call at {tuple(prim_block.shape)}, at the strided layout's "
+          f"occupancy; stages "
           + ", ".join(f"{k} {v * rows * channels / prim_block.numel() * 1e-6:.3f} ms"
                       for k, v in model["stage_ns"].items()) + ")")
     print(f"skeleton/model = {ms / model_ms:.3f}  (~1: floor priced right; >>1: costs not "
           f"additive; <<1: chain folded / inventory overcounts)")
-    return {"skeleton_ms": ms, "model_ms": model_ms, "ratio": ms / model_ms, "prim_ns": prim_ns}
+    return {"skeleton_ms": ms, "model_ms": model_ms, "ratio": ms / model_ms, "prim_ns": prim_ns,
+            "full_ms": med["full"]}
 
 
 def main(argv=None) -> None:
@@ -256,9 +268,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     card = common.require_card()
     vis_t = common.dump_on_card(args.channels, args.baselines).transpose(0, 1).contiguous()
-    amp = fp.amp_pairs(vis_t)
-    del vis_t
-    run(amp, width=args.width, iters=args.iters, reps=args.reps, card=card)
+    run(vis_t, width=args.width, iters=args.iters, reps=args.reps, card=card)
 
 
 if __name__ == "__main__":

@@ -27,6 +27,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from katsdpsigproc_tpu.models.rfi import roofline
+from katsdpsigproc_tpu_torch.models.rfi import flagger_probe as fp
 from katsdpsigproc_tpu_torch.scripts import prim_cost, roofline_skeleton as rsk
 
 from .test_torch_probes import _script
@@ -230,12 +231,26 @@ def test_model_arithmetic_is_compute_roofline():
 
 
 def test_k10_run_on_cpu_tensors(capsys):
-    amp = torch.from_numpy(_amplitudes("uniform", 64))
-    result = rsk.run(amp, iters=1, reps=1, card="cpu", prim_block=torch.from_numpy(_block(4, 256)),
-                     prim_steps=1, prim_unroll=1)
+    vis_t = torch.from_numpy(np.random.RandomState(3).uniform(0.0, 1.0, (4, 64, 2))
+                             .astype(np.float32))
+    result = rsk.run(vis_t, iters=1, reps=1, card="cpu",
+                     prim_block=torch.from_numpy(_block(4, 256)), prim_steps=1, prim_unroll=1)
     assert result["ratio"] == result["skeleton_ms"] / result["model_ms"]
     assert set(result["prim_ns"]) == set(prim_cost.BODIES)
     assert "skeleton/model" in capsys.readouterr().out
+
+
+def test_k10_run_beside_k11_full_on_cpu_tensors(capsys):
+    """With the dump's pairs, the tool times K11's ``full`` in the skeleton's
+    rounds and prints the skeleton's ratio to it."""
+    rs = np.random.RandomState(4)
+    vis_t = torch.from_numpy(rs.standard_normal((4, 64, 2)).astype(np.float32))
+    before = dict(fp.launches)
+    result = rsk.run(vis_t, iters=1, reps=1, card="cpu",
+                     prim_block=torch.from_numpy(_block(4, 256)), prim_steps=1, prim_unroll=1)
+    assert result["full_ms"] > 0 and result["ratio"] == result["skeleton_ms"] / result["model_ms"]
+    assert fp.launches == before  # no kernel on the CPU
+    assert "skeleton / full = " in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("tool", [prim_cost, rsk])

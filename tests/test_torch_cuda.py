@@ -374,7 +374,7 @@ def _probe():
 @pytest.mark.parametrize("channels,rows", [(99, 8), (300, 8), (2048, 6), (32768, 2)])
 @pytest.mark.parametrize("variant", ["full", "no_median", "no_rank", "no_thresh", "skeleton",
                                      "rank_pair", "zeros_fold", "shfl_median", "radix_select",
-                                     "strided_full", "radix_match_any"])
+                                     "strided_full", "radix_match_any", "window_median"])
 def test_probe_matches_plain(cuda, variant, channels, rows):
     fp = _probe()
     vis_t, _ = _dump(channels, rows, seed=channels + rows)
@@ -388,9 +388,9 @@ def test_probe_matches_plain(cuda, variant, channels, rows):
 
 @pytest.mark.parametrize("channels", [13, 1023, 1025, 2080])
 def test_exact_probes_match_k1_at_tile_edges(cuda, channels):
-    """1023/1025/2080 channels put warp and tile edges inside and beside
-    the median's halo, where shfl_median switches between shuffles and
-    shared-memory loads."""
+    """1023/1025/2080 channels put warp and tile edges beside the median's
+    reach, where shfl_median and window_median switch between their own
+    members and K1's per-channel path."""
     fp = _probe()
     vis_t, _ = _dump(channels, 5, seed=channels)
     vis_t = vis_t.to(cuda)
@@ -402,9 +402,11 @@ def test_exact_probes_match_k1_at_tile_edges(cuda, channels):
 
 @pytest.mark.parametrize("channels", _EDGE_CHANNELS[1:])  # the probes take C >= width
 def test_run_layout_probes_at_k1s_edges(cuda, channels):
-    """K11 and K13 at K1's run-layout edge shapes and its channel limit,
+    """K9, K11 and K13 at K1's run-layout edge shapes and its channel limit,
     widths 5, 13 and 31, rows holding NaN and +inf: every variant equals its
-    plain version, and the bit-exact ones K1."""
+    plain version, and the bit-exact ones K1.  For window_median's
+    4096-channel tiles, 4097 and 32768 put a row's last channels in a tile
+    of their own and at a tile's end, 1023-1025 in one partial tile."""
     fp = _probe()
     if channels == "limit":
         channels = ff.max_channels()
@@ -438,7 +440,7 @@ def test_amp_pairs_matches_plain(cuda, channels, rows):
 
 
 def test_probes_launch_as_k1_does(cuda):
-    """K11 and K13 launch as K1 does, on its run layout: 1024 threads and
+    """K9, K11 and K13 launch as K1 does, on its run layout: 1024 threads and
     K1's dynamic shared memory (151840 B at 32768 channels) at every size,
     and at 32768 channels one CTA per SM (at 128 channels the registers
     set the occupancy, and they differ by variant)."""
@@ -458,7 +460,7 @@ def test_probes_launch_as_k1_does(cuda):
 
 
 def test_strided_probes_launch_as_k2s_strided_design_does(cuda):
-    """K9, `strided_full` and K12 launch as K2's strided design does (the
+    """`strided_full` and K12 launch as K2's strided design does (the
     strided layout), one CTA per SM at 32768 channels."""
     fp = _probe()
     for channels in (128, 32768):
@@ -491,11 +493,13 @@ def test_probe_launch_counts_and_errors(cuda):
         fp.probe(torch.zeros((64, 4, 2), device=cuda).transpose(0, 1), "full")
     with pytest.raises(ValueError, match="contiguous"):
         fp.amp_pairs(torch.zeros((64, 4, 2), device=cuda).transpose(0, 1))
-    # Each layout's own limit: K11 and K13 take K1's, K9 and K12 the strided one.
-    run_limit, strided_limit = ff.max_channels(), fp.max_channels("shfl_median")
+    # Each layout's own limit: K9, K11 and K13 take K1's, `strided_full` and
+    # K12 the strided one.
+    run_limit, strided_limit = ff.max_channels(), fp.max_channels("strided_full")
     assert fp.max_channels("skeleton") == run_limit > 50000 > strided_limit
+    assert fp.max_channels("shfl_median") == fp.max_channels("window_median") == run_limit
     assert fp.max_channels("amp_pairs") == strided_limit
-    for variant in ("skeleton", "radix_select"):
+    for variant in ("skeleton", "radix_select") + fp.MEDIANS:
         with pytest.raises(ValueError, match="limit"):
             fp.probe(torch.zeros((1, run_limit + 1, 2), device=cuda), variant)
     for variant in fp.STRIDED:
@@ -675,37 +679,47 @@ def _amplitudes(kind, rows, channels, seed):
     return amp
 
 
-@pytest.mark.parametrize("channels,rows,width", [(257, 8, 13), (1023, 4, 13), (1025, 4, 13),
-                                                 (2080, 3, 13), (32768, 2, 13), (13, 3, 13),
-                                                 (12, 3, 5), (300, 4, 31)])
+# K10 on K1's run layout: one tile and partial tiles (12 .. 1025), runs
+# shorter than the dilation's reach (C <= 10240: the plainer path) and not
+# (10241: a last run of 1 channel, 32768, the limit).
+_SKELETON_CHANNELS = (12, 13, 99, 257, 1023, 1024, 1025, 10240, 10241, 32768, "limit")
+
+
+@pytest.mark.parametrize("channels", _SKELETON_CHANNELS)
 @pytest.mark.parametrize("kind", ["uniform", "dips"])
-def test_skeleton_matches_plain(cuda, channels, rows, width, kind):
-    """The uint8 output and the rank carry, at the JAX scale 0.5 (output 0)
-    and at scale 1 (the output is the dilated flags)."""
+def test_skeleton_matches_plain(cuda, channels, kind):
+    """The uint8 output and the rank carry, widths 5, 13 and 31, at the JAX
+    scale 0.5 (output 0) and at scale 1 (the output is the dilated flags)."""
     _, rsk = _cost()
+    if channels == "limit":
+        channels = ff.max_channels()
+    rows = 3 if channels > 4096 else 6
     amp = torch.from_numpy(_amplitudes(kind, rows, channels, channels)).to(cuda)
-    for scale in (0.5, 1.0):
-        before = rsk.launches["skeleton"]
-        out, rank = rsk.skeleton(amp, width=width, flag_scale=scale, return_rank=True)
-        torch.cuda.synchronize()
-        assert rsk.launches["skeleton"] == before + 1
-        want_out, want_rank = rsk.skeleton_plain(amp, width=width, flag_scale=scale,
-                                                 return_rank=True)
-        assert torch.equal(out, want_out), scale
-        assert torch.equal(rank.view(torch.int32), want_rank.view(torch.int32)), scale
-        assert torch.equal(rsk.skeleton(amp, width=width, flag_scale=scale), out)
+    for width in (w for w in (5, 13, 31) if w <= channels):
+        for scale in (0.5, 1.0):
+            before = rsk.launches["skeleton"]
+            out, rank = rsk.skeleton(amp, width=width, flag_scale=scale, return_rank=True)
+            torch.cuda.synchronize()
+            assert rsk.launches["skeleton"] == before + 1
+            want_out, want_rank = rsk.skeleton_plain(amp, width=width, flag_scale=scale,
+                                                     return_rank=True)
+            assert torch.equal(out, want_out), (width, scale, int((out != want_out).sum()))
+            assert torch.equal(rank.view(torch.int32), want_rank.view(torch.int32)), (width, scale)
+            assert torch.equal(rsk.skeleton(amp, width=width, flag_scale=scale), out)
 
 
 def test_skeleton_launches_as_k1(cuda):
+    """K10 launches as K1 does (1024 threads, K1's dynamic shared memory,
+    one CTA per SM at 32768 channels) and takes K1's channel limit."""
     _, rsk = _cost()
-    for channels in (128, 32768):
-        strided = ff.strided_launch_config(channels)  # the layout K10 compiles
+    for channels in (128, 32768, ff.max_channels()):
+        k1 = ff.launch_config(channels)
         cfg = rsk.launch_config(channels)
-        assert (cfg["threads"] == strided["threads"]
-                and cfg["smem_bytes"] == strided["smem_bytes"]), cfg
-    assert rsk.launch_config(32768)["ctas_per_sm"] == 1
+        assert cfg["threads"] == k1["threads"] and cfg["smem_bytes"] == k1["smem_bytes"], cfg
+        if channels == 32768:
+            assert cfg == k1 and cfg["ctas_per_sm"] == 1, (cfg, k1)
     with pytest.raises(ValueError, match="limit"):
-        rsk.skeleton(torch.zeros((1, 50000), device=cuda))
+        rsk.skeleton(torch.zeros((1, ff.max_channels() + 1), device=cuda))
 
 
 def test_time_queued_times_the_card_not_the_launches(cuda):

@@ -3,9 +3,11 @@ the CPU, where each wrapper takes its plain PyTorch version, against the
 TPU probes of ``scripts/`` run in interpret mode.
 
 The JAX scripts are loaded by path, unedited.  K11 (``stage_ablate``), K13
-(``rankpair_ab``) and K9 (``rollchain_ab``) run their Pallas kernels with
-``interpret=True`` at 8 rows of 256 and 257 channels (257 flips the right
-edge's fill parity); K12 (``deinterleave_probe``) hard-codes the TPU's
+(``rankpair_ab``) and K9 (``rollchain_ab``: its "direct" median against
+``full`` and ``strided_full``, its "chained" one against ``shfl_median``
+and ``window_median``) run their Pallas kernels with ``interpret=True`` at
+8 rows of 256 and 257 channels (257 flips the right edge's fill parity);
+K12 (``deinterleave_probe``) hard-codes the TPU's
 compiler parameters and has no interpret path, so the port is held to
 the script's own numpy expectation (``deinterleave_probe.py:88-92``).
 ``radix_select``'s search, step by step in PyTorch
@@ -112,7 +114,8 @@ def test_rankpair_matches_the_tpu_probe(scripts, variant, kw, channels):
 
 @pytest.mark.parametrize("channels", [256, 257])
 @pytest.mark.parametrize("variant,median", [("full", "direct"), ("strided_full", "direct"),
-                                           ("shfl_median", "chained")])
+                                           ("shfl_median", "chained"),
+                                           ("window_median", "chained")])
 def test_rollchain_matches_the_tpu_probe(scripts, variant, median, channels):
     module = scripts["rollchain_ab"]
     fn = jpf._median_parity_fill if median == "direct" else module._median_incremental
@@ -251,13 +254,17 @@ def test_radix_select_flags_equal_k1_on_nan_and_inf_rows():
 
 def test_variants_and_probes_cover_each_other():
     named = [v for variants in fp.PROBES.values() for v in variants]
-    assert sorted(named) == sorted(fp.VARIANTS + ("amp_pairs",))
-    assert set(fp.launches) == set(named) | set(fp.MEASUREMENT)
+    assert sorted(named + list(fp.STRIDED)) == sorted(fp.VARIANTS + ("amp_pairs",))
+    assert set(fp.launches) == set(named) | set(fp.STRIDED) | set(fp.MEASUREMENT)
     assert set(fp.EXACT) <= set(fp.VARIANTS + fp.MEASUREMENT)
-    # K11 and K13 on K1's run layout, K9 and its "before" on the strided one.
-    assert fp.RUN_LAYOUT == fp.PROBES["stage_ablate"] + fp.PROBES["rankpair"]
-    assert fp.STRIDED == fp.PROBES["rollchain"]
+    # K11, K13 and K9 on K1's run layout; K1's strided design, k1_ab's
+    # "before", on the strided one.
+    assert fp.RUN_LAYOUT == (fp.PROBES["stage_ablate"] + fp.PROBES["rankpair"]
+                             + fp.PROBES["rollchain"])
+    assert fp.PROBES["rollchain"] == fp.MEDIANS and set(fp.MEDIANS) <= set(fp.EXACT)
+    assert fp.STRIDED == ("strided_full",)
     assert fp.VARIANTS == fp.RUN_LAYOUT + fp.STRIDED
+    assert rollchain_ab.RUNS == ("full",) + fp.MEDIANS
 
 
 def test_probe_validation():
@@ -327,12 +334,15 @@ def test_probe_tools_run_on_cpu_tensors(capsys):
     med, stages = stage_ablate.run(vis_t, iters=1, reps=2, card="cpu")
     assert set(med) == set(fp.STAGE_ABLATE) and set(stages) == {"median", "rank", "threshold"}
     assert stages["rank"] == med["full"] - med["no_rank"]
-    assert set(rankpair_ab.run(vis_t, iters=1, reps=1, card="cpu")) == set(rankpair_ab.RUNS)
-    assert set(rollchain_ab.run(vis_t, iters=1, reps=1, card="cpu")) == {"direct", "shfl"}
+    med, samples = rankpair_ab.run(vis_t, iters=1, reps=1, card="cpu")
+    assert set(med) == set(samples) == set(rankpair_ab.RUNS)
+    assert set(rollchain_ab.run(vis_t, iters=1, reps=1, card="cpu")) == set(rollchain_ab.RUNS)
     dein = deinterleave_probe.run(vis, iters=1, reps=1, card="cpu")
     assert set(dein) == {"baseline-major", "channel-major", "K5 + baseline", "K5 alone"}
     out = capsys.readouterr().out
     assert "parity: all variants == binary (bit-exact)" in out
+    assert "parity: all variants == full (bit-exact)" in out
+    assert "window_median - full = " in out and "shfl_median - full = " in out
     assert "stage rank" in out and "[cpu]" in out
 
 
