@@ -12,12 +12,15 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
 2. build: builds the kernel libraries with one ``nvcc`` each, all
    started together (with K1's measurement build of
    ``scripts/k1_ab.py``), and prints the build time and nvcc's register
-   report; K1's ``flagger_kernel``, K2's ``madnz_threshold_kernel``, every
-   instance of K4's ``percentile5_radix_kernel``, every K9, K11 and K13
-   instance of ``flagger_probe.cu``'s ``probe_kernel`` and K10's
-   ``skeleton_kernel`` must spill no bytes, and the SASS local loads and
-   stores of K1, of each K9, K11 and K13 instance and of K10 are counted
-   (``cuobjdump -sass``);
+   report; K1's ``flagger_kernel`` and its wide-row path
+   (``flagger_wide_kernel``, with K2's ``madnz_threshold_wide_kernel``) at
+   width 13 and at each of :data:`WIDE_WIDTHS`, K2's
+   ``madnz_threshold_kernel``, every instance of K4's
+   ``percentile5_radix_kernel``, every K9, K11, K13 and ``channel_major``
+   instance of ``flagger_probe.cu``'s ``probe_kernel``, each build of K12
+   (clusters of 1, 2, 4 and 8 rows, baseline-major, its earlier design) and
+   K10's ``skeleton_kernel`` must spill no bytes, and the SASS local loads
+   and stores of each are counted (``cuobjdump -sass``);
 3. each kernel against its plain PyTorch version on the card, exact on
    the uint8 flags: K1 in every flag mode at the edge shapes of its run
    layout (1, 13, 99, 257, 1023, 1024, 1025, 4097 and 32768 channels and
@@ -25,7 +28,13 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
    rows holding NaN; K2, which now has K1's layout, on the same
    deviations at every one of those shapes, and on deviations K1 never
    makes (NaN, +-inf, -0, denormals, all-zero rows) at the same shapes,
-   also against K2's strided design where its layout holds the row;
+   also against K2's strided design where its layout holds the row; K1 in
+   every flag mode and K2 on the wide-row path at the limit + 1, 65536,
+   65537 and 131072 channels; K1 at the widths :data:`WIDE_WIDTHS`, on
+   both sides of the switch from a network over registers to counted
+   ranks and on the wide-row path; then K1 and K2 on the wide-row path
+   over the seed-1 dump of 65536 channels x 2016 rows, against their
+   plain versions and each other, timed;
 4. the numpy host oracle on the 512 x 64 subsample of the seed-1 dump,
    through K1 and through the hybrid engine (plain background, then K2);
 5. the main path at full size: the MeerKAT 4-pol dump (32768 channels x
@@ -55,15 +64,21 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
 8. K1's stage probes (``csrc/flagger_probe.cu``): each variant's launch
    configuration as the libraries report it, K9's, K11's and K13's equal
    to K1's (the run layout: 1024 threads, K1's shared memory, one CTA per
-   SM), ``strided_full``'s and K12's equal to K2's strided design's;
-   every variant against its plain version, exact, at several shapes and
-   on 512 rows of the dump; on the whole dump, ``full``, ``rank_pair``,
-   ``zeros_fold``, ``radix_select``, ``shfl_median``, ``window_median``
-   and ``strided_full`` against K1, every ``stage_ablate`` variant against
-   its plain version, and ``amp_pairs`` in both layouts against the plain
+   SM), and K12's too, with the clusters of each of its builds that fit
+   the card; ``strided_full``'s and K12's earlier design's equal to K2's
+   strided design's; every variant against its plain version, exact, at
+   several shapes and on 512 rows of the dump; on the whole dump,
+   ``full``, ``rank_pair``, ``zeros_fold``, ``radix_select``,
+   ``shfl_median``, ``window_median``, ``channel_major`` (reading the
+   channel-major dump in place) and ``strided_full`` against K1, every
+   ``stage_ablate`` variant against its plain version, and ``amp_pairs`` in
+   both layouts and every build, and its earlier design, against the plain
    amplitude; then the profiling path, the four probe tools' ``run`` on the
-   whole dump with the launch counts read, which prints the stage costs
-   and each K9 variant less ``full`` against both spreads; K1's measurement
+   whole dump with the launch counts read, which prints the stage costs,
+   each K9 variant less ``full`` against both spreads and, from
+   ``deinterleave_probe``, K12's builds, K5, K1, K5 + K1 and
+   ``channel_major`` interleaved, with ``channel_major`` less K5 + K1
+   against both spreads; K1's measurement
    build against its plain version and K1; ``scripts/k1_ab``: K1 against
    ``strided_full``, the K5 + K1 call, the build and K11's ``full`` and
    stand-ins, 5 interleaved rounds of 3 calls, with each one's median and
@@ -109,6 +124,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 CHANNELS, BASELINES, POLS = 32768, 2016, 4
+# K1's widths beyond the 31 of earlier builds: both sides of
+# ff.REGISTER_MAX_WIDTH (49), the run layout's in-place median near its
+# widest (65) and one on the wide-row path.
+WIDE_WIDTHS = (33, 35, 49, 51, 63, 101)
+# The wide-row path's timed dump: 65536 channels x 2016 rows.
+WIDE_CHANNELS, WIDE_ROWS = 65536, 2016
 SOURCES = {
     "flagger": "katsdpsigproc_tpu_torch/csrc/fused_flagger.cu",
     "madnz_threshold": "katsdpsigproc_tpu_torch/csrc/fused_flagger.cu",
@@ -309,6 +330,7 @@ def phase_build(ff, pct, tr, fp, kernels) -> None:
     with ThreadPoolExecutor(8) as pool:
         builds = [pool.submit(ff._library, 13), pool.submit(pct._library),
                   pool.submit(tr._library), pool.submit(fp._library, 13),
+                  *(pool.submit(ff._library, w) for w in WIDE_WIDTHS),
                   pool.submit(triple._library), pool.submit(prim_cost._library),
                   pool.submit(roofline_skeleton._library, 13)]
         builds += [pool.submit(k1_ab._library, name) for name in k1_ab.BUILDS]
@@ -323,32 +345,50 @@ def phase_build(ff, pct, tr, fp, kernels) -> None:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"  nvcc: {line.strip()}")
-    # K1 at __launch_bounds__(1024, 1), a cap of 64 registers: no spills.
-    k1_key = kernels.build_key("fused_flagger", ["fused_flagger.cu"],
-                               {"ff_network.h": ff._network_header(13)})
-    k1 = {re.sub(r".*flagger_kernelILi(\d)E.*", r"flagger_kernel<\1>", name): r
-          for name, r in ptxas_report(kernels.build_info[k1_key]["log"]).items()
-          if "flagger_kernelILi" in name}
-    for name, r in sorted(k1.items()):
-        print(f"  K1 {name}: {r.get('registers')} registers, {r['stack']} B stack frame, "
-              f"{r['spill_stores']} B spill stores, {r['spill_loads']} B spill loads")
-    if len(k1) != 3 or any(r["spill_stores"] or r["spill_loads"] for r in k1.values()):
-        raise AssertionError(f"K1's flagger_kernel spills or is missing from the report: {k1}")
-    # Local memory beyond spills: an array indexed at run time (the kernel
-    # parameters' copy for the window scales is one; SumThreshold's chunk
-    # sums must not be).
+    # K1 at __launch_bounds__(1024, 1), a cap of 64 registers: no spills, at
+    # width 13 and at each wide width built (the median's members in
+    # registers up to ff.REGISTER_MAX_WIDTH, counted from memory above it),
+    # on the run layout and on the wide-row path, and K2 on the wide-row
+    # path.  Local memory beyond spills: an array indexed at run time (the
+    # kernel parameters' copy for the window scales is one; SumThreshold's
+    # chunk sums must not be).
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass", str(kernels.BUILD_DIR / k1_key /
-                                                   "libfused_flagger.so")],
-                          capture_output=True, text=True).stdout
-    for part in sass.split("Function : ")[1:]:
-        name = re.sub(r".*flagger_kernelILi(\d)E.*", r"flagger_kernel<\1>", part.split("\n")[0])
-        if name.startswith("flagger_kernel<"):
-            print(f"  K1 {name} SASS: {len(re.findall(r'LDL', part))} local loads, "
-                  f"{len(re.findall(r'STL', part))} local stores")
-    # K9, K11 and K13, K1 with one stage replaced at K1's launch bounds, and
-    # K10 on K1's run layout: no spills, and their SASS's local loads and
-    # stores beside K1's.
+
+    def k1_name(mangled: str):
+        m = re.search(r"(flagger(?:_wide)?_kernel)ILi(\d)E", mangled)
+        if m:
+            return f"{m.group(1)}<{m.group(2)}>"
+        return "madnz_threshold_wide_kernel" if "madnz_threshold_wide_kernel" in mangled else None
+
+    for width in (13,) + WIDE_WIDTHS:
+        k1_key = kernels.build_key("fused_flagger", ["fused_flagger.cu"],
+                                   {"ff_network.h": ff._network_header(width)})
+        k1 = {k1_name(name): r
+              for name, r in ptxas_report(kernels.build_info[k1_key]["log"]).items()
+              if k1_name(name)}
+        sass = subprocess.run([cuobjdump, "-sass", str(kernels.BUILD_DIR / k1_key /
+                                                       "libfused_flagger.so")],
+                              capture_output=True, text=True).stdout
+        local = {k1_name(part.split("\n")[0]): (len(re.findall(r"LDL", part)),
+                                                len(re.findall(r"STL", part)))
+                 for part in sass.split("Function : ")[1:] if k1_name(part.split("\n")[0])}
+        median = "network" if width <= ff.REGISTER_MAX_WIDTH else "counted ranks"
+        for name, r in sorted(k1.items()):
+            lds, sts = local.get(name, (None, None))
+            print(f"  K1 width {width} ({median}) {name}: {r.get('registers')} registers, "
+                  f"{r['stack']} B stack frame, {r['spill_stores']} B spill stores, "
+                  f"{r['spill_loads']} B spill loads; SASS {lds} local loads, {sts} local stores")
+        if len(k1) != 7 or any(r["spill_stores"] or r["spill_loads"] for r in k1.values()):
+            raise AssertionError(f"K1 at width {width} spills or is missing from the report: {k1}")
+        if width == 13:
+            k1_13 = k1_key
+    if ff._library(13).ff_max_in_place_width() != ff.IN_PLACE_MAX_WIDTH:
+        raise AssertionError("the run layout's widest in-place median is not "
+                             "ff.IN_PLACE_MAX_WIDTH")
+    # K9, K11, K13 and `channel_major`, K1 with one stage replaced at K1's
+    # launch bounds, K10 on K1's run layout and K12 in each of its builds
+    # (clusters of 1, 2, 4 and 8 rows) and its earlier design: no spills,
+    # and their SASS's local loads and stores beside K1's.
     fp_key = kernels.build_key("flagger_probe", ["flagger_probe.cu"],
                                {"ff_network.h": ff._network_header(13)})
     rs_key = kernels.build_key("roofline_skeleton", ["roofline_skeleton.cu"],
@@ -357,9 +397,17 @@ def phase_build(ff, pct, tr, fp, kernels) -> None:
     names = {code: name for name, code in fp._CODE.items()}
 
     def probe_variant(mangled: str):
-        m = re.search(r"probe_kernelILi(\d+)E", mangled)
+        m = re.search(r"probe_kernelILi(\d+)ELi(\d)E", mangled)
         if m:
-            return names[int(m.group(1))]
+            name = names[int(m.group(1))]
+            return f"{name}<{m.group(2)}>" if name in fp.INPLACE else name
+        layout = {"1": "channel-major", "0": "baseline-major"}
+        m = re.search(r"amp_pairs_kernelILi(\d)ELb([01])E", mangled)
+        if m:
+            return f"amp_pairs<{m.group(1)}, {layout[m.group(2)]}>"
+        m = re.search(r"amp_pairs_strided_kernelILb([01])E", mangled)
+        if m:
+            return f"amp_pairs_strided<{layout[m.group(1)]}>"
         return "skeleton_kernel" if "skeleton_kernel" in mangled else None
 
     reports, local = {}, {}
@@ -373,24 +421,31 @@ def phase_build(ff, pct, tr, fp, kernels) -> None:
                                                            len(re.findall(r"STL", part)))
                       for part in sass.split("Function : ")[1:]})
     probe_id = {v: kid for kid, probe in (("K11", "stage_ablate"), ("K13", "rankpair"),
-                                          ("K9", "rollchain")) for v in fp.PROBES[probe]}
-    checked = fp.RUN_LAYOUT + fp.MEASUREMENT + ("skeleton_kernel",)
+                                          ("K9", "rollchain"), ("K12", "deinterleave"))
+                for v in fp.PROBES[probe]}
+    k12 = ([f"amp_pairs<{g}, channel-major>" for g in fp.CLUSTERS]
+           + ["amp_pairs<1, baseline-major>", "amp_pairs_strided<channel-major>",
+              "amp_pairs_strided<baseline-major>"])
+    inplace = tuple(f"{v}<{g}>" for v in fp.INPLACE for g in fp.CLUSTERS)
+    checked = (tuple(v for v in fp.RUN_LAYOUT if v not in fp.INPLACE) + inplace + fp.MEASUREMENT
+               + ("skeleton_kernel",) + tuple(k12))
     for v in checked:
         r = reports.get(v, {})
         lds, sts = local.get(v, (None, None))
-        label = "K10 skeleton_kernel" if v == "skeleton_kernel" else (
-            f"{probe_id.get(v, 'K13')} probe_kernel<{v}>")
+        label = ("K10 skeleton_kernel" if v == "skeleton_kernel" else f"K12 {v}" if v in k12
+                 else f"K12 probe_kernel<{v}>" if v in inplace
+                 else f"{probe_id.get(v, 'K13')} probe_kernel<{v}>")
         print(f"  {label}: {r.get('registers')} registers, {r.get('stack')} B stack frame, "
               f"{r.get('spill_stores')} B spill stores, {r.get('spill_loads')} B spill loads; "
               f"SASS {lds} local loads, {sts} local stores")
     if (set(checked) - set(reports)
             or any(reports[v]["spill_stores"] or reports[v]["spill_loads"] for v in checked)):
-        raise AssertionError(f"a K9, K10, K11 or K13 instance spills or is missing from the "
-                             f"report: {reports}")
+        raise AssertionError(f"a K9, K10, K11, K12 or K13 instance spills or is missing from "
+                             f"the report: {reports}")
     # K2 and K4 (and K2's strided design, K4's measurement builds and its
     # original design, printed): no spills either.
     pct_key = kernels.build_key("percentile", ["percentile.cu"], {})
-    report = {kernel_label(name): r for key in (k1_key, pct_key)
+    report = {kernel_label(name): r for key in (k1_13, pct_key)
               for name, r in ptxas_report(kernels.build_info[key]["log"]).items()
               if "madnz_threshold" in name or "percentile5" in name}
     for name, r in sorted(report.items()):
@@ -401,8 +456,9 @@ def phase_build(ff, pct, tr, fp, kernels) -> None:
     if ("madnz_threshold_kernel" not in checked or len(checked) < 2
             or any(r["spill_stores"] or r["spill_loads"] for r in checked.values())):
         raise AssertionError(f"K2 or K4 spills or is missing from the report: {checked}")
-    print(f"  K1 and K2 take rows of up to {ff.max_channels()} channels "
-          f"(the strided layout: {ff._library(13).ff_strided_max_channels()})")
+    print(f"  K1 and K2 take rows of up to {ff.max_channels()} channels on the run layout, "
+          f"longer ones on the wide-row path ({ff._library(13).ff_wide_ctas()} CTAs); the "
+          f"strided layout holds {ff._library(13).ff_strided_max_channels()}")
 
 
 def phase_kernels(ff, device, check: Check) -> None:
@@ -458,7 +514,114 @@ def phase_kernels(ff, device, check: Check) -> None:
         for pkw in ({}, {"n_windows": 6}):
             check.flags("flagger", f"K1 NaN rows C={channels} {pkw or ''}".rstrip(),
                         ff.flag_transposed(vis_t, **pkw), ff.flag_transposed_plain(vis_t, **pkw))
+    # The wide-row path: rows longer than the run layout holds (just past its
+    # limit, 65536 and 65537 channels, 131072), every flag mode, a NaN in a
+    # row; K2 on the same rows' deviations and on deviations K1 never makes.
+    for name in ff.wide_launches:
+        ff.wide_launches[name] = 0
+    for channels in (limit + 1, 65536, 65537, 131072):
+        vis, flags = test_dump(channels, 3, seed=channels % 997)
+        vis_t = torch.from_numpy(device.to_planar(vis.T).copy()).cuda()  # (rows, C, 2)
+        flags_t = torch.from_numpy(flags.T.copy()).cuda()
+        chan = torch.from_numpy(flags[:, 0].copy()).cuda()
+        vis_nan = vis_t.clone()
+        vis_nan[1, channels // 2, 0] = float("nan")  # without input flags, as above
+        for mode, x, fkw in (("none", vis_nan, {}), ("full", vis_t, {"input_flags": flags_t}),
+                             ("channel", vis_t, {"channel_flags": chan})):
+            for pkw in ({}, {"n_windows": 6, "flag_value": 3}):
+                check.flags("flagger", f"K1 wide row C={channels} {mode} {pkw or ''}".rstrip(),
+                            ff.flag_transposed(x, **fkw, **pkw),
+                            ff.flag_transposed_plain(x, **fkw, **pkw))
+        dev_t = device.background_median_filter(
+            vis_t.transpose(0, 1), None, 13, False,
+            device.BackgroundFlags.NONE).transpose(0, 1).contiguous()
+        adversarial = torch.from_numpy(k2_ab.adversarial_deviations(8, channels, 500)).cuda()
+        for label, d in (("deviations", dev_t), ("NaN, +-inf, -0, denormal, zero rows",
+                                                 adversarial)):
+            for pkw in ({}, {"n_sigma": 5.0, "n_windows": 6, "flag_value": 3}):
+                check.flags("madnz_threshold", f"K2 wide row C={channels} {label} {pkw or ''}"
+                            .rstrip(), ff.madnz_threshold(d, **pkw),
+                            ff.madnz_threshold_plain(d, **pkw))
+    # Windows wider than 31: the network over registers up to
+    # ff.REGISTER_MAX_WIDTH, ranks counted from shared memory up to
+    # ff.IN_PLACE_MAX_WIDTH, the wide-row path beyond; rows shorter than a
+    # window (40), a last run cut short (1025, 4097), a NaN.
+    for width in WIDE_WIDTHS:
+        for channels in (40, 1025, 4097):
+            vis, flags = test_dump(channels, 4, seed=width + channels)
+            vis_t = torch.from_numpy(device.to_planar(vis.T).copy()).cuda()
+            flags_t = torch.from_numpy(flags.T.copy()).cuda()
+            chan = torch.from_numpy(flags[:, 0].copy()).cuda()
+            vis_nan = vis_t.clone()
+            if channels >= width:  # NaN through the fast median only, as above
+                vis_nan[3, channels // 3, 0] = float("nan")
+            for mode, x, fkw in (("none", vis_nan, {}), ("full", vis_t, {"input_flags": flags_t}),
+                                 ("channel", vis_t, {"channel_flags": chan})):
+                check.flags("flagger", f"K1 width {width} C={channels} {mode}",
+                            ff.flag_transposed(x, width=width, **fkw),
+                            ff.flag_transposed_plain(x, width=width, **fkw))
     torch.cuda.synchronize()
+    print(f"  launches on the wide-row path: {dict(ff.wide_launches)}")
+    if min(ff.wide_launches.values()) < 1:
+        raise AssertionError("the wide-row path was not launched")
+
+
+def phase_wide(ff, device, card: str, check: Check) -> dict:
+    """K1 and K2 on the wide-row path over a dump of WIDE_CHANNELS x WIDE_ROWS."""
+    from katsdpsigproc_tpu_torch.scripts import k2_ab
+    from katsdpsigproc_tpu_torch.scripts.common import meerkat_dump
+    from katsdpsigproc_tpu_torch.utils.profiling import time_fn
+
+    t0 = time.perf_counter()
+    vis = torch.from_numpy(device.to_planar(meerkat_dump(WIDE_CHANNELS, WIDE_ROWS))).cuda()
+    print(f"the wide-row path on the seed-1 dump of {WIDE_CHANNELS} channels x {WIDE_ROWS} rows "
+          f"({vis.numel() * 4 / 1e9:.2f} GB planar, made in {time.perf_counter() - t0:.1f} s):")
+    vis_t = vis.transpose(0, 1).contiguous()
+    dev_t = k2_ab.deviations(vis, 504)
+    del vis
+    for name in ff.wide_launches:
+        ff.wide_launches[name] = 0
+    k1 = ff.flag_dump(vis_t)
+    k2 = ff.madnz_threshold(dev_t)
+    torch.cuda.synchronize()
+    launches = dict(ff.wide_launches)
+    print(f"  launches on the wide-row path: {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError("the wide-row path was not launched on the wide dump")
+
+    def slabs(fn, x):
+        def run():
+            out = torch.empty((WIDE_ROWS, WIDE_CHANNELS), dtype=torch.uint8, device=x.device)
+            for s in range(0, WIDE_ROWS, 504):
+                out[s:s + 504] = fn(x[s:s + 504])
+            return out
+        return run
+
+    plain_k1 = slabs(ff.flag_transposed_plain, vis_t)
+    plain_k2 = slabs(ff.madnz_threshold_plain, dev_t)
+    check.flags("flagger", "wide dump: K1 (wide-row path) vs plain", k1, plain_k1())
+    check.flags("madnz_threshold", "wide dump: K2 (wide-row path) vs plain", k2, plain_k2())
+    check.flags("madnz_threshold", "wide dump: K2 vs K1", k2, k1)
+    print(f"  flagged fraction {float(k1.float().mean()):.5f}")
+    del k1, k2
+    card_state("before the wide-row path's timings")
+    times = {"flagger": time_fn(lambda: ff.flag_dump(vis_t), warmup=1, iters=5),
+             "madnz_threshold": time_fn(lambda: ff.madnz_threshold(dev_t), warmup=1, iters=5)}
+    plain = {"flagger": time_fn(plain_k1, warmup=1, iters=3),
+             "madnz_threshold": time_fn(plain_k2, warmup=1, iters=3)}
+    card_state("after them")
+    n_vis = WIDE_CHANNELS * WIDE_ROWS
+    out = {}
+    for name, nbytes, stages in (("flagger", 9, None),
+                                 ("madnz_threshold", 5, ("rank", "threshold", "output"))):
+        bound = max(nbytes * n_vis / HBM_BYTES_PER_S, inventory_ops(stages) * n_vis
+                    / F32_OPS_PER_S) * 1e3
+        print(f"  {name} on the wide-row path: {times[name]:.3f} ms "
+              f"({n_vis / times[name] / 1e6:.3f} Gvis/s) against its bound {bound:.3f} ms; "
+              f"plain {plain[name]:.3f} ms [{card}]")
+        out[name] = {"channels": WIDE_CHANNELS, "rows": WIDE_ROWS, "launches": launches[name],
+                     "ms": times[name], "plain_ms": plain[name], "bound_ms": bound}
+    return out
 
 
 def phase_oracle(ff, device, host, vis_np: np.ndarray, check: Check) -> None:
@@ -864,14 +1027,16 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
     channels, rows = vis_np.shape
     print("K1's stage probes (csrc/flagger_probe.cu):")
 
-    # K9, K11 and K13 launch as K1 does (the run layout), strided_full and
-    # K12 as K2's strided design does, as the libraries report it: 1024
-    # threads, the layout's dynamic shared memory, one CTA per SM.
+    # K9, K11, K13, `channel_major` and K12 launch as K1 does (the run
+    # layout), strided_full and K12's earlier design as K2's strided design
+    # does, as the libraries report it: 1024 threads, the layout's dynamic
+    # shared memory, one CTA per SM.
     k1_cfg = ff.launch_config(channels)
     k2_cfg = ff.strided_launch_config(channels)
-    layouts = [("K1 (run layout)", k1_cfg, ("K1",) + fp.RUN_LAYOUT + fp.MEASUREMENT),
+    layouts = [("K1 (run layout)", k1_cfg,
+                ("K1",) + fp.RUN_LAYOUT + fp.MEASUREMENT + ("amp_pairs",)),
                ("K2's strided design (strided layout)", k2_cfg,
-                ("K2",) + fp.STRIDED + ("amp_pairs",))]
+                ("K2",) + fp.STRIDED + ("amp_pairs_strided",))]
     for layout, want, variants in layouts:
         for v in variants:
             cfg = want if v in ("K1", "K2") else fp.launch_config(v, channels)
@@ -882,6 +1047,15 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
     for label, cfg in (("K1", k1_cfg), ("K2", k2_cfg)):
         if cfg["threads"] != 1024 or cfg["ctas_per_sm"] != 1:
             raise AssertionError(f"{label} no longer launches 1024 threads, one CTA per SM: {cfg}")
+    # K12's channel-major read in clusters of rows, at K1's CTA: the
+    # clusters that fit the card at once (132 SMs in GPCs of up to 18).
+    for g in fp.CLUSTERS:
+        cfg = fp.amp_launch_config(channels, channel_major=True, cluster=g)
+        print(f"  launch K12 channel-major, clusters of {g} rows: {cfg['clusters']} clusters "
+              f"({g * cfg['clusters']} CTAs) fit at once; {cfg['threads']} threads, "
+              f"{cfg['smem_bytes']} B dynamic shared memory, {cfg['ctas_per_sm']} CTA per SM")
+        if {k: cfg[k] for k in k1_cfg} != k1_cfg or (g > 1 and cfg["clusters"] < 1):
+            raise AssertionError(f"K12's clusters of {g} do not launch at K1's CTA: {cfg}")
 
     # Every variant against its plain version, exact.
     cases = []
@@ -898,11 +1072,16 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
             check.flags("flagger", f"K1 build {name} vs plain, {label}", k1_ab.build(vis_t, name),
                         k1_ab.build_plain(vis_t, name))
         vis_c = vis_t.transpose(0, 1).contiguous()
+        want = fp.amp_pairs_plain(vis_t)
         check.exact("deinterleave", f"amp_pairs baseline-major vs plain, {label}",
-                    fp.amp_pairs(vis_t), fp.amp_pairs_plain(vis_t))
-        check.exact("deinterleave", f"amp_pairs channel-major vs plain, {label}",
-                    fp.amp_pairs(vis_c, channel_major=True),
-                    fp.amp_pairs_plain(vis_c, channel_major=True))
+                    fp.amp_pairs(vis_t), want)
+        for g in fp.CLUSTERS:
+            check.exact("deinterleave", f"amp_pairs channel-major, clusters of {g}, vs plain, "
+                        f"{label}", fp.amp_pairs(vis_c, channel_major=True, cluster=g), want)
+        check.exact("deinterleave", f"amp_pairs_strided, both layouts, vs plain, {label}",
+                    torch.stack([fp.amp_pairs_strided(vis_t),
+                                 fp.amp_pairs_strided(vis_c, channel_major=True)]),
+                    torch.stack([want, want]))
 
     # The whole dump: the bit-exact variants against K1, every stage_ablate
     # variant and radix_select against its plain version, K12 against the
@@ -923,7 +1102,11 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
                  for v in fp.STAGE_ABLATE + ("radix_select",)}
     k1 = ff.flag_dump(vis_t)
     for v in fp.EXACT:
-        check.flags(probe_of[v], f"full dump: {v} vs K1", fp.probe(vis_t, v), k1)
+        if v not in fp.INPLACE:
+            check.flags(probe_of[v], f"full dump: {v} vs K1", fp.probe(vis_t, v), k1)
+    for g in fp.CLUSTERS:  # reading the channel-major dump in place
+        check.flags("deinterleave", f"full dump: channel_major, clusters of {g}, vs K1",
+                    fp.probe(vis.transpose(0, 1), "channel_major", cluster=g), k1)
     check.flags("flagger", "full dump: K1 build select_minmax vs K1",
                 k1_ab.build(vis_t, "select_minmax"), k1)
     del k1
@@ -932,15 +1115,25 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
     amp = fp.amp_pairs_plain(vis_t)
     check.exact("deinterleave", "full dump: amp_pairs baseline-major vs plain",
                 fp.amp_pairs(vis_t), amp)
-    check.exact("deinterleave", "full dump: amp_pairs channel-major vs plain",
-                fp.amp_pairs(vis, channel_major=True), amp)
+    for g in fp.CLUSTERS:
+        check.exact("deinterleave", f"full dump: amp_pairs channel-major, clusters of {g}, vs "
+                    f"plain", fp.amp_pairs(vis, channel_major=True, cluster=g), amp)
+    check.exact("deinterleave", "full dump: amp_pairs_strided channel-major vs plain",
+                fp.amp_pairs_strided(vis, channel_major=True), amp)
     del amp
+    # The library's call for K12's function on the channel-major dump: two
+    # calls, the norm over the pair and the turn to rows.
+    k12_library = library_time("torch.linalg.vector_norm(vis, dim=-1).t().contiguous() (two "
+                               "calls)", lambda: torch.linalg.vector_norm(vis, dim=-1).t()
+                               .contiguous())
 
     # The profiling path: the four probe tools on the whole dump, with the
     # launch counts set to 0 just before and read just after.
     print(f"the probe tools on the whole dump, interleaved, 5 rounds of 3 calls, on {card}:")
     for name in fp.launches:
         fp.launches[name] = 0
+    for g in fp.cluster_launches:
+        fp.cluster_launches[g] = 0
     stage_ms, stages = stage_ablate.run(vis_t, iters=3, reps=5, card=card)
     rank_ms, _ = rankpair_ab.run(vis_t, iters=3, reps=5, card=card)
     roll_ms = rollchain_ab.run(vis_t, iters=3, reps=5, card=card)
@@ -956,8 +1149,9 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
     if min(k1_ab.launches.values()) < 1:
         raise AssertionError("a measurement build of K1 was not launched")
     counts = {name: sum(fp.launches[v] for v in variants) for name, variants in fp.PROBES.items()}
-    print(f"  launches during the profiling path: {dict(fp.launches)}")
-    for v, count in fp.launches.items():
+    print(f"  launches during the profiling path: {dict(fp.launches)}; K12's channel-major "
+          f"launches per cluster: {dict(fp.cluster_launches)}")
+    for v, count in list(fp.launches.items()) + list(fp.cluster_launches.items()):
         if count < 1:
             raise AssertionError(f"probe kernel {v} was not launched on the profiling path")
 
@@ -966,10 +1160,13 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
     plain["amp_pairs"] = time_fn(lambda: fp.amp_pairs_plain(vis_t), warmup=1, iters=3)
     plain["amp_pairs channel-major"] = time_fn(
         lambda: fp.amp_pairs_plain(vis, channel_major=True), warmup=1, iters=3)
+    best = min(fp.CLUSTERS, key=lambda g: dein_ms[f"K12 g{g}"][0])
+    inplace = min(fp.CLUSTERS, key=lambda g: dein_ms[f"channel_major g{g}"][0])
     kernel = {**stage_ms, **{v: rank_ms[v] for v in fp.RANK_SEARCHES},
               **{v: roll_ms[v] for v in fp.MEDIANS}, "strided_full": k1_out["strided_full"][0],
-              "amp_pairs": dein_ms["baseline-major"],
-              "amp_pairs channel-major": dein_ms["channel-major"]}
+              f"channel_major, clusters of {inplace}": dein_ms[f"channel_major g{inplace}"][0],
+              "amp_pairs": dein_ms["K12 baseline-major"][0],
+              "amp_pairs channel-major": dein_ms[f"K12 g{best}"][0]}
     print(f"kernel vs plain on the whole dump (plain: 1 warm-up, median of 3) on {card}:")
     for v, ms in kernel.items():
         p = plain.get(v, plain["full"])  # the other bit-exact variants' plain version is K1's
@@ -994,8 +1191,9 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
                                 plain.get(fastest, plain["full"]), *k1_work), variant=fastest),
         "rollchain": dict(record(counts["rollchain"], roll_ms[fastest_median], plain["full"],
                                  *k1_work), variant=fastest_median),
-        "deinterleave": record(counts["deinterleave"], dein_ms["channel-major"],
-                               plain["amp_pairs channel-major"], 12 * n_vis, 4 * n_vis),
+        "deinterleave": dict(record(counts["deinterleave"], dein_ms[f"K12 g{best}"][0],
+                                    plain["amp_pairs channel-major"], 12 * n_vis, 4 * n_vis,
+                                    k12_library), variant=f"clusters of {best} rows"),
     }
 
 
@@ -1215,11 +1413,14 @@ def main() -> None:
     check = Check()
     phase_build(ff, pct, tr, fp, kernels)
     phase_kernels(ff, device, check)
+    wide_rows = phase_wide(ff, device, card, check)
     t0 = time.perf_counter()
     vis_np = meerkat_dump(CHANNELS, BASELINES * POLS)
     print(f"dump generated on the host in {time.perf_counter() - t0:.1f} s")
     phase_oracle(ff, device, host, vis_np, check)
     results = phase_main(ff, fp, tr, device, vis_np, card, check)
+    for name, wide in wide_rows.items():
+        results[name]["wide_row"] = wide
     results.update(phase_ops(pct, tr, vis_np, card, check))
     phase_flagger_device(ff, vis_np, card, check)
     results.update(phase_probes(fp, ff, device, vis_np, card, check))

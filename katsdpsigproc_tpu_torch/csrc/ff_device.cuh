@@ -14,7 +14,10 @@
 #include <math_constants.h>
 #include <stdint.h>
 
-#include "ff_network.h"  // FF_WIDTH, FF_NET_FAST(w), FF_NET_LOWER(w)
+// FF_WIDTH, and either FF_NET_FAST(w) and FF_NET_LOWER(w), the selection
+// networks over a window's members in registers, or FF_MEDIAN_COUNT, where
+// the window is too wide for that and count_deviation takes the ranks.
+#include "ff_network.h"
 
 namespace {
 
@@ -23,7 +26,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxWindows = 16;
 constexpr int kHalf = FF_WIDTH / 2;
 
-static_assert(FF_WIDTH % 2 == 1 && kHalf >= 1 && kHalf <= 15, "odd width 3..31");
+static_assert(FF_WIDTH % 2 == 1 && kHalf >= 1, "odd width >= 3");
 
 struct Params {
   int channels;
@@ -34,12 +37,14 @@ struct Params {
 };
 
 // Shared memory: deviations (C floats), flags (C bytes), then the
-// reduction partials (two banks of kWarps ints) and the median halo.
+// reduction partials (two banks of kWarps ints) and the median halo of
+// kHalf floats, room for 16 at least.
 __host__ __device__ inline size_t flags_offset(int c) { return (size_t)c * 4; }
 __host__ __device__ inline size_t scratch_offset(int c) {
   return ((size_t)c * 5 + 15) & ~(size_t)15;
 }
-constexpr size_t kScratchBytes = 2 * kWarps * sizeof(int) + 16 * sizeof(float);
+constexpr size_t kScratchBytes =
+    2 * kWarps * sizeof(int) + (kHalf > 16 ? kHalf : 16) * sizeof(float);
 __host__ inline size_t smem_bytes(int c) { return scratch_offset(c) + kScratchBytes; }
 
 __device__ __forceinline__ float nan_min(float a, float b) { return (a < b || a != a) ? a : b; }
@@ -110,6 +115,7 @@ __device__ __forceinline__ float fast_median(const float* w, int c, int C) {
   return (k_abs & 1) == 0 ? lo : __fmul_rn(__fadd_rn(lo, hi), 0.5f);
 }
 
+#ifndef FF_MEDIAN_COUNT
 // Median background over the row in `buf` (amplitudes, +inf where flagged),
 // replaced in place by the deviations.  kFast: no input flags and
 // C >= FF_WIDTH, so members are absent only at the edges and the +-inf
@@ -176,6 +182,95 @@ __device__ void median_to_deviations(float* buf, float* halo, int C) {
     }
     __syncthreads();
   }
+}
+
+// The deviation of channel c, its window's members read by get(j) for j in
+// [0, C) and filled past the row's edges: the arithmetic of the edge tiles
+// of ff_runs.cuh's median_to_deviations, for a row in device memory.
+template <bool kFast, bool kUseFlags, typename Get>
+__device__ __forceinline__ float network_deviation(Get get, int c, int C) {
+  float w[FF_WIDTH];
+#pragma unroll
+  for (int k = 0; k < FF_WIDTH; ++k) {
+    const int d = k - kHalf;
+    const int j = c + d;
+    w[k] = (j < 0 || j >= C) ? (kFast ? edge_fill(c, d, C) : CUDART_INF_F) : get(j);
+  }
+  const float amp = w[kHalf];
+  if (kFast) {
+    FF_NET_FAST(w);
+    return __fsub_rn(amp, fast_median(w, c, C));
+  }
+  int n = 0;
+#pragma unroll
+  for (int k = 0; k < FF_WIDTH; ++k) {
+    const int j = c + k - kHalf;
+    n += kUseFlags ? (w[k] != CUDART_INF_F) : (j >= 0 && j < C);
+  }
+  FF_NET_LOWER(w);
+  const int lo_rank = (n - 1) >> 1;
+  const int hi_rank = n >> 1;
+  float v_lo = 0.f;
+  float v_hi = 0.f;
+#pragma unroll
+  for (int k = 0; k <= kHalf; ++k) {
+    if (lo_rank == k) v_lo = w[k];
+    if (hi_rank == k) v_hi = w[k];
+  }
+  const float med = __fmul_rn(__fadd_rn(v_lo, v_hi), 0.5f);
+  return amp == CUDART_INF_F ? 0.f : __fsub_rn(amp, med);
+}
+#endif  // FF_MEDIAN_COUNT
+
+// The deviation of channel c as network_deviation computes it, for windows
+// too wide for their members to sit in registers (FF_MEDIAN_COUNT): the
+// sorted rank r of the members m is the member m_i with
+// count(m < m_i) <= r < count(m <= m_i), each member read from get(j)
+// (shared or device memory) FF_WIDTH + 2 times.  A NaN member makes the
+// median NaN, as the networks' NaN-propagating min/max make it: an output
+// of a selection network depends on every input, so a NaN input reaches it.
+// Amplitudes are never -0, so equal members are equal bits.
+template <bool kFast, bool kUseFlags, typename Get>
+__device__ float count_deviation(Get get, int c, int C) {
+  const auto member = [&](int k) {
+    const int d = k - kHalf;
+    const int j = c + d;
+    return (j < 0 || j >= C) ? (kFast ? edge_fill(c, d, C) : CUDART_INF_F) : get(j);
+  };
+  int n = 0;
+  bool nan = false;
+  for (int k = 0; k < FF_WIDTH; ++k) {
+    const float x = member(k);
+    const int j = c + k - kHalf;
+    nan |= x != x;
+    n += kUseFlags ? (x != CUDART_INF_F) : (j >= 0 && j < C);
+  }
+  // The fast path's ranks kHalf and kHalf + 1; the masked path's middle
+  // ranks of the n members present (a rank of -1 selects nothing: 0).
+  const int lo_rank = kFast ? kHalf : (n - 1) >> 1;
+  const int hi_rank = kFast ? kHalf + 1 : n >> 1;
+  float v_lo = 0.f;
+  float v_hi = 0.f;
+  for (int i = 0; i < FF_WIDTH; ++i) {
+    const float x = member(i);
+    int lt = 0;
+    int le = 0;
+    for (int k = 0; k < FF_WIDTH; ++k) {
+      const float y = member(k);
+      lt += y < x;
+      le += y <= x;
+    }
+    if (lt <= lo_rank && lo_rank < le) v_lo = x;
+    if (lt <= hi_rank && hi_rank < le) v_hi = x;
+  }
+  const float amp = get(c);
+  const float avg = __fmul_rn(__fadd_rn(v_lo, v_hi), 0.5f);
+  if (kFast) {
+    const int k_abs = max(kHalf - c, 0) + max(c - (C - 1 - kHalf), 0);
+    const float med = nan ? CUDART_NAN_F : ((k_abs & 1) == 0 ? v_lo : avg);
+    return __fsub_rn(amp, med);
+  }
+  return amp == CUDART_INF_F ? 0.f : __fsub_rn(amp, nan ? CUDART_NAN_F : avg);
 }
 
 __device__ __forceinline__ float clamped(const float* dev, const uint8_t* flags, int j, float thr) {
@@ -333,11 +428,14 @@ __device__ void madnz_threshold_row(const float* dev, uint8_t* flags, int* red, 
   sum_threshold_row(dev, flags, mad_noise(dev, red, bank, p.channels), out, p);
 }
 
+// The launch's parameters; `any_length` lifts the limit of 64 channels a
+// thread that the register masks of the shared-memory layouts set.
 int make_params(Params* p, int channels, float n_sigma, const float* scales, int n_windows,
-                int flag_value) {
+                int flag_value, bool any_length = false) {
   if (channels < 1 || n_windows < 0 || n_windows > kMaxWindows ||
       (n_windows > 0 && (1 << (n_windows - 1)) > channels) ||
-      (channels + kThreads - 1) / kThreads > 64 || flag_value < 0 || flag_value > 255) {
+      (!any_length && (channels + kThreads - 1) / kThreads > 64) || flag_value < 0 ||
+      flag_value > 255) {
     return (int)cudaErrorInvalidValue;
   }
   p->channels = channels;

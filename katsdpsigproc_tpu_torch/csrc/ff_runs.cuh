@@ -140,6 +140,28 @@ int max_channels() {
   return c;
 }
 
+// The widest window whose members the top-down tiles below never
+// overwrite before they are read: a tile's stores land at phys(base) >=
+// base + 32, and the tile below reads up to base - 1 + kHalf.  Wider
+// windows take the wide-row path (fused_flagger.cu).
+constexpr int kMaxInPlaceWidth = 65;
+constexpr bool kInPlaceMedian = FF_WIDTH <= kMaxInPlaceWidth;
+
+#ifdef FF_MEDIAN_COUNT
+// The median of a window too wide for registers: count_deviation's ranks
+// from the members in shared memory, by the same top-down tiles as below.
+template <bool kFast, bool kUseFlags>
+__device__ void median_to_deviations(float* buf, int C) {
+  const auto get = [buf](int j) { return buf[j]; };
+  for (int base = (C - 1) / kThreads * kThreads; base >= 0; base -= kThreads) {
+    const int c = base + threadIdx.x;
+    const float dev = c < C ? count_deviation<kFast, kUseFlags>(get, c, C) : 0.f;
+    __syncthreads();  // every window of this tile has read its members
+    if (c < C) buf[phys(c)] = dev;
+  }
+  __syncthreads();
+}
+#else
 // Median background over the amplitudes at words [0, C) (+inf where
 // flagged), written as deviations at words phys(c).  kFast and kUseFlags as
 // in ff_device.cuh's median_to_deviations, whose arithmetic this repeats.
@@ -198,6 +220,7 @@ __device__ void median_to_deviations(float* buf, int C) {
   }
   __syncthreads();
 }
+#endif  // FF_MEDIAN_COUNT
 
 // Block-wide sum (max) of one value per thread, every thread receiving it.
 // As ff_device.cuh's block_sum: warp partials in one of two banks behind

@@ -17,7 +17,9 @@
 //   K12 deinterleave_probe.py::make.kernel: amplitudes from interleaved
 //       (re, im) pairs (`amp_pairs`), baseline-major (rows, C, 2) as the
 //       TPU probe reads them, or channel-major (C, rows, 2) read in place,
-//       the main path's own input before its corner turn.
+//       the main path's own input before its corner turn; and
+//       `channel_major`, K1 with its load stage replaced by that in-place
+//       read, flag for flag K1 on the corner-turned dump.
 //
 // What bounds them: what bounds K1 (fused_flagger.cu's header).  A probe
 // measures only if its variants all run one machine, so each launches as
@@ -27,9 +29,25 @@
 //    runs::smem_bytes): `full` is K1's pipeline, and each other variant
 //    changes the one stage it names, so a difference of two times is that
 //    stage's cost in the K1 that runs.  K1 itself gains no knob;
-//  * K12 stays on the strided layout (ff_device.cuh, smem_bytes), where
-//    K2's strided design keeps its launch, beside `strided_full`, K1 in
-//    that layout and the "before" of scripts/k1_ab.py.
+//  * K12 runs at K1's launch too, its row through K1's amplitude words.
+//    Channel-major, the row's pairs are `rows` pairs apart, so one CTA per
+//    row would read 8 B of each 32-B sector.  Instead a thread-block
+//    cluster of kG consecutive rows reads together: CTA k of the cluster
+//    loads channels [kC/G, (k+1)C/G) of all kG rows, kG pairs a channel
+//    (one 32-B sector at kG = 4, as 16-B loads, 8 in flight a thread),
+//    takes the amplitudes and stores each into its row's CTA's amplitude
+//    words by distributed shared memory; after the cluster's barrier each
+//    CTA writes (K12) or flags (`channel_major`) its own row.  The cluster
+//    sizes 1 (no cluster: one CTA per row, 8 pairs in flight a thread),
+//    2, 4 and 8 are template instances of both (measurement builds),
+//    chosen at the launch.  A cluster's CTAs must run at once on SMs of
+//    one GPC: on the H100's 132 SMs, 66 clusters of 2 fit, 30 of 4 and 15
+//    of 8 (120 SMs);
+//  * K12's earlier design (`amp_pairs_strided`: one CTA per row, one 8-B
+//    load a thread an iteration) stays on the strided layout
+//    (ff_device.cuh, smem_bytes), where K2's strided design keeps its
+//    launch, beside `strided_full`, K1 in that layout and the "before" of
+//    scripts/k1_ab.py.
 //
 // Variants, with the stand-ins' semantics of stage_ablate.py:61-80 (there
 // are no input flags, and C >= FF_WIDTH):
@@ -62,9 +80,16 @@
 //                 (scripts/rankpair_ab.py): pass 0 adds each distinct
 //                 exponent digit of a warp once (__match_any_sync), as K4's
 //                 measurement build does
+//   channel_major K1 reading the channel-major dump (C, rows, 2) in place by
+//                 K12's cluster read, in place of its load stage
 //   strided_full  K1 in the strided layout (k1_ab's and phase 5's "before")
 
+#include <cooperative_groups.h>
+#include <stdint.h>
+
 #include "ff_device.cuh"
+
+static_assert(kHalf <= 15, "the probes take odd widths 3..31");
 
 namespace {
 
@@ -79,10 +104,17 @@ enum Variant : int {
   kRadixSelect = 7,
   kShflMedian = 8,
   kWindowMedian = 9,
-  kRadixMatchAny = 10,  // radix_select's measurement instance
-  kStridedFull = 11,    // the one variant on the strided layout
-  kAmpPairs = 12,              // baseline-major (rows, C, 2)
-  kAmpPairsChannelMajor = 13,  // channel-major (C, rows, 2)
+  kChannelMajor = 10,
+  kRadixMatchAny = 11,  // radix_select's measurement instance
+  kStridedFull = 12,    // the one variant on the strided layout
+};
+
+// K12's kernels (fp_amp_pairs).
+enum AmpKernel : int {
+  kAmpBaseline = 0,         // baseline-major (rows, C, 2), run layout
+  kAmpChannelMajor = 1,     // channel-major (C, rows, 2), run layout, a cluster of rows
+  kAmpStrided = 2,          // baseline-major, strided layout (K12's earlier design)
+  kAmpStridedChannelMajor = 3,
 };
 
 __host__ __device__ constexpr bool run_layout(int variant) { return variant < kStridedFull; }
@@ -95,7 +127,8 @@ __host__ __device__ constexpr bool run_layout(int variant) { return variant < kS
 
 // strided_full: K1's stages in the strided layout.
 __global__ void __launch_bounds__(kThreads, 1)
-    strided_full_kernel(const float2* __restrict__ vis, uint8_t* __restrict__ out, Params p) {
+    strided_full_kernel(const float2* __restrict__ vis, uint8_t* __restrict__ out, Params p,
+                        int /*rows*/) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = p.channels;
   const size_t row = blockIdx.x;
@@ -111,11 +144,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   sum_threshold_row(buf, smem + flags_offset(C), noise, out + row * C, p);
 }
 
-// K12.  One CTA per row writes the row's amplitudes; reading channel-major
-// input, a warp's 32 loads are `rows` pairs apart.
+// K12's earlier design.  One CTA per row writes the row's amplitudes;
+// reading channel-major input, a warp's 32 loads are `rows` pairs apart.
 template <bool kChannelMajor>
 __global__ void __launch_bounds__(kThreads, 1)
-    amp_pairs_kernel(const float2* __restrict__ vis, float* __restrict__ out, int rows, int C) {
+    amp_pairs_strided_kernel(const float2* __restrict__ vis, float* __restrict__ out, int rows,
+                             int C) {
   const size_t row = blockIdx.x;
   for (int c = threadIdx.x; c < C; c += kThreads) {
     const float2 x = kChannelMajor ? vis[(size_t)c * rows + row] : vis[row * C + c];
@@ -125,11 +159,112 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 }  // namespace
 
-// ---- K1's run layout (ff_runs.cuh): K9, K11 and K13 ----
+// ---- K1's run layout (ff_runs.cuh): K9, K11, K13, K12 ----
 
 #include "ff_runs.cuh"
 
 namespace {
+
+// K12's in-place read: the amplitudes of the channel-major dump (C, rows,
+// 2) into the amplitude words [0, C) of each row's CTA, which then holds
+// its row as K1's load stage leaves it (fused_flagger.cu::flagger_kernel).
+// kG consecutive rows form a cluster (kG = 1: no cluster, the CTA reads its
+// own row); CTA k of the cluster reads channels [kC/G, (k+1)C/G) of the
+// cluster's rows, 8 kG bytes a channel, as 16-byte loads where the
+// cluster's rows all exist and lie 16-byte aligned, and stores each
+// amplitude into its row's CTA by distributed shared memory.  Every
+// thread keeps 8 loads in flight.  A CTA whose row does not exist (the
+// grid is padded to whole clusters) reads for the rows that do.  Ends on
+// a barrier of the cluster (the CTA).
+template <int kG>
+__device__ __forceinline__ void load_channel_major(const float2* __restrict__ vis, float* buf,
+                                                   int rows, int C) {
+  if constexpr (kG == 1) {
+    constexpr int kU = 8;
+    const size_t row = blockIdx.x;
+    for (int c0 = threadIdx.x; c0 < C; c0 += kU * kThreads) {
+      float2 x[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int c = c0 + u * kThreads;
+        if (c < C) x[u] = vis[(size_t)c * rows + row];
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int c = c0 + u * kThreads;
+        if (c < C) buf[c] = amplitude(x[u]);
+      }
+    }
+    __syncthreads();
+  } else {
+    constexpr int kU = 16 / kG;  // channels a thread loads at once: 8 16-byte loads
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    const int k = (int)cluster.block_rank();
+    const int r0 = (int)blockIdx.x - k;
+    const int lo = (int)((long long)C * k / kG);
+    const int hi = (int)((long long)C * (k + 1) / kG);
+    const int n = min(kG, rows - r0);  // the cluster's rows that exist
+    const bool vec = n == kG && (rows & 1) == 0 && (reinterpret_cast<uintptr_t>(vis) & 15) == 0;
+    float* dst[kG];
+#pragma unroll
+    for (int g = 0; g < kG; ++g) dst[g] = cluster.map_shared_rank(buf, g);
+    cluster.sync();  // every CTA of the cluster runs: its shared memory takes stores
+    for (int c0 = lo + threadIdx.x; c0 < hi; c0 += kU * kThreads) {
+      float2 x[kU][kG];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int c = c0 + u * kThreads;
+        if (c >= hi) continue;
+        const float2* src = vis + (size_t)c * rows + r0;
+        if (vec) {
+#pragma unroll
+          for (int h = 0; h < kG / 2; ++h) {
+            const float4 q = reinterpret_cast<const float4*>(src)[h];
+            x[u][2 * h] = make_float2(q.x, q.y);
+            x[u][2 * h + 1] = make_float2(q.z, q.w);
+          }
+        } else {
+#pragma unroll
+          for (int g = 0; g < kG; ++g) {
+            if (g < n) x[u][g] = src[g];
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int c = c0 + u * kThreads;
+        if (c >= hi) continue;
+#pragma unroll
+        for (int g = 0; g < kG; ++g) {
+          if (g < n) dst[g][c] = amplitude(x[u][g]);
+        }
+      }
+    }
+    cluster.sync();  // every amplitude of the cluster's rows is in place
+  }
+}
+
+// K12 at K1's launch: the row's amplitudes through its amplitude words,
+// read baseline-major (a CTA its own row) or channel-major (the cluster
+// read above), then written out coalesced.
+template <int kG, bool kChannelMajor>
+__global__ void __launch_bounds__(kThreads, 1)
+    amp_pairs_kernel(const float2* __restrict__ vis, float* __restrict__ out, int rows, int C) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* buf = reinterpret_cast<float*>(smem);
+  const size_t row = blockIdx.x;
+  if constexpr (kChannelMajor) {
+    load_channel_major<kG>(vis, buf, rows, C);
+    if ((int)row >= rows) return;
+  } else {
+    const float2* v = vis + row * C;
+    for (int c = threadIdx.x; c < C; c += kThreads) buf[c] = amplitude(v[c]);
+    __syncthreads();
+  }
+  float* o = out + row * C;
+  for (int c = threadIdx.x; c < C; c += kThreads) o[c] = buf[c];
+}
 namespace runs {
 
 constexpr unsigned kFull32 = 0xffffffffu;
@@ -577,9 +712,12 @@ __device__ void median_to_deviations_window(float* buf, int C) {
 
 // K9, K11 and K13: K1's flagger_kernel<0> (fused_flagger.cu) with the
 // stage the variant names replaced, in K1's shared memory.
-template <int kVariant>
+// `channel_major` replaces the load stage by K12's in-place read of the
+// channel-major dump in clusters of kG rows, `rows` its rows; the other
+// variants ignore kG and `rows`.
+template <int kVariant, int kG = 1>
 __global__ void __launch_bounds__(kThreads, 1)
-    probe_kernel(const float2* __restrict__ vis, uint8_t* __restrict__ out, Params p) {
+    probe_kernel(const float2* __restrict__ vis, uint8_t* __restrict__ out, Params p, int rows) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = p.channels;
   float* buf = reinterpret_cast<float*>(smem);
@@ -598,15 +736,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   if constexpr (kVariant == kRadixSelect || kVariant == kRadixMatchAny) {
     if (threadIdx.x < runs::kHistWords) scratch[threadIdx.x] = 0;
   }
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    const float a = amplitude(v[c]);
-    if constexpr (kVariant == kNoMedian) {
-      buf[runs::phys(c)] = __fsub_rn(a, __fmul_rn(a, 0.5f));  // no reads: in place
-    } else {
-      buf[c] = a;
+  if constexpr (kVariant == kChannelMajor) {
+    load_channel_major<kG>(vis, buf, rows, C);
+    if ((int)row >= rows) return;
+  } else {
+    for (int c = threadIdx.x; c < C; c += kThreads) {
+      const float a = amplitude(v[c]);
+      if constexpr (kVariant == kNoMedian) {
+        buf[runs::phys(c)] = __fsub_rn(a, __fmul_rn(a, 0.5f));  // no reads: in place
+      } else {
+        buf[c] = a;
+      }
     }
+    __syncthreads();
   }
-  __syncthreads();
   if constexpr (kVariant == kShflMedian) {
     runs::median_to_deviations_shfl(buf, C);
   } else if constexpr (kVariant == kWindowMedian) {
@@ -654,20 +797,67 @@ int with_probe_kernel(int variant, F&& f) {
     case kRadixSelect: return f(probe_kernel<kRadixSelect>);
     case kShflMedian: return f(probe_kernel<kShflMedian>);
     case kWindowMedian: return f(probe_kernel<kWindowMedian>);
+    case kChannelMajor: return f(probe_kernel<kChannelMajor>);
     case kRadixMatchAny: return f(probe_kernel<kRadixMatchAny>);
     case kStridedFull: return f(strided_full_kernel);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+// Calls f with `channel_major` reading in clusters of `cluster` rows.
 template <typename F>
-int with_amp_kernel(int variant, F&& f) {
-  switch (variant) {
-    case kAmpPairs: return f(amp_pairs_kernel<false>);
-    case kAmpPairsChannelMajor: return f(amp_pairs_kernel<true>);
+int with_channel_major(int cluster, F&& f) {
+  switch (cluster) {
+    case 1: return f(probe_kernel<kChannelMajor, 1>);
+    case 2: return f(probe_kernel<kChannelMajor, 2>);
+    case 4: return f(probe_kernel<kChannelMajor, 4>);
+    case 8: return f(probe_kernel<kChannelMajor, 8>);
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+// Calls f with K12's `kernel`, at a cluster of `cluster` rows where it
+// reads channel-major on the run layout.
+template <typename F>
+int with_amp_kernel(int kernel, int cluster, F&& f) {
+  switch (kernel) {
+    case kAmpBaseline: return f(amp_pairs_kernel<1, false>);
+    case kAmpChannelMajor:
+      switch (cluster) {
+        case 1: return f(amp_pairs_kernel<1, true>);
+        case 2: return f(amp_pairs_kernel<2, true>);
+        case 4: return f(amp_pairs_kernel<4, true>);
+        case 8: return f(amp_pairs_kernel<8, true>);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    case kAmpStrided: return f(amp_pairs_strided_kernel<false>);
+    case kAmpStridedChannelMajor: return f(amp_pairs_strided_kernel<true>);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+__host__ __device__ constexpr bool amp_run_layout(int kernel) { return kernel < kAmpStrided; }
+
+// The launch of a kernel at K1's CTA: `grid` CTAs, in clusters of
+// `cluster` (1: none), each with `smem` bytes of dynamic shared memory.
+cudaLaunchConfig_t cluster_config(int grid, int cluster, size_t smem, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  return cfg;
+}
+
+// The grid of a read in clusters of `cluster` rows: padded to whole clusters.
+int cluster_grid(int rows, int cluster) { return (rows + cluster - 1) / cluster * cluster; }
 
 // The channel limit and dynamic shared memory of `variant`'s layout.
 int layout_limit(int variant) { return run_layout(variant) ? runs::max_channels() : max_channels(); }
@@ -680,8 +870,8 @@ size_t layout_smem(int variant, int channels) {
 extern "C" {
 
 // As in fused_flagger.cu, so the wrappers share their checks: the run
-// layout's channel limit (K9, K11, K13) and the strided layout's
-// (`strided_full`, K12).
+// layout's channel limit (K9, K11, K13, `channel_major`, K12) and the
+// strided layout's (`strided_full`, K12's earlier design).
 int ff_max_channels(void) { return runs::max_channels(); }
 int ff_strided_max_channels(void) { return max_channels(); }
 
@@ -693,24 +883,24 @@ int fp_launch_config(int variant, int channels, int* threads, long long* smem_by
                      int* ctas_per_sm) {
   if (channels < FF_WIDTH || channels > layout_limit(variant)) return (int)cudaErrorInvalidValue;
   const size_t smem = layout_smem(variant, channels);
-  auto query = [&](auto kernel) {
+  const int err = with_probe_kernel(variant, [&](auto kernel) {
     int e = set_smem(kernel, smem);
     if (e) return e;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kernel, kThreads,
                                                               smem);
-  };
-  const int err = variant < kAmpPairs ? with_probe_kernel(variant, query)
-                                      : with_amp_kernel(variant, query);
+  });
   *threads = kThreads;
   *smem_bytes_out = (long long)smem;
   return err;
 }
 
 // A flag-producing probe over `rows` rows of planar (re, im) float32 pairs,
-// (rows, channels, 2), to (rows, channels) u8.  Returns a cudaError_t; 0
-// when the launch was accepted.
-int fp_probe(int variant, const void* vis, void* out, int rows, int channels, float n_sigma,
-             const float* scales, int n_windows, int flag_value, void* stream) {
+// (rows, channels, 2), to (rows, channels) u8; `channel_major` reads
+// (channels, rows, 2) in clusters of `cluster` rows (1, 2, 4 or 8), which
+// the other variants ignore.  Returns a cudaError_t; 0 when the launch
+// was accepted.
+int fp_probe(int variant, int cluster, const void* vis, void* out, int rows, int channels,
+             float n_sigma, const float* scales, int n_windows, int flag_value, void* stream) {
   Params p;
   int err = make_params(&p, channels, n_sigma, scales, n_windows, flag_value);
   if (err) return err;
@@ -721,32 +911,76 @@ int fp_probe(int variant, const void* vis, void* out, int rows, int channels, fl
   const float2* v = static_cast<const float2*>(vis);
   uint8_t* o = static_cast<uint8_t*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == kChannelMajor) {
+    err = with_channel_major(cluster, [&](auto kernel) {
+      int e = set_smem(kernel, smem);
+      if (e) return e;
+      cudaLaunchAttribute attr;
+      const cudaLaunchConfig_t cfg = cluster_config(cluster_grid(rows, cluster), cluster, smem,
+                                                    s, &attr);
+      return (int)cudaLaunchKernelEx(&cfg, kernel, v, o, p, rows);
+    });
+    return err ? err : (int)cudaGetLastError();
+  }
   err = with_probe_kernel(variant, [&](auto kernel) {
     int e = set_smem(kernel, smem);
     if (e) return e;
-    kernel<<<rows, kThreads, smem, s>>>(v, o, p);
+    kernel<<<rows, kThreads, smem, s>>>(v, o, p, rows);
     return 0;
   });
   return err ? err : (int)cudaGetLastError();
 }
 
-// K12 over (rows, channels) amplitudes; vis is (rows, channels, 2) when
-// channel_major is 0, else (channels, rows, 2).  The strided layout's
-// launch and limit.
-int fp_amp_pairs(const void* vis, int channel_major, void* out, int rows, int channels,
+// The channel limit of K12's `kernel` (AmpKernel): K1's on the run layout.
+int fp_amp_max_channels(int kernel) {
+  return amp_run_layout(kernel) ? runs::max_channels() : max_channels();
+}
+
+// K12's `kernel` launch configuration at `channels` (its cluster of
+// `cluster` rows where it reads channel-major on the run layout): the
+// clusters that fit the device at once (0 where the kernel takes no
+// cluster), threads per CTA, dynamic shared memory, CTAs that fit one SM.
+int fp_amp_launch_config(int kernel, int cluster, int channels, int* clusters, int* threads,
+                         long long* smem_bytes_out, int* ctas_per_sm) {
+  if (channels < 1 || channels > fp_amp_max_channels(kernel)) return (int)cudaErrorInvalidValue;
+  const size_t smem = amp_run_layout(kernel) ? runs::smem_bytes(channels) : smem_bytes(channels);
+  const int err = with_amp_kernel(kernel, cluster, [&](auto k) {
+    int e = set_smem(k, smem);
+    if (!e) e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, k, kThreads, smem);
+    *clusters = 0;
+    if (!e && kernel == kAmpChannelMajor && cluster > 1) {
+      cudaLaunchAttribute attr;
+      const cudaLaunchConfig_t cfg = cluster_config(cluster * 64, cluster, smem, nullptr, &attr);
+      e = (int)cudaOccupancyMaxActiveClusters(clusters, k, &cfg);
+    }
+    return e;
+  });
+  *threads = kThreads;
+  *smem_bytes_out = (long long)smem;
+  return err;
+}
+
+// K12's `kernel` over (rows, channels) amplitudes; vis is (rows, channels,
+// 2), or (channels, rows, 2) for the channel-major kernels, which on the run
+// layout read in clusters of `cluster` rows (1, 2, 4 or 8).
+int fp_amp_pairs(int kernel, int cluster, const void* vis, void* out, int rows, int channels,
                  void* stream) {
-  if (rows < 1 || channels < 1 || channels > max_channels()) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(channels);
+  if (rows < 1 || channels < 1 || channels > fp_amp_max_channels(kernel)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool run = amp_run_layout(kernel);
+  const size_t smem = run ? runs::smem_bytes(channels) : smem_bytes(channels);
+  const int g = kernel == kAmpChannelMajor ? cluster : 1;
   const float2* v = static_cast<const float2*>(vis);
   float* o = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = with_amp_kernel(channel_major ? kAmpPairsChannelMajor : kAmpPairs,
-                                  [&](auto kernel) {
-                                    int e = set_smem(kernel, smem);
-                                    if (e) return e;
-                                    kernel<<<rows, kThreads, smem, s>>>(v, o, rows, channels);
-                                    return 0;
-                                  });
+  const int err = with_amp_kernel(kernel, cluster, [&](auto k) {
+    int e = set_smem(k, smem);
+    if (e) return e;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(cluster_grid(rows, g), g, smem,
+                                                  static_cast<cudaStream_t>(stream), &attr);
+    return (int)cudaLaunchKernelEx(&cfg, k, v, o, rows, channels);
+  });
   return err ? err : (int)cudaGetLastError();
 }
 

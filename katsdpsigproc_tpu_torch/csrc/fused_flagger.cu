@@ -46,7 +46,21 @@
 //  * min/max in the selection networks propagate NaN as jnp.minimum and
 //    jnp.maximum do (CUDA's fminf/fmaxf would drop it).
 // The selection networks come from ff_network.h, which the loader renders
-// from katsdpsigproc_tpu_torch.ops.rank.selection_network for the width.
+// from katsdpsigproc_tpu_torch.ops.rank.selection_network for the width;
+// a window too wide for its members to sit in registers takes the median's
+// ranks by counting instead (FF_MEDIAN_COUNT, ff_device.cuh's
+// count_deviation), equal to the networks' on every input.
+//
+// The wide-row path: a row longer than the run layout holds
+// (runs::max_channels, 52310 channels on the H100), or a window wider than
+// the run layout's in-place median takes (runs::kMaxInPlaceWidth), runs
+// K1's and K2's stages in the strided layout's arithmetic on the CTA's
+// slice of a device scratch buffer instead of shared memory: amplitudes,
+// deviations, flags and hits, 10 B a channel.  The reduction partials stay
+// in static shared memory.  A grid of (SMs x CTAs per SM) CTAs loops over
+// the rows, so the scratch is that many rows, not the dump's.  Every pass
+// over the row (31 rank rounds, each window's sums) reads device memory or
+// the caches: the simple design that is right at any channel count.
 
 #include "ff_runs.cuh"  // includes ff_device.cuh
 
@@ -122,6 +136,134 @@ __global__ void __launch_bounds__(kThreads, 1)
   madnz_threshold_row(buf, flags, red, out + row * C, p);
 }
 
+// ---- The wide-row path ----
+
+// A CTA's slice of the scratch: amplitudes, deviations, flags, hits.
+__host__ __device__ inline size_t wide_row_bytes(int c) {
+  return ((size_t)c * 10 + 15) & ~(size_t)15;
+}
+
+struct WideRow {
+  float* amp;
+  float* dev;
+  uint8_t* flags;
+  uint8_t* hits;
+};
+
+__device__ __forceinline__ WideRow wide_row(unsigned char* scratch, int C) {
+  WideRow r;
+  r.amp = reinterpret_cast<float*>(scratch + blockIdx.x * wide_row_bytes(C));
+  r.dev = r.amp + C;
+  r.flags = reinterpret_cast<uint8_t*>(r.dev + C);
+  r.hits = r.flags + C;
+  return r;
+}
+
+// Median background from the amplitudes `amp` into the deviations `dev`,
+// channel-strided: the two arrays are apart, so no halo and any width.
+template <bool kFast, bool kUseFlags>
+__device__ void median_wide(const float* amp, float* dev, int C) {
+  const auto get = [amp](int j) { return amp[j]; };
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+#ifdef FF_MEDIAN_COUNT
+    dev[c] = count_deviation<kFast, kUseFlags>(get, c, C);
+#else
+    dev[c] = network_deviation<kFast, kUseFlags>(get, c, C);
+#endif
+  }
+  __syncthreads();
+}
+
+// ff_device.cuh's sum_threshold_row with a window's hits in their own
+// bytes instead of a thread's register mask, so that a thread may own any
+// number of channels: a window's sums read the flags and write the hits,
+// its dilation reads the hits and writes the flags, each pass behind a
+// barrier.
+__device__ void sum_threshold_wide(const float* dev, uint8_t* flags, uint8_t* hits, float noise,
+                                   uint8_t* out, const Params& p) {
+  const int C = p.channels;
+  const float base = __fmul_rn(p.n_sigma, noise);
+  for (int c = threadIdx.x; c < C; c += kThreads) flags[c] = 0;
+  __syncthreads();
+  for (int w = 0; w < p.n_windows; ++w) {
+    const int window = 1 << w;
+    const float thr = __fmul_rn(base, p.scales[w]);
+    const float thr_w = __fmul_rn(thr, (float)window);
+    const int last = C - window;  // full windows start at c <= last
+    for (int c = threadIdx.x; c < C; c += kThreads) {
+      hits[c] = c <= last && window_sum(dev, flags, c, w, thr) > thr_w;
+    }
+    __syncthreads();
+    // Dilation: flag c if any window starting in [c - window + 1, c] hit.
+    for (int c = threadIdx.x; c < C; c += kThreads) {
+      bool hit = false;
+      for (int j = max(c - window + 1, 0); j <= min(c, last) && !hit; ++j) hit = hits[j] != 0;
+      if (hit) flags[c] = 1;
+    }
+    __syncthreads();
+  }
+  const uint8_t fv = (uint8_t)p.flag_value;
+  for (int c = threadIdx.x; c < C; c += kThreads) out[c] = flags[c] ? fv : 0;
+}
+
+// K1 on the wide-row path, every flag mode as flagger_kernel.
+template <int kMode>
+__global__ void __launch_bounds__(kThreads, 1)
+    flagger_wide_kernel(const float2* __restrict__ vis, const uint8_t* __restrict__ in_flags,
+                        uint8_t* __restrict__ out, unsigned char* scratch, int rows, Params p) {
+  __shared__ int red[2 * kWarps];
+  const int C = p.channels;
+  const WideRow r = wide_row(scratch, C);
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const float2* v = vis + (size_t)row * C;
+    for (int c = threadIdx.x; c < C; c += kThreads) {
+      float a = amplitude(v[c]);
+      if (kMode == 1 && in_flags[(size_t)row * C + c] != 0) a = CUDART_INF_F;
+      if (kMode == 2 && in_flags[c] != 0) a = CUDART_INF_F;
+      r.amp[c] = a;
+    }
+    __syncthreads();
+    if (kMode == 0 && C >= FF_WIDTH) {
+      median_wide<true, false>(r.amp, r.dev, C);
+    } else {
+      median_wide<false, kMode != 0>(r.amp, r.dev, C);
+    }
+    int bank = 0;
+    const float noise = mad_noise(r.dev, red, bank, C);
+    sum_threshold_wide(r.dev, r.flags, r.hits, noise, out + (size_t)row * C, p);
+    __syncthreads();  // the row's last reads end before the next row's writes
+  }
+}
+
+// K2 on the wide-row path: its deviations are read where they lie.
+__global__ void __launch_bounds__(kThreads, 1)
+    madnz_threshold_wide_kernel(const float* __restrict__ dev, uint8_t* __restrict__ out,
+                                unsigned char* scratch, int rows, Params p) {
+  __shared__ int red[2 * kWarps];
+  const int C = p.channels;
+  const WideRow r = wide_row(scratch, C);
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const float* d = dev + (size_t)row * C;
+    int bank = 0;
+    const float noise = mad_noise(d, red, bank, C);
+    sum_threshold_wide(d, r.flags, r.hits, noise, out + (size_t)row * C, p);
+    __syncthreads();
+  }
+}
+
+// The wide-row path's grid: SMs x the CTAs of `kernel` that fit one SM.
+template <typename Kernel>
+int wide_ctas(Kernel kernel) {
+  int device = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0) !=
+          cudaSuccess) {
+    return 0;
+  }
+  return sms * per_sm;
+}
+
 template <typename Kernel>
 int launch_madnz(Kernel kernel, size_t smem, const void* dev, void* out, int rows, int channels,
                  float n_sigma, const float* scales, int n_windows, int flag_value,
@@ -183,14 +325,17 @@ int ff_strided_launch_config(int channels, int* threads, long long* smem_bytes_o
 
 // K1 over `rows` rows of planar (re, im) float32 pairs, (rows, channels, 2).
 // mode 0: in_flags unused; 1: (rows, channels) u8; 2: (channels,) u8.
-// Returns a cudaError_t; 0 when the launch was accepted.
+// Rows up to ff_max_channels() (a longer row's shared memory cannot be
+// set) and windows up to ff_max_in_place_width(); the rest take
+// ff_flagger_wide.  Returns a cudaError_t; 0 when the launch was accepted.
 int ff_flagger(const void* vis, const void* in_flags, int mode, void* out, int rows,
                int channels, float n_sigma, const float* scales, int n_windows,
                int flag_value, void* stream) {
   Params p;
   int err = make_params(&p, channels, n_sigma, scales, n_windows, flag_value);
   if (err) return err;
-  if (rows < 1 || mode < 0 || mode > 2 || (mode != 0 && in_flags == nullptr)) {
+  if (rows < 1 || mode < 0 || mode > 2 || (mode != 0 && in_flags == nullptr) ||
+      !runs::kInPlaceMedian) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t smem = runs::smem_bytes(channels);
@@ -221,6 +366,59 @@ int ff_madnz_threshold(const void* dev, void* out, int rows, int channels, float
   if (channels > runs::max_channels()) return (int)cudaErrorInvalidValue;
   return launch_madnz(madnz_threshold_kernel, runs::smem_bytes(channels), dev, out, rows,
                       channels, n_sigma, scales, n_windows, flag_value, stream);
+}
+
+// The widest window ff_flagger takes.
+int ff_max_in_place_width(void) { return runs::kMaxInPlaceWidth; }
+
+// The wide-row path's grid, in CTAs (0 on error), and the scratch bytes it
+// needs per CTA at `channels`: the caller allocates ctas x that.
+int ff_wide_ctas(void) {
+  const int k1 = wide_ctas(flagger_wide_kernel<0>);
+  const int k2 = wide_ctas(madnz_threshold_wide_kernel);
+  return k1 < k2 ? k1 : k2;
+}
+long long ff_wide_row_bytes(int channels) { return (long long)wide_row_bytes(channels); }
+
+// K1 on the wide-row path, any channel count and width: the arguments of
+// ff_flagger, and `scratch` of `ctas` x ff_wide_row_bytes(channels) bytes,
+// `ctas` at most ff_wide_ctas().
+int ff_flagger_wide(const void* vis, const void* in_flags, int mode, void* out, int rows,
+                    int channels, float n_sigma, const float* scales, int n_windows,
+                    int flag_value, void* scratch, int ctas, void* stream) {
+  Params p;
+  int err = make_params(&p, channels, n_sigma, scales, n_windows, flag_value, true);
+  if (err) return err;
+  if (rows < 1 || ctas < 1 || mode < 0 || mode > 2 || (mode != 0 && in_flags == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int grid = rows < ctas ? rows : ctas;
+  const float2* v = static_cast<const float2*>(vis);
+  const uint8_t* f = static_cast<const uint8_t*>(in_flags);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  unsigned char* sc = static_cast<unsigned char*>(scratch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case 0: flagger_wide_kernel<0><<<grid, kThreads, 0, s>>>(v, f, o, sc, rows, p); break;
+    case 1: flagger_wide_kernel<1><<<grid, kThreads, 0, s>>>(v, f, o, sc, rows, p); break;
+    default: flagger_wide_kernel<2><<<grid, kThreads, 0, s>>>(v, f, o, sc, rows, p); break;
+  }
+  return (int)cudaGetLastError();
+}
+
+// K2 on the wide-row path, any channel count; scratch as for ff_flagger_wide.
+int ff_madnz_threshold_wide(const void* dev, void* out, int rows, int channels, float n_sigma,
+                            const float* scales, int n_windows, int flag_value, void* scratch,
+                            int ctas, void* stream) {
+  Params p;
+  int err = make_params(&p, channels, n_sigma, scales, n_windows, flag_value, true);
+  if (err) return err;
+  if (rows < 1 || ctas < 1) return (int)cudaErrorInvalidValue;
+  const int grid = rows < ctas ? rows : ctas;
+  madnz_threshold_wide_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dev), static_cast<uint8_t*>(out),
+      static_cast<unsigned char*>(scratch), rows, p);
+  return (int)cudaGetLastError();
 }
 
 // K2's strided design, the same function (scripts/k2_ab.py).

@@ -58,6 +58,8 @@
 
 #include "ff_runs.cuh"  // ff_device.cuh, the run layout, K1's comparators
 
+static_assert(kHalf <= 15, "K10 takes odd widths 3..31");
+
 namespace {
 
 constexpr float kC = 3.0f;

@@ -18,17 +18,23 @@ variant launches as the kernel it varies (1024 threads, one CTA per SM at
   their members as 16-byte words: the TPU probe's roll-by-1 chains, where
   member d of channel c + 1 is member d + 1 of channel c);
 * **K12** ``deinterleave_probe.py::make.kernel`` (:41): :func:`amp_pairs`,
-  amplitudes from interleaved pairs, baseline-major or channel-major.
+  amplitudes from interleaved pairs, baseline-major or channel-major, the
+  latter read in place by a thread-block cluster of rows (:data:`CLUSTERS`);
+  and :data:`INPLACE`, ``channel_major``: K1 with its load stage replaced
+  by that in-place read of the channel-major dump, flag for flag K1 on the
+  corner-turned dump.  K12's earlier design stays as
+  :func:`amp_pairs_strided`.
 
-K9, K11 and K13 (:data:`RUN_LAYOUT`) are K1 on its run layout
-(``csrc/ff_runs.cuh``) and launch exactly as K1 does
+K9, K11, K13 and ``channel_major`` (:data:`RUN_LAYOUT`) are K1 on its run
+layout (``csrc/ff_runs.cuh``) and launch exactly as K1 does
 (:func:`.fused_flagger.launch_config`), up to K1's channel limit
-(:func:`.fused_flagger.max_channels`).  K12 stays on the strided layout
-(``csrc/ff_device.cuh``: thread t owns channels t, t + 1024, ... of a row
-held at 5 B per channel) beside ``strided_full``, K1 in that layout, flag
-for flag the current one (:data:`STRIDED`); they launch as K2's strided
-design does (:func:`.fused_flagger.strided_launch_config`), up to that
-layout's limit.
+(:func:`.fused_flagger.max_channels`); so does K12 (:func:`amp_pairs`),
+whose row passes through K1's amplitude words.  ``strided_full``, K1 on
+the strided layout (``csrc/ff_device.cuh``: thread t owns channels t,
+t + 1024, ... of a row held at 5 B per channel), flag for flag the current
+one (:data:`STRIDED`), and :func:`amp_pairs_strided` launch as K2's
+strided design does (:func:`.fused_flagger.strided_launch_config`), up to
+that layout's limit.
 
 The TPU probes' layout knobs (``bb``, ``fold``, ``interpret``) have no
 counterpart.  As in the TPU probes there are no input flags, a row holds
@@ -38,7 +44,9 @@ defaults (:data:`PARAMS`).
 A tensor on the CPU goes to the plain version beside each kernel
 (:func:`probe_plain`, :func:`amp_pairs_plain`), composed of the
 :mod:`.device` stages; a CUDA tensor goes to the kernel, or the call
-raises.  :data:`launches` counts the kernel launches per variant.
+raises.  :data:`launches` counts the kernel launches per variant and K12
+kernel, :data:`cluster_launches` the channel-major launches of K12 and
+``channel_major`` per cluster.
 """
 
 import ctypes
@@ -52,8 +60,10 @@ from . import MAD_NORMAL, device, fused_flagger as ff
 STAGE_ABLATE = ("full", "no_median", "no_rank", "no_thresh", "skeleton")
 RANK_SEARCHES = ("rank_pair", "zeros_fold", "radix_select")
 MEDIANS = ("shfl_median", "window_median")
-# On K1's run layout, launched as K1 is (K11, K13, K9).
-RUN_LAYOUT = STAGE_ABLATE + RANK_SEARCHES + MEDIANS
+# K1 reading the channel-major dump in place by K12's cluster read.
+INPLACE = ("channel_major",)
+# On K1's run layout, launched as K1 is (K11, K13, K9, K12's probe).
+RUN_LAYOUT = STAGE_ABLATE + RANK_SEARCHES + MEDIANS + INPLACE
 # On the strided layout, launched as K2's strided design is: K1 in that
 # layout, the "before" of ``scripts/k1_ab.py``.
 STRIDED = ("strided_full",)
@@ -64,23 +74,39 @@ VARIANTS = RUN_LAYOUT + STRIDED
 # the run layout.
 MEASUREMENT = ("radix_match_any",)
 # Those whose flags must equal K1's, flag for flag.
-EXACT = ("full",) + RANK_SEARCHES + MEDIANS + MEASUREMENT + STRIDED
+EXACT = ("full",) + RANK_SEARCHES + MEDIANS + INPLACE + MEASUREMENT + STRIDED
 # The TPU probe each variant ports, under the probe's name (``strided_full``
 # ports none).
 PROBES = {
     "stage_ablate": STAGE_ABLATE,
     "rankpair": RANK_SEARCHES,
     "rollchain": MEDIANS,
-    "deinterleave": ("amp_pairs",),
+    "deinterleave": ("amp_pairs",) + INPLACE,
 }
+# K12's kernels: at K1's launch (the redesign) and its earlier design.
+AMP_KERNELS = ("amp_pairs", "amp_pairs_strided")
+# The cluster sizes of K12's channel-major read, template instances in the
+# library (its measurement builds) of K12 and of ``channel_major``; CLUSTER
+# is the one they take by default, ``channel_major``'s fastest on the H100:
+# 66 clusters of 2 fill its 132 SMs, where clusters of 4 or 8 fill 120.
+CLUSTERS = (1, 2, 4, 8)
+CLUSTER = 2
+# The probes' median variants hold a window's members in registers.
+MAX_WIDTH = 31
 _CODE = {name: i for i, name in enumerate(RUN_LAYOUT + MEASUREMENT + STRIDED)}
 # The threshold's parameters, fixed as the TPU probes fix them.
 PARAMS = dict(n_sigma=11.0, n_windows=4, falloff=1.2, flag_value=1)
-_AMP_PAIRS = len(_CODE)  # then the channel-major kernel
+# K12's kernels in the library (AmpKernel): run layout baseline- and
+# channel-major, strided layout baseline- and channel-major.
+_AMP_CODE = {("amp_pairs", False): 0, ("amp_pairs", True): 1,
+             ("amp_pairs_strided", False): 2, ("amp_pairs_strided", True): 3}
 
-# Kernel launches since the counts were last reset, per variant.  Each
-# wrapper adds one where it launches its kernel, and nowhere else.
-launches = {name: 0 for name in VARIANTS + MEASUREMENT + ("amp_pairs",)}
+# Kernel launches since the counts were last reset, per variant and K12
+# kernel, and the launches of K12's channel-major read on the run layout
+# (K12's and `channel_major`'s) per cluster.
+# Each wrapper adds one where it launches its kernel, and nowhere else.
+launches = {name: 0 for name in VARIANTS + MEASUREMENT + AMP_KERNELS}
+cluster_launches = {g: 0 for g in CLUSTERS}
 
 
 @functools.lru_cache(maxsize=None)
@@ -97,15 +123,21 @@ def _library(width: int) -> ctypes.CDLL:
     lib.fp_launch_config.argtypes = [ctypes.c_int, ctypes.c_int] + ff._LAUNCH_CONFIG_OUT
     lib.fp_launch_config.restype = ctypes.c_int
     lib.fp_probe.argtypes = [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
     ]
     lib.fp_probe.restype = ctypes.c_int
     lib.fp_amp_pairs.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
     ]
     lib.fp_amp_pairs.restype = ctypes.c_int
+    lib.fp_amp_launch_config.argtypes = ([ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+                                         + ff._LAUNCH_CONFIG_OUT)
+    lib.fp_amp_launch_config.restype = ctypes.c_int
+    lib.fp_amp_max_channels.argtypes = [ctypes.c_int]
+    lib.fp_amp_max_channels.restype = ctypes.c_int
     return lib
 
 
@@ -122,24 +154,47 @@ def launch_config(variant: str, channels: int) -> dict:
     """How the kernel of `variant` launches at `channels`, from the library itself.
 
     The keys of :func:`.fused_flagger.launch_config`.  A variant of
-    :data:`RUN_LAYOUT` or :data:`MEASUREMENT` must launch as K1 does;
-    ``strided_full`` and ``amp_pairs`` as
-    :func:`.fused_flagger.strided_launch_config` says.
-    Needs a CUDA device.
+    :data:`RUN_LAYOUT` or :data:`MEASUREMENT`, and ``amp_pairs``, must
+    launch as K1 does; ``strided_full`` and ``amp_pairs_strided`` as
+    :func:`.fused_flagger.strided_launch_config` says.  For K12's kernels
+    see also :func:`amp_launch_config`.  Needs a CUDA device.
     """
-    code = _AMP_PAIRS if variant == "amp_pairs" else _CODE.get(variant)
+    if variant in AMP_KERNELS:
+        cfg = amp_launch_config(channels, strided=variant == "amp_pairs_strided")
+        del cfg["clusters"]
+        return cfg
+    code = _CODE.get(variant)
     if code is None:
         raise ValueError(f"unknown variant {variant!r}")
     lib = _library(13)  # the network header's width does not change the launch
     return ff._query_launch_config(lib, lib.fp_launch_config, code, channels)
 
 
+def amp_launch_config(channels: int, *, channel_major: bool = False, cluster: int = CLUSTER,
+                      strided: bool = False) -> dict:
+    """How a K12 kernel launches at `channels`: :func:`launch_config`'s keys and ``clusters``.
+
+    ``clusters`` is how many clusters of `cluster` rows fit the device at
+    once for the channel-major read on the run layout
+    (``cudaOccupancyMaxActiveClusters``), 0 for a kernel without a cluster.
+    Needs a CUDA device.
+    """
+    if cluster not in CLUSTERS:
+        raise ValueError(f"cluster must be one of {CLUSTERS}, got {cluster}")
+    lib = _library(13)
+    code = _AMP_CODE["amp_pairs_strided" if strided else "amp_pairs", channel_major]
+    clusters = ctypes.c_int()
+    cfg = ff._query_launch_config(lib, lib.fp_amp_launch_config, code, cluster, channels,
+                                  ctypes.byref(clusters))
+    return dict(cfg, clusters=clusters.value)
+
+
 def max_channels(variant: str) -> int:
-    """The most channels a row may hold in `variant` (or ``amp_pairs``); needs a CUDA device."""
+    """The most channels a row may hold in `variant` (or a K12 kernel); needs a CUDA device."""
     if variant not in launches:
         raise ValueError(f"unknown variant {variant!r}")
     lib = _library(13)
-    return (lib.ff_max_channels() if variant in RUN_LAYOUT + MEASUREMENT
+    return (lib.ff_max_channels() if variant in RUN_LAYOUT + MEASUREMENT + ("amp_pairs",)
             else lib.ff_strided_max_channels())
 
 
@@ -228,17 +283,24 @@ def probe_plain(vis_t, variant: str, *, width: int = 13):
                                 PARAMS["falloff"], PARAMS["flag_value"], transposed=True)
 
 
-def probe(vis_t, variant: str, *, width: int = 13):
+def probe(vis_t, variant: str, *, width: int = 13, cluster: int = CLUSTER):
     """Run the probe `variant` on baseline-major planar visibilities.
 
     Parameters
     ----------
     vis_t
         (rows, channels, 2) float32 (re, im) pairs, channels >= width.
+        ``channel_major`` reads the channel-major dump that
+        ``vis_t.transpose(0, 1)`` is, in place when that view is contiguous
+        (the bench's ``vis.transpose(0, 1)``), else from a contiguous copy
+        of it.
     variant
         One of :data:`VARIANTS`, or :data:`MEASUREMENT`.
     width
         The median's window, as K1's (:func:`.fused_flagger.flag_transposed`).
+    cluster
+        ``channel_major``'s rows read together, one of :data:`CLUSTERS`;
+        the other variants ignore it.
 
     Returns
     -------
@@ -246,8 +308,10 @@ def probe(vis_t, variant: str, *, width: int = 13):
     """
     if variant not in _CODE:
         raise ValueError(f"unknown variant {variant!r}; expected one of {VARIANTS + MEASUREMENT}")
-    if width % 2 != 1 or not 3 <= width <= ff.MAX_WIDTH:
-        raise ValueError(f"width must be odd and in 3..{ff.MAX_WIDTH}, got {width}")
+    if width % 2 != 1 or not 3 <= width <= MAX_WIDTH:
+        raise ValueError(f"width must be odd and in 3..{MAX_WIDTH}, got {width}")
+    if cluster not in CLUSTERS:
+        raise ValueError(f"cluster must be one of {CLUSTERS}, got {cluster}")
     _check_vis(vis_t, "vis_t")
     rows, channels = vis_t.shape[:2]
     if channels < width:
@@ -260,13 +324,19 @@ def probe(vis_t, variant: str, *, width: int = 13):
     with torch.cuda.device(vis_t.device):
         ff._check_limit(channels, max_channels(variant))
         lib = _library(width)
-        scales, sigma, stream = ff._launch_args([vis_t], channels, PARAMS["n_sigma"],
+        src = vis_t
+        if variant in INPLACE:
+            src = vis_t.transpose(0, 1)
+            src = src if src.is_contiguous() else src.contiguous()
+        scales, sigma, stream = ff._launch_args([src], channels, PARAMS["n_sigma"],
                                                 PARAMS["falloff"], PARAMS["n_windows"])
-        err = lib.fp_probe(_CODE[variant], vis_t.data_ptr(), out.data_ptr(), rows, channels,
-                           sigma, scales.ctypes.data, len(scales), PARAMS["flag_value"],
-                           stream)
+        err = lib.fp_probe(_CODE[variant], cluster, src.data_ptr(), out.data_ptr(), rows,
+                           channels, sigma, scales.ctypes.data, len(scales),
+                           PARAMS["flag_value"], stream)
     ff._raise_on(lib, err, variant)
     launches[variant] += 1
+    if variant in INPLACE:
+        cluster_launches[cluster] += 1
     return out
 
 
@@ -276,13 +346,31 @@ def amp_pairs_plain(vis, *, channel_major: bool = False):
     return amp.transpose(0, 1).contiguous() if channel_major else amp
 
 
-def amp_pairs(vis, *, channel_major: bool = False):
-    """Amplitudes of interleaved (re, im) float32 pairs, one CTA per row (K12).
+def amp_pairs(vis, *, channel_major: bool = False, cluster: int = CLUSTER):
+    """Amplitudes of interleaved (re, im) float32 pairs at K1's launch (K12).
 
     `vis` is (rows, channels, 2), or (channels, rows, 2) with
     ``channel_major`` (the main path's input, read in place with no corner
-    turn).  Returns (rows, channels) float32 on the input's device.
+    turn, by clusters of `cluster` rows, one of :data:`CLUSTERS`: 1 reads
+    one row a CTA).  Each row passes through its CTA's amplitude words, as
+    K1's load stage leaves them.  Returns (rows, channels) float32 on the
+    input's device.
     """
+    if cluster not in CLUSTERS:
+        raise ValueError(f"cluster must be one of {CLUSTERS}, got {cluster}")
+    return _amp("amp_pairs", vis, channel_major, cluster)
+
+
+def amp_pairs_strided(vis, *, channel_major: bool = False):
+    """K12's earlier design: :func:`amp_pairs` with one CTA per row on the strided layout.
+
+    A thread loads one pair an iteration; channel-major, a warp's 32 loads
+    are `rows` pairs apart.  Launches as K2's strided design does.
+    """
+    return _amp("amp_pairs_strided", vis, channel_major, 1)
+
+
+def _amp(kernel: str, vis, channel_major: bool, cluster: int):
     _check_vis(vis, "vis")
     if channel_major:
         channels, rows = vis.shape[:2]
@@ -297,12 +385,14 @@ def amp_pairs(vis, *, channel_major: bool = False):
         return out
     with torch.cuda.device(vis.device):
         lib = _library(13)  # the network header's width does not affect K12
-        limit = lib.ff_strided_max_channels()
+        code = _AMP_CODE[kernel, channel_major]
+        limit = lib.fp_amp_max_channels(code)
         if channels > limit:
-            raise ValueError(f"{channels} channels exceed the strided layout's limit of "
-                             f"{limit} channels")
-        err = lib.fp_amp_pairs(vis.data_ptr(), int(channel_major), out.data_ptr(), rows,
-                               channels, torch.cuda.current_stream(vis.device).cuda_stream)
-    ff._raise_on(lib, err, "amp_pairs")
-    launches["amp_pairs"] += 1
+            raise ValueError(f"{channels} channels exceed {kernel}'s limit of {limit} channels")
+        err = lib.fp_amp_pairs(code, cluster, vis.data_ptr(), out.data_ptr(), rows, channels,
+                               torch.cuda.current_stream(vis.device).cuda_stream)
+    ff._raise_on(lib, err, kernel)
+    launches[kernel] += 1
+    if kernel == "amp_pairs" and channel_major:
+        cluster_launches[cluster] += 1
     return out

@@ -10,19 +10,25 @@ kernels live in ``csrc/fused_flagger.cu``:
   SumThreshold) with one CTA per row and the row resident in shared
   memory, so each visibility is read once and each flag written once.
   Its row is in the run layout of ``csrc/ff_runs.cuh``
-  (:func:`launch_config`, :func:`max_channels`).
+  (:func:`launch_config`, :func:`max_channels`); longer rows and wider
+  windows take the wide-row path (below).
 * **K2** (``madnz_threshold``) replaces
   ``pallas_flagger.py::_madnz_threshold_block``: MAD noise + SumThreshold
-  from deviations, for the hybrid engine, on K1's run layout and up to
-  K1's channel limit (:func:`max_channels`).  Its earlier design on the
-  strided layout of ``csrc/ff_device.cuh`` stays in the library as that
-  layout's launch (:func:`strided_launch_config`), which the probes on
-  that layout (K9, K12, ``strided_full``) and the cost probes are held
-  to, and as the "before" of
-  ``scripts/k2_ab.py``.
+  from deviations, for the hybrid engine, on K1's run layout up to K1's
+  channel limit (:func:`max_channels`), and on the wide-row path beyond
+  it.  Its earlier design on the strided layout of ``csrc/ff_device.cuh``
+  stays in the library as that layout's launch
+  (:func:`strided_launch_config`), which the probes on that layout
+  (``strided_full``, K12's earlier design ``amp_pairs_strided``) and the
+  cost probe K8 are held to, and as the "before" of ``scripts/k2_ab.py``.
 
 Both run as one launch over all rows, which takes the place of the TPU's
-in-kernel DMA block loop (``_dma_block_loop``).  The wrappers take the
+in-kernel DMA block loop (``_dma_block_loop``).  A row longer than
+:func:`max_channels` does not fit one CTA's shared memory: it takes the
+*wide-row path*, the same stages in the strided layout's arithmetic on a
+slice of a device scratch buffer that the wrapper allocates, one slice for
+each CTA of a grid of about one CTA per SM that loops over the rows
+(:data:`wide_launches` counts these launches).  The wrappers take the
 JAX functions' parameters in their order.  The TPU layout knobs (``bb``,
 ``fold``, ``interpret``, ``nref``, ``pipeline``, ``rank_radix``,
 ``slab``) are accepted and ignored: a row is one CTA.  ``rank_radix`` is
@@ -49,8 +55,18 @@ from .device import BackgroundFlags
 # Kernel launches since the counts were last reset, per kernel.  Each
 # wrapper adds one where it launches its kernel, and nowhere else.
 launches = {"flagger": 0, "madnz_threshold": 0}
+# Of those, the launches on the wide-row path.
+wide_launches = {"flagger": 0, "madnz_threshold": 0}
 
-MAX_WIDTH = 31  # the kernel holds a window's members in registers
+# The widest window whose members K1 holds in registers, sorted by a
+# selection network without spilling at 64 registers (nvcc 12.9 for
+# sm_90a: 51 spills 4 B on the wide-row path; ``chip_smoke.py`` phase 2
+# checks each width it builds).  Wider windows take the median's ranks by
+# counting, from the members in shared or device memory.
+REGISTER_MAX_WIDTH = 49
+# The widest window of the run layout's in-place median
+# (``runs::kMaxInPlaceWidth``); wider ones take the wide-row path.
+IN_PLACE_MAX_WIDTH = 65
 
 
 def _network_header(width: int) -> str:
@@ -58,8 +74,13 @@ def _network_header(width: int) -> str:
 
     Rendered from :func:`..ops.rank.selection_network`, so the kernel runs
     the same comparators, in the same order, as the tensor code and the
-    JAX reference.
+    JAX reference.  Above :data:`REGISTER_MAX_WIDTH` it defines
+    ``FF_MEDIAN_COUNT`` instead: the kernel takes the same ranks by
+    counting.
     """
+    if width > REGISTER_MAX_WIDTH:
+        return ("// The median's ranks by counting (ff_device.cuh's count_deviation).\n"
+                f"#define FF_WIDTH {width}\n#define FF_MEDIAN_COUNT 1\n")
     h = width // 2
     macro = {"both": "FF_CE_BOTH", "min": "FF_CE_MIN", "max": "FF_CE_MAX"}
 
@@ -95,8 +116,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ff_max_channels.restype = ctypes.c_int
     lib.ff_error_string.argtypes = [ctypes.c_int]
     lib.ff_error_string.restype = ctypes.c_char_p
-    lib.ff_strided_max_channels.argtypes = []
-    lib.ff_strided_max_channels.restype = ctypes.c_int
+    for query in (lib.ff_strided_max_channels, lib.ff_max_in_place_width, lib.ff_wide_ctas):
+        query.argtypes = []
+        query.restype = ctypes.c_int
+    lib.ff_wide_row_bytes.argtypes = [ctypes.c_int]
+    lib.ff_wide_row_bytes.restype = ctypes.c_longlong
     for query in (lib.ff_launch_config, lib.ff_strided_launch_config):
         query.argtypes = [ctypes.c_int] + _LAUNCH_CONFIG_OUT
         query.restype = ctypes.c_int
@@ -106,6 +130,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     lib.ff_flagger.restype = ctypes.c_int
+    lib.ff_flagger_wide.argtypes = lib.ff_flagger.argtypes[:-1] + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.ff_flagger_wide.restype = ctypes.c_int
+    lib.ff_madnz_threshold_wide.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    lib.ff_madnz_threshold_wide.restype = ctypes.c_int
     for madnz in (lib.ff_madnz_threshold, lib.ff_madnz_threshold_strided):
         madnz.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
@@ -169,6 +202,7 @@ def _window_scales(falloff: float, n_windows: int, channels: int) -> np.ndarray:
 
 
 def _check_limit(channels: int, limit: int) -> None:
+    """The probes' and measurement builds' limit: their rows have no wide-row path."""
     if channels > limit:
         raise ValueError(
             f"{channels} channels exceed the kernel's limit of {limit} channels: one "
@@ -182,6 +216,24 @@ def _launch_args(tensors, channels: int, n_sigma: float, falloff: float, n_windo
     scales = _window_scales(falloff, n_windows, channels)
     stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
     return scales, ctypes.c_float(np.float32(n_sigma)), stream
+
+
+def _wide_path(channels: int, limit: int, width: int = 13) -> bool:
+    """Whether a row takes the wide-row path on the card.
+
+    It does when it is longer than `limit` (:func:`max_channels`) or its
+    window wider than :data:`IN_PLACE_MAX_WIDTH`.
+    """
+    return channels > limit or width > IN_PLACE_MAX_WIDTH
+
+
+def _wide_scratch(lib, rows: int, channels: int, dev):
+    """The wide-row path's grid and its scratch, one row's slice per CTA."""
+    ctas = min(rows, lib.ff_wide_ctas())
+    if ctas < 1:
+        raise RuntimeError("no CTA of the wide-row path fits an SM of this device")
+    nbytes = ctas * lib.ff_wide_row_bytes(channels)
+    return ctas, torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
 
 def _raise_on(lib, err: int, kernel: str) -> None:
@@ -218,9 +270,9 @@ def strided_launch_config(channels: int) -> dict:
 
     The keys of :func:`launch_config`, for K2's strided design at
     `channels`: thread t owns channels t, t + 1024, ... of a row held at
-    5 B per channel.  The probes K9 and K12 with ``strided_full``, the
-    roofline skeleton and the cost probes compile that layout and are held
-    to this configuration.
+    5 B per channel.  The probe ``strided_full``, K12's earlier design
+    ``amp_pairs_strided`` and the cost probe K8 are held to this
+    configuration.
     Needs a CUDA device.
     """
     lib = _library(13)
@@ -228,7 +280,10 @@ def strided_launch_config(channels: int) -> dict:
 
 
 def max_channels() -> int:
-    """The most channels a row may hold in K1 and K2 (the run layout); needs a CUDA device."""
+    """The most channels of a row on K1's and K2's shared-memory path (the run layout).
+
+    Longer rows take the wide-row path.  Needs a CUDA device.
+    """
     return _library(13).ff_max_channels()
 
 
@@ -288,7 +343,15 @@ def flag_transposed(vis_t, input_flags=None, width: int = 13, n_sigma: float = 1
         Optional (channels,) uint8 prior flags shared by every row
         (CHANNEL mode).  Mutually exclusive with ``input_flags``.
     width, n_sigma, n_windows, falloff, flag_value
-        The flagger's parameters, as in the JAX function.
+        The flagger's parameters, as in the JAX function: any odd
+        ``width >= 3``.  On the card the width picks K1's median path:
+        up to :data:`REGISTER_MAX_WIDTH` (49) the window's members sit in
+        registers and a selection network sorts them; up to
+        :data:`IN_PLACE_MAX_WIDTH` (65) the kernel counts their ranks from
+        the members in shared memory; wider windows, and rows longer than
+        :func:`max_channels`, take the wide-row path, which counts (or,
+        up to 49, sorts) from the members in device scratch.  Every path
+        gives the plain version's flags.
     bb, fold, interpret, nref, rank_radix
         The TPU kernel's layout knobs.  Accepted and ignored: they do not
         change the result, and a row here is one CTA.  ``rank_radix``
@@ -306,8 +369,8 @@ def flag_transposed(vis_t, input_flags=None, width: int = 13, n_sigma: float = 1
     _check_layout(layout, ingest)
     if input_flags is not None and channel_flags is not None:
         raise ValueError("pass either input_flags (FULL) or channel_flags (CHANNEL), not both")
-    if width % 2 != 1 or not 3 <= width <= MAX_WIDTH:
-        raise ValueError(f"width must be odd and in 3..{MAX_WIDTH}, got {width}")
+    if width % 2 != 1 or width < 3:
+        raise ValueError(f"width must be odd and at least 3, got {width}")
     _check_params(n_windows, flag_value)
     if not isinstance(vis_t, torch.Tensor) or vis_t.ndim != 3 or vis_t.shape[-1] != 2:
         raise ValueError("vis_t must be a (rows, channels, 2) tensor")
@@ -334,16 +397,22 @@ def flag_transposed(vis_t, input_flags=None, width: int = 13, n_sigma: float = 1
         elif channel_flags is not None:
             mode, flags = 2, channel_flags
         lib = _library(width)
-        _check_limit(channels, lib.ff_max_channels())
+        wide = _wide_path(channels, lib.ff_max_channels(), width)
         vis_t = _row_major(vis_t)
         flags = None if flags is None else _row_major(flags)
         scales, sigma, stream = _launch_args(
             [t for t in (vis_t, flags) if t is not None], channels, n_sigma, falloff, n_windows)
-        err = lib.ff_flagger(vis_t.data_ptr(), None if flags is None else flags.data_ptr(), mode,
-                             out.data_ptr(), rows, channels, sigma, scales.ctypes.data,
-                             len(scales), flag_value, stream)
+        args = (vis_t.data_ptr(), None if flags is None else flags.data_ptr(), mode,
+                out.data_ptr(), rows, channels, sigma, scales.ctypes.data, len(scales),
+                flag_value)
+        if wide:
+            ctas, scratch = _wide_scratch(lib, rows, channels, vis_t.device)
+            err = lib.ff_flagger_wide(*args, scratch.data_ptr(), ctas, stream)
+        else:
+            err = lib.ff_flagger(*args, stream)
     _raise_on(lib, err, "flagger")
     launches["flagger"] += 1
+    wide_launches["flagger"] += wide
     return out
 
 
@@ -378,10 +447,10 @@ def madnz_threshold(dev_t, n_sigma: float = 11.0, n_windows: int = 4, falloff: f
     ``rank_radix``) are accepted and ignored, but a ``rank_radix`` outside
     1..4 raises ``ValueError`` as in the JAX function.  On the card the transposed
     view of a contiguous (channels, rows) array is corner-turned by K5
-    first, any other strided layout copied.  A row holds up to
-    :func:`max_channels` channels on the card (K1's limit, the run
-    layout's); more raise ``ValueError``.  Returns (rows, channels) uint8
-    flags on the input's device.
+    first, any other strided layout copied.  A row of up to
+    :func:`max_channels` channels runs on K1's run layout, a longer one on
+    the wide-row path.  Returns (rows, channels) uint8 flags on the
+    input's device.
     """
     _check_rank_radix(rank_radix)
     del bb, fold, interpret, nref, pipeline, rank_radix
@@ -402,11 +471,17 @@ def madnz_threshold(dev_t, n_sigma: float = 11.0, n_windows: int = 4, falloff: f
     with torch.cuda.device(dev_t.device):
         # K2 shares K1's library; the network header's width does not affect it.
         lib = _library(13)
-        _check_limit(channels, lib.ff_max_channels())
+        wide = _wide_path(channels, lib.ff_max_channels())
         dev_t = _row_major(dev_t)
         scales, sigma, stream = _launch_args([dev_t], channels, n_sigma, falloff, n_windows)
-        err = lib.ff_madnz_threshold(dev_t.data_ptr(), out.data_ptr(), rows, channels, sigma,
-                                     scales.ctypes.data, len(scales), flag_value, stream)
+        args = (dev_t.data_ptr(), out.data_ptr(), rows, channels, sigma, scales.ctypes.data,
+                len(scales), flag_value)
+        if wide:
+            ctas, scratch = _wide_scratch(lib, rows, channels, dev_t.device)
+            err = lib.ff_madnz_threshold_wide(*args, scratch.data_ptr(), ctas, stream)
+        else:
+            err = lib.ff_madnz_threshold(*args, stream)
     _raise_on(lib, err, "madnz_threshold")
     launches["madnz_threshold"] += 1
+    wide_launches["madnz_threshold"] += wide
     return out

@@ -137,8 +137,8 @@ def skeleton(amp, *, width: int = 13, flag_scale: float = FLAG_SCALE, return_ran
     0; 1 makes the output the dilated flags).  A row holds at least
     ``max(width, 12)`` channels.
     """
-    if width % 2 != 1 or not 3 <= width <= ff.MAX_WIDTH:
-        raise ValueError(f"width must be odd and in 3..{ff.MAX_WIDTH}, got {width}")
+    if width % 2 != 1 or not 3 <= width <= fp.MAX_WIDTH:
+        raise ValueError(f"width must be odd and in 3..{fp.MAX_WIDTH}, got {width}")
     if not isinstance(amp, torch.Tensor) or amp.ndim != 2 or amp.dtype != torch.float32:
         raise TypeError("amp must be a 2-D torch.float32 tensor")
     rows, channels = amp.shape

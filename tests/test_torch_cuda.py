@@ -93,10 +93,8 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         ff.madnz_threshold(torch.zeros((4, 64), dtype=torch.float16, device=cuda))
     with pytest.raises(ValueError, match="on cpu"):
         ff.flag_transposed(vis_t, torch.zeros((4, 64), dtype=torch.uint8))
-    with pytest.raises(ValueError, match="limit"):
-        ff.madnz_threshold(torch.zeros((1, ff.max_channels() + 1), device=cuda))
-    with pytest.raises(ValueError, match="limit"):
-        ff.flag_dump(torch.zeros((1, ff.max_channels() + 1, 2), device=cuda))
+    with pytest.raises(ValueError, match="odd"):
+        ff.flag_transposed(vis_t, width=34)
     with pytest.raises(NotImplementedError, match="leading"):
         ff.flag_dump(vis_t, layout="leading")
     with pytest.raises(ValueError, match="rank_radix"):
@@ -188,6 +186,78 @@ def test_k2_at_run_layout_edges_matches_plain_and_strided(cuda, channels, kind):
         assert torch.equal(got, ff.madnz_threshold_plain(dev_t, **kw)), kw
         if channels <= ff._library(13).ff_strided_max_channels():
             assert torch.equal(got, k2_ab.strided(dev_t, **kw)), kw
+
+
+# Rows longer than the run layout holds take the wide-row path: just past
+# the limit, a u64 mask's 65536 channels and one past it, and twice that.
+_WIDE_CHANNELS = ("limit+1", 65536, 65537, 131072)
+
+
+@pytest.mark.parametrize("channels", _WIDE_CHANNELS)
+@pytest.mark.parametrize("mode", ["none", "full", "channel"])
+def test_k1_wide_rows_match_plain(cuda, channels, mode):
+    """K1 on the wide-row path in every flag mode, with a NaN in a row and a
+    row of +inf amplitudes where there are no input flags (with them, K1
+    and the JAX kernel take +inf as flagged and NaN as present, the plain
+    version the other way), and the launch counted as a wide one."""
+    if channels == "limit+1":
+        channels = ff.max_channels() + 1
+    vis_t, flags = _dump(channels, 3, seed=channels % 1000)
+    if mode == "none":
+        vis_t[1, channels // 2, 0] = float("nan")
+        vis_t[2, ::7, 1] = float("inf")
+    vis_t, flags = vis_t.to(cuda), flags.to(cuda)
+    kw = {"none": {}, "full": {"input_flags": flags},
+          "channel": {"channel_flags": flags[0].contiguous()}}[mode]
+    before = dict(ff.wide_launches)
+    for n_windows, flag_value in ((4, 1), (6, 3)):
+        got = ff.flag_transposed(vis_t, **kw, n_windows=n_windows, flag_value=flag_value)
+        want = ff.flag_transposed_plain(vis_t, **kw, n_windows=n_windows, flag_value=flag_value)
+        assert torch.equal(got, want), (n_windows, int((got != want).sum()))
+        assert got[0].any()
+    assert ff.wide_launches["flagger"] == before["flagger"] + 2
+
+
+@pytest.mark.parametrize("channels", _WIDE_CHANNELS)
+@pytest.mark.parametrize("kind", ["dump", "adversarial"])
+def test_k2_wide_rows_match_plain(cuda, channels, kind):
+    """K2 on the wide-row path, on a dump's deviations and on NaN, +-inf, -0,
+    denormal and zero deviations."""
+    if channels == "limit+1":
+        channels = ff.max_channels() + 1
+    if kind == "dump":
+        vis_t, _ = _dump(channels, 4, seed=channels % 1000)
+        dev_t = device.background_median_filter(
+            vis_t.to(cuda).transpose(0, 1), None, 13, False,
+            device.BackgroundFlags.NONE).T.contiguous()
+    else:
+        dev_t = torch.from_numpy(k2_ab.adversarial_deviations(8, channels, 7)).to(cuda)
+    before = ff.wide_launches["madnz_threshold"]
+    for kw in ({}, {"n_sigma": 5.0, "n_windows": 6, "flag_value": 3}):
+        got = ff.madnz_threshold(dev_t, **kw)
+        want = ff.madnz_threshold_plain(dev_t, **kw)
+        assert torch.equal(got, want), (kw, int((got != want).sum()))
+    assert ff.wide_launches["madnz_threshold"] == before + 2
+
+
+# Widths on both sides of the switch from a network over registers to
+# counting ranks from shared memory (REGISTER_MAX_WIDTH), the widest the
+# run layout's in-place median takes, and one on the wide-row path.
+@pytest.mark.parametrize("width", [33, 35, 49, 51, 63, 101])
+@pytest.mark.parametrize("channels", [40, 300, 1025, 4097])
+@pytest.mark.parametrize("mode", ["none", "full", "channel"])
+def test_k1_wide_windows_match_plain(cuda, width, channels, mode):
+    vis_t, flags = _dump(channels, 4, seed=width + channels)
+    if mode == "none" and channels >= width:  # NaN through the fast median only (ROADMAP)
+        vis_t[3, channels // 3, 1] = float("nan")
+    vis_t, flags = vis_t.to(cuda), flags.to(cuda)
+    kw = {"none": {}, "full": {"input_flags": flags},
+          "channel": {"channel_flags": flags[0].contiguous()}}[mode]
+    before = ff.wide_launches["flagger"]
+    got = ff.flag_transposed(vis_t, **kw, width=width)
+    want = ff.flag_transposed_plain(vis_t, **kw, width=width)
+    assert torch.equal(got, want), int((got != want).sum())
+    assert ff.wide_launches["flagger"] == before + (width > ff.IN_PLACE_MAX_WIDTH)
 
 
 def test_k1_channel_limit_and_launch(cuda):
@@ -374,7 +444,8 @@ def _probe():
 @pytest.mark.parametrize("channels,rows", [(99, 8), (300, 8), (2048, 6), (32768, 2)])
 @pytest.mark.parametrize("variant", ["full", "no_median", "no_rank", "no_thresh", "skeleton",
                                      "rank_pair", "zeros_fold", "shfl_median", "radix_select",
-                                     "strided_full", "radix_match_any", "window_median"])
+                                     "strided_full", "radix_match_any", "window_median",
+                                     "channel_major"])
 def test_probe_matches_plain(cuda, variant, channels, rows):
     fp = _probe()
     vis_t, _ = _dump(channels, rows, seed=channels + rows)
@@ -439,6 +510,67 @@ def test_amp_pairs_matches_plain(cuda, channels, rows):
                        want.view(torch.int32))
 
 
+# K12 and `channel_major` at cluster edges: 1, 3 and 5 rows leave a
+# cluster part empty (and 3 and 5 are odd: no 16-byte loads), 8064 rows
+# are the dump's; channels 1 and 13 split unevenly over a cluster's CTAs.
+_K12_SHAPES = ([(r, c) for r in (1, 3, 5) for c in (1, 13, 1024, 32768, "limit")]
+               + [(8064, c) for c in (1, 13, 1024)])
+
+
+@pytest.mark.parametrize("rows,channels", _K12_SHAPES)
+def test_k12_builds_match_plain_bit_for_bit(cuda, rows, channels):
+    fp = _probe()
+    if channels == "limit":
+        channels = ff.max_channels()
+    vis_t, _ = _dump(channels, rows, seed=rows + 3)
+    vis_t[0, channels // 2] = torch.tensor([float("inf"), float("nan")])
+    vis_t = vis_t.to(cuda)
+    vis_c = vis_t.transpose(0, 1).contiguous()
+    want = fp.amp_pairs_plain(vis_t).view(torch.int32)
+    before = dict(fp.cluster_launches)
+    for g in fp.CLUSTERS:
+        got = fp.amp_pairs(vis_c, channel_major=True, cluster=g)
+        assert torch.equal(got.view(torch.int32), want), g
+    assert all(fp.cluster_launches[g] == before[g] + 1 for g in fp.CLUSTERS)
+    assert torch.equal(fp.amp_pairs(vis_t).view(torch.int32), want)
+    if channels <= fp.max_channels("amp_pairs_strided"):
+        assert torch.equal(fp.amp_pairs_strided(vis_c, channel_major=True).view(torch.int32),
+                           want)
+        assert torch.equal(fp.amp_pairs_strided(vis_t).view(torch.int32), want)
+
+
+@pytest.mark.parametrize("rows,channels", [(r, c) for r, c in _K12_SHAPES if c != 1])
+def test_channel_major_matches_k1(cuda, rows, channels):
+    """K1 reading the channel-major dump in place: flag for flag K1 on the
+    corner-turned dump, with NaN and +inf rows, read from the transposed
+    view of the dump (in place) and from a contiguous baseline-major copy."""
+    fp = _probe()
+    if channels == "limit":
+        channels = ff.max_channels()
+    vis_t, _ = _dump(channels, rows, seed=rows + 4)
+    vis_t[0, channels // 2, 0] = float("nan")
+    if rows > 2:
+        vis_t[2, ::3, 1] = float("inf")
+    vis_c = vis_t.transpose(0, 1).contiguous().to(cuda)  # (C, rows, 2)
+    k1 = ff.flag_transposed(vis_c.transpose(0, 1).contiguous())
+    before = fp.launches["channel_major"]
+    for g in fp.CLUSTERS:
+        assert torch.equal(fp.probe(vis_c.transpose(0, 1), "channel_major", cluster=g), k1), g
+    assert torch.equal(fp.probe(vis_c.transpose(0, 1).contiguous(), "channel_major"), k1)
+    assert fp.launches["channel_major"] == before + len(fp.CLUSTERS) + 1
+
+
+def test_k12_clusters_fit_the_card(cuda):
+    """Every cluster of K12's channel-major read launches at K1's CTA, and
+    at least one cluster fits the card at a time."""
+    fp = _probe()
+    k1 = ff.launch_config(32768)
+    for g in fp.CLUSTERS:
+        cfg = fp.amp_launch_config(32768, channel_major=True, cluster=g)
+        assert {k: cfg[k] for k in k1} == k1, (g, cfg)
+        assert (cfg["clusters"] >= 1) == (g > 1), (g, cfg)
+
+
 def test_probes_launch_as_k1_does(cuda):
     """K9, K11 and K13 launch as K1 does, on its run layout: 1024 threads and
     K1's dynamic shared memory (151840 B at 32768 channels) at every size,
@@ -450,7 +582,7 @@ def test_probes_launch_as_k1_does(cuda):
         assert k1["threads"] == 1024, k1
         if channels == 32768:
             assert k1["ctas_per_sm"] == 1 and k1["smem_bytes"] == 151840, k1
-        for variant in fp.RUN_LAYOUT + fp.MEASUREMENT:
+        for variant in fp.RUN_LAYOUT + fp.MEASUREMENT + ("amp_pairs",):
             cfg = fp.launch_config(variant, channels)
             if channels == 32768:
                 assert cfg == k1, (variant, cfg, k1)
@@ -460,15 +592,15 @@ def test_probes_launch_as_k1_does(cuda):
 
 
 def test_strided_probes_launch_as_k2s_strided_design_does(cuda):
-    """`strided_full` and K12 launch as K2's strided design does (the
-    strided layout), one CTA per SM at 32768 channels."""
+    """`strided_full` and K12's earlier design launch as K2's strided design
+    does (the strided layout), one CTA per SM at 32768 channels."""
     fp = _probe()
     for channels in (128, 32768):
         strided = ff.strided_launch_config(channels)
         assert strided["threads"] == 1024, strided
         if channels == 32768:
             assert strided["ctas_per_sm"] == 1, strided
-        for variant in fp.STRIDED + ("amp_pairs",):
+        for variant in fp.STRIDED + ("amp_pairs_strided",):
             cfg = fp.launch_config(variant, channels)
             if channels == 32768:
                 assert cfg == strided, (variant, cfg, strided)
@@ -493,12 +625,13 @@ def test_probe_launch_counts_and_errors(cuda):
         fp.probe(torch.zeros((64, 4, 2), device=cuda).transpose(0, 1), "full")
     with pytest.raises(ValueError, match="contiguous"):
         fp.amp_pairs(torch.zeros((64, 4, 2), device=cuda).transpose(0, 1))
-    # Each layout's own limit: K9, K11 and K13 take K1's, `strided_full` and
-    # K12 the strided one.
+    # Each layout's own limit: K9, K11, K13 and K12 take K1's, `strided_full`
+    # and K12's earlier design the strided one.
     run_limit, strided_limit = ff.max_channels(), fp.max_channels("strided_full")
     assert fp.max_channels("skeleton") == run_limit > 50000 > strided_limit
     assert fp.max_channels("shfl_median") == fp.max_channels("window_median") == run_limit
-    assert fp.max_channels("amp_pairs") == strided_limit
+    assert fp.max_channels("amp_pairs") == fp.max_channels("channel_major") == run_limit
+    assert fp.max_channels("amp_pairs_strided") == strided_limit
     for variant in ("skeleton", "radix_select") + fp.MEDIANS:
         with pytest.raises(ValueError, match="limit"):
             fp.probe(torch.zeros((1, run_limit + 1, 2), device=cuda), variant)
@@ -506,7 +639,9 @@ def test_probe_launch_counts_and_errors(cuda):
         with pytest.raises(ValueError, match="limit"):
             fp.probe(torch.zeros((1, strided_limit + 1, 2), device=cuda), variant)
     with pytest.raises(ValueError, match="limit"):
-        fp.amp_pairs(torch.zeros((1, strided_limit + 1, 2), device=cuda))
+        fp.amp_pairs_strided(torch.zeros((1, strided_limit + 1, 2), device=cuda))
+    with pytest.raises(ValueError, match="limit"):
+        fp.amp_pairs(torch.zeros((1, run_limit + 1, 2), device=cuda))
 
 
 def test_time_fn_times_the_card(cuda):

@@ -216,12 +216,60 @@ def test_rank_radix_1_to_4_is_accepted_and_ignored(rank_radix):
                                   ff.madnz_threshold(dev_t).numpy())
 
 
+def _spiked_vis_t(rows: int, channels: int, seed: int = 1) -> np.ndarray:
+    """(rows, channels, 2) standard-normal float32, channel 100 scaled by 50."""
+    vt = np.random.default_rng(seed).standard_normal((rows, channels, 2)).astype(np.float32)
+    vt[:, 100] *= 50.0
+    return vt
+
+
+def _host_flags(vt: np.ndarray, width: int) -> np.ndarray:
+    vis = (vt[..., 0] + 1j * vt[..., 1]).T  # (channels, rows) complex
+    return thost.FlaggerHost(thost.BackgroundMedianFilterHost(width), thost.NoiseEstMADHost(),
+                             thost.ThresholdSumHost(11.0))(vis).T
+
+
+@pytest.mark.parametrize("width", [33, 35, 41])
+def test_wide_windows_match_pallas_and_host(width):
+    """Every odd width flags as the JAX kernel and the host oracle do: the
+    port once refused widths above 31, which the JAX function takes."""
+    vt = _spiked_vis_t(8, 256)
+    got = ff.flag_transposed(torch.from_numpy(vt), **{**PARAMS, "width": width})
+    want = jpf.flag_transposed(jnp.asarray(vt), bb=8, fold=256, interpret=True,
+                               **{**PARAMS, "width": width})
+    assert got.numpy()[:, 100].all()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), _host_flags(vt, width))
+
+
+def test_rows_above_the_card_limit_take_the_wide_path():
+    """A row longer than the run layout holds on the H100 (52310 channels)
+    goes to the wide-row path on the card, and on the CPU to the plain
+    version, whose flags are the host oracle's; so does a window too wide
+    for the run layout's in-place median."""
+    limit = 52310
+    assert not ff._wide_path(limit, limit) and ff._wide_path(limit + 1, limit)
+    assert ff._wide_path(65537, limit) and ff._wide_path(1024, limit, width=67)
+    assert not ff._wide_path(1024, limit, width=ff.IN_PLACE_MAX_WIDTH)
+    vt = _spiked_vis_t(2, 65537, seed=2)
+    before = dict(ff.launches), dict(ff.wide_launches)
+    got = ff.flag_transposed(torch.from_numpy(vt))
+    assert got.shape == (2, 65537) and got.numpy()[:, 100].all()
+    np.testing.assert_array_equal(got.numpy(), _host_flags(vt, 13))
+    assert (ff.launches, ff.wide_launches) == before  # no kernel ran on the CPU
+
+
 def test_network_header_renders_the_port_networks():
     text = ff._network_header(13)
     assert "#define FF_WIDTH 13" in text
     fast = next(line for line in text.splitlines() if line.startswith("#define FF_NET_FAST"))
     assert fast.count("FF_CE_") == len(tdev.rank_ops.selection_network(13, (6, 7)))
     assert "FF_CE_BOTH(w, 0, 8) FF_CE_BOTH(w, 0, 12)" in fast
+    # Above the widest window whose members sit in registers, the kernel
+    # counts the median's ranks instead of running a network.
+    wide = ff._network_header(ff.REGISTER_MAX_WIDTH + 2)
+    assert "#define FF_MEDIAN_COUNT" in wide and "FF_NET_FAST" not in wide
+    assert "FF_NET_FAST" in ff._network_header(ff.REGISTER_MAX_WIDTH)
 
 
 def test_port_runs_without_jax():

@@ -143,6 +143,40 @@ def test_amp_pairs_matches_the_scripts_expectation(channel_major):
     np.testing.assert_array_equal(got.numpy().view(np.int32), expected.view(np.int32))
 
 
+@pytest.mark.parametrize("channels,rows", [(256, 8), (257, 8), (256, 5)])
+def test_channel_major_matches_jax_on_the_swapped_dump(channels, rows):
+    """K1 reading the channel-major dump in place flags the dump as the JAX
+    kernel flags ``swapaxes(v, 0, 1)`` of it (257 flips the right edge's
+    fill parity; 5 rows leave a cluster of 4 part empty)."""
+    vis, _, _ = rfi_test_data(shape=(channels, rows), seed=12)
+    v = jdev.to_planar(vis)  # (channels, rows, 2), channel-major
+    got = fp.probe(torch.from_numpy(v).transpose(0, 1), "channel_major")
+    want = jpf.flag_transposed(jnp.swapaxes(jnp.asarray(v), 0, 1), bb=rows, interpret=True,
+                               width=13, **fp.PARAMS)
+    assert got.shape == (rows, channels) and got.any()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        got.numpy(), fp.probe_plain(torch.from_numpy(v).transpose(0, 1), "full").numpy())
+
+
+def test_amp_pairs_clusters_and_strided_design_on_cpu():
+    """On the CPU every K12 build and its earlier design give the plain
+    amplitude; a cluster outside 1, 2, 4, 8 is refused."""
+    vis = torch.from_numpy(np.random.RandomState(4).standard_normal((40, 6, 2)).astype(
+        np.float32))  # (channels, rows, 2)
+    want = fp.amp_pairs_plain(vis, channel_major=True)
+    before = (dict(fp.launches), dict(fp.cluster_launches))
+    for g in fp.CLUSTERS:
+        assert torch.equal(fp.amp_pairs(vis, channel_major=True, cluster=g), want)
+    assert torch.equal(fp.amp_pairs_strided(vis, channel_major=True), want)
+    assert torch.equal(fp.amp_pairs_strided(vis.transpose(0, 1).contiguous()), want)
+    assert (fp.launches, fp.cluster_launches) == before  # no kernel on the CPU
+    with pytest.raises(ValueError, match="cluster"):
+        fp.amp_pairs(vis, channel_major=True, cluster=3)
+    with pytest.raises(ValueError, match="cluster"):
+        fp.probe(vis.transpose(0, 1), "channel_major", cluster=16)
+
+
 @pytest.mark.parametrize("width", [7, 13])
 def test_exact_variants_equal_k1_and_cpu_takes_the_plain_versions(width):
     vt = torch.from_numpy(_vis_t(300, seed=8))
@@ -255,12 +289,15 @@ def test_radix_select_flags_equal_k1_on_nan_and_inf_rows():
 def test_variants_and_probes_cover_each_other():
     named = [v for variants in fp.PROBES.values() for v in variants]
     assert sorted(named + list(fp.STRIDED)) == sorted(fp.VARIANTS + ("amp_pairs",))
-    assert set(fp.launches) == set(named) | set(fp.STRIDED) | set(fp.MEASUREMENT)
+    assert (set(fp.launches)
+            == set(named) | set(fp.STRIDED) | set(fp.MEASUREMENT) | set(fp.AMP_KERNELS))
     assert set(fp.EXACT) <= set(fp.VARIANTS + fp.MEASUREMENT)
-    # K11, K13 and K9 on K1's run layout; K1's strided design, k1_ab's
-    # "before", on the strided one.
+    # K11, K13, K9 and K12's in-place K1 on K1's run layout; K1's strided
+    # design, k1_ab's "before", on the strided one.
     assert fp.RUN_LAYOUT == (fp.PROBES["stage_ablate"] + fp.PROBES["rankpair"]
-                             + fp.PROBES["rollchain"])
+                             + fp.PROBES["rollchain"] + fp.INPLACE)
+    assert fp.PROBES["deinterleave"] == ("amp_pairs",) + fp.INPLACE
+    assert set(fp.INPLACE) <= set(fp.EXACT) and fp.CLUSTER in fp.CLUSTERS
     assert fp.PROBES["rollchain"] == fp.MEDIANS and set(fp.MEDIANS) <= set(fp.EXACT)
     assert fp.STRIDED == ("strided_full",)
     assert fp.VARIANTS == fp.RUN_LAYOUT + fp.STRIDED
@@ -338,12 +375,16 @@ def test_probe_tools_run_on_cpu_tensors(capsys):
     assert set(med) == set(samples) == set(rankpair_ab.RUNS)
     assert set(rollchain_ab.run(vis_t, iters=1, reps=1, card="cpu")) == set(rollchain_ab.RUNS)
     dein = deinterleave_probe.run(vis, iters=1, reps=1, card="cpu")
-    assert set(dein) == {"baseline-major", "channel-major", "K5 + baseline", "K5 alone"}
+    assert set(dein) == ({f"K12 g{g}" for g in fp.CLUSTERS}
+                         | {f"channel_major g{g}" for g in fp.CLUSTERS}
+                         | {"K12 strided", "K12 baseline-major", "K5 + baseline-major",
+                            "K5 alone", "K1", "K5 + K1"})
     out = capsys.readouterr().out
     assert "parity: all variants == binary (bit-exact)" in out
     assert "parity: all variants == full (bit-exact)" in out
     assert "window_median - full = " in out and "shfl_median - full = " in out
     assert "stage rank" in out and "[cpu]" in out
+    assert " - (K5 + K1) = " in out and " - (K1) = " in out and "K12 fastest build" in out
 
 
 def test_parity_mismatch_raises(monkeypatch):
