@@ -95,11 +95,27 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
    its uint8 output and its rank carry, at several shapes and on 512 rows
    and the whole of the dump; the cost-probe path (K8's per-op table,
    then K10 on the whole dump priced by that table) with the launch
-   counts read, K10 beside K11's ``full`` in the same rounds; then the
+   counts read, K10 beside K11's ``full`` in the same rounds; K8's add
+   chain on (264, 1024), two full waves of one CTA per SM, device-paced,
+   which gives the float32 instruction rate the card reaches beside
+   :data:`F32_OPS_PER_S`; then the
    streaming ingest example at the full dump (5 dumps through one device
    slot and K1), each dump's flags equal to ``flag_dump``'s on the card,
    with the upload, flag and pipeline times.  K10 is held to K1's launch
-   (the run layout), K8 to the strided layout's.
+   (the run layout), K8 to the strided layout's;
+10. the 2-D and FFT paths, plain PyTorch as XLA computes them in JAX, and
+   ``FusedFlaggerTemplate``: the 2-D ``SumThresholdFlagger`` at
+   ``bench.py`` config 1 (3000 times x 1024 channels x 1 baseline, seed 1)
+   and on ``rfiflagtest``'s spiked data (3000 x 1024 x 16, one chunk of
+   ``get_flags``), each equal flag for flag to the port's run on the CPU
+   and, on one baseline, to the numpy oracle ``tests/rfi/twodflag_oracle.py``,
+   timed; ``fftflagtest``'s pipeline at config 4 (256 x 32768 float32):
+   the ``Fft`` r2c and c2r operations against the CPU run, each row's
+   relative error within ``tests/test_fft.py``'s rtol, and the flags
+   against the CPU run apart from bins within 1e-5 of their threshold
+   (counted and printed), timed; ``FusedFlaggerTemplate`` (its forced
+   search, then built from the shipped table without one) flag for flag
+   ``flag_transposed`` (K1) on the seed-1 dump.
 
 Any failure raises and exits non-zero before the result lines.  The
 second-to-last line is a JSON record of each kernel, with its bound: the
@@ -159,11 +175,13 @@ REPLACES = {
     "prim_cost": "scripts/prim_cost.py:90",
     "roofline_skeleton": "scripts/roofline_skeleton.py:64",
 }
-# The H100 SXM's published peaks: HBM3 and
-# float32 outside the tensor cores.  A min, max, compare or add counts as
-# one float32 operation.
+# The H100 SXM's HBM3 rate, and its float32 instruction rate outside the
+# tensor cores.  The data sheet's 67 TFLOP/s (132 SMs x 128 lanes x 1.98
+# GHz x 2) counts an FMA as two FLOPs; a min, max, compare or add is one
+# instruction per lane per clock, so these operations run at half that,
+# 33.5e12 a second.  Each counts as one operation.
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+F32_OPS_PER_S = 33.5e12
 
 
 def record(launches: int, ms: float, plain_ms: float, nbytes: float, ops: float,
@@ -1263,6 +1281,29 @@ def phase_examples(card: str, check: Check) -> dict:
     }
 
 
+def instruction_rate(prim_cost, dev, card: str, steps: int = 512, unroll: int = 16) -> float:
+    """The float32 instruction rate the card reaches, behind every operation bound.
+
+    K8's add chain (``fminf`` and ``__fadd_rn``, two instructions a rep)
+    on 264 rows of 1024, enough for whole waves of CTAs, device-paced.
+    """
+    from katsdpsigproc_tpu_torch.utils.profiling import time_queued
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cfg = prim_cost.launch_config("add")
+    wave = prim_cost.block(264, 1024, dev)
+    wave_ms = time_queued({"add": lambda: prim_cost.chain(wave, "add", steps, unroll)},
+                          reps=5, iters=3)[0]["add"]
+    rate = wave.numel() * 2 * steps * unroll / (wave_ms / 1e3)
+    waves = 264 / (sms * cfg["ctas_per_sm"])
+    print(f"float32 instruction rate: K8 add chain on (264, 1024), {waves:g} waves of "
+          f"{cfg['ctas_per_sm']} CTA per SM on {sms} SMs, device-paced: {wave_ms:.4f} ms, "
+          f"{rate:.4e} instructions/s against the bounds' {F32_OPS_PER_S:.4e} "
+          f"({rate / F32_OPS_PER_S:.3f}) [{card}]")
+    card_state("after the instruction-rate chain")
+    return rate
+
+
 def phase_cost_probes(ff, device, vis_np: np.ndarray, card: str, check: Check) -> dict:
     from katsdpsigproc_tpu_torch.models.rfi import flagger_probe as fp
     from katsdpsigproc_tpu_torch.scripts import prim_cost, roofline_skeleton as rsk
@@ -1356,6 +1397,7 @@ def phase_cost_probes(ff, device, vis_np: np.ndarray, card: str, check: Check) -
     print(f"kernel vs plain on {card}: K8 add chain {add_ms:.3f} ms vs {add_plain:.3f} ms; "
           f"K10 whole dump {result['skeleton_ms']:.3f} ms vs {skel_plain:.3f} ms; K10 / K11 "
           f"full {result['skeleton_ms'] / result['full_ms']:.3f} in the same rounds")
+    instruction_rate(prim_cost, dev, card, steps, unroll)
     elems, n_vis = block.numel(), rows * channels
     return {
         # The chain reads and writes the block once; y0, 2 operations a rep, x + y.
@@ -1365,6 +1407,185 @@ def phase_cost_probes(ff, device, vis_np: np.ndarray, card: str, check: Check) -
         "roofline_skeleton": record(launches["roofline_skeleton"], result["skeleton_ms"],
                                     skel_plain, 5 * n_vis, inventory_ops() * n_vis),
     }
+
+
+def mask_check(label: str, got: np.ndarray, want: np.ndarray) -> None:
+    """Flag-for-flag equality of two numpy masks."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shape {got.shape} vs {want.shape}")
+    bad = int((got != want).sum())
+    print(f"  {label}: {bad} mismatching flags of {got.size} ({int(want.sum())} flagged)")
+    if bad:
+        raise AssertionError(f"{label}: {bad} mismatching flags")
+
+
+def rowwise_error(label: str, got: torch.Tensor, want: torch.Tensor, rtol: float) -> None:
+    """Each row's relative error ||got - want|| / ||want|| within `rtol`.
+
+    An FFT's float32 error grows with its length and its row's norm, so
+    ``tests/test_fft.py``'s element-wise atol (set for 35- and 48-point
+    transforms) does not hold at 32768 points between two float32
+    libraries; its rtol is held here row by row, and the element-wise
+    figures are printed.
+    """
+    got, want = got.cpu().to(torch.complex128), want.cpu().to(torch.complex128)
+    diff = (got - want).abs()
+    rel = torch.linalg.vector_norm(got - want, dim=-1) / torch.linalg.vector_norm(want, dim=-1)
+    worst = float(rel.max())
+    beyond = int((diff > 1e-3 + rtol * want.abs()).sum())
+    print(f"  {label}: largest row relative error {worst:.3g} (rtol {rtol}); element-wise max "
+          f"|err| {float(diff.max()):.3g}, {beyond} of {want.numel()} beyond atol 1e-3 + rtol")
+    if not worst <= rtol:
+        raise AssertionError(f"{label}: a row's relative error {worst:.3g} exceeds {rtol}")
+
+
+def device_share(label: str, fn) -> None:
+    """One call of `fn` under ``torch.profiler``: the work it put on the card
+    (kernels and copies), their summed device time, and the card's idle
+    share of the call's wall time (which the profiler lengthens)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    work = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in work) / 1e3
+    if not work:
+        print(f"  {label}: the profiler saw no work on the card; idle share not measured")
+        return
+    by_name = {}
+    for e in work:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda item: -item[1])[:3]
+    print(f"  {label}, one call under torch.profiler: {len(work)} kernels and copies on the "
+          f"card, {busy_ms:.3f} ms of device time in a {wall_ms:.3f} ms call: idle share "
+          f"{1 - busy_ms / wall_ms:.3f}; most device time: "
+          + "; ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in top))
+
+
+def phase_twod_fft(ff, device, vis_np: np.ndarray, card: str) -> None:
+    """The 2-D flagger (configs 1 and rfiflagtest's 16 baselines), the FFT path
+    (config 4) and FusedFlaggerTemplate on the card."""
+    from katsdpsigproc_tpu_torch import MAD_NORMAL
+    from katsdpsigproc_tpu_torch.models.rfi import twodflag
+    from katsdpsigproc_tpu_torch.ops import fft, rank
+    from katsdpsigproc_tpu_torch.scripts import fftflagtest, rfiflagtest
+    from katsdpsigproc_tpu_torch.utils import backend, numerics, tune
+    from katsdpsigproc_tpu_torch.utils.profiling import time_fn
+
+    dev = torch.device("cuda", 0)
+    oracle = rfiflagtest.load_twodflag_oracle()
+    times, channels = 3000, 1024
+    rs = np.random.RandomState(seed=1)  # bench.py config 1
+    shape = (times, channels, 1)
+    config1 = np.abs(rs.standard_normal(shape) + 1j * rs.standard_normal(shape)).astype(np.float32)
+    spiked = np.abs(rfiflagtest.generate_data(times, channels, 16))
+    flagger = twodflag.SumThresholdFlagger()
+    for label, amp in (("config 1, 3000 x 1024 x 1 (seed 1)", config1),
+                       ("rfiflagtest's spiked data, 3000 x 1024 x 16 (one chunk)", spiked)):
+        print(f"the 2-D flagger (SumThresholdFlagger()), {label}:")
+        zeros = np.zeros(amp.shape, bool)
+        t0 = time.perf_counter()
+        on_card = flagger.get_flags(amp, zeros)
+        t1 = time.perf_counter()
+        on_cpu = flagger.get_flags(amp, zeros, device="cpu")
+        t2 = time.perf_counter()
+        expected = oracle.get_flags(amp[..., :1], zeros[..., :1])
+        t3 = time.perf_counter()
+        print(f"  first call on the card {t1 - t0:.1f} s, the port on the CPU {t2 - t1:.1f} s, "
+              f"the numpy oracle on 1 baseline {t3 - t2:.1f} s")
+        mask_check("card vs the port on the CPU", on_card, on_cpu)
+        mask_check("card vs the numpy oracle, baseline 0", on_card[..., :1], expected)
+        impl = flagger._impl(amp.shape)
+        data, flags = torch.from_numpy(amp).to(dev), torch.zeros(amp.shape, dtype=torch.bool,
+                                                                  device=dev)
+        card_state("before the 2-D flagger's timings")
+        ms = time_fn(lambda: impl(data, flags), warmup=1, iters=5)
+        host_ms = time_fn(lambda: flagger.get_flags(amp, zeros), warmup=1, iters=5)
+        device_share("the flagger on tensors on the card", lambda: impl(data, flags))
+        n_vis = amp.size
+        print(f"  on the card: {ms:.3f} ms ({n_vis / ms / 1e3:.3f} Mvis/s), the flagger on tensors "
+              f"on the card (CUDA events, 1 warm-up, median of 5); get_flags from and to the "
+              f"host {host_ms:.3f} ms ({n_vis / host_ms / 1e3:.3f} Mvis/s); flagged fraction "
+              f"{on_card.mean():.5f} [{card}]")
+        del data, flags
+
+    b, c, nsigma = 256, 32768, 5.0
+    print(f"the FFT path (fftflagtest) at config 4, {b} x {c} float32:")
+    data = fftflagtest.make_data(b, c)
+    cpu, gpu = backend.DeviceContext(torch.device("cpu")), backend.DeviceContext(dev)
+    x_cpu, x_gpu = torch.from_numpy(data), torch.from_numpy(data).to(dev)
+    r2c, c2r = {}, {}
+    for where, ctx in (("cpu", cpu), ("card", gpu)):
+        r2c[where] = fft.FftTemplate(ctx, 1, (b, c), np.float32, np.complex64).instantiate(
+            None, fft.FftMode.FORWARD)
+        c2r[where] = fft.FftTemplate(ctx, 1, (b, c), np.complex64, np.float32).instantiate(
+            None, fft.FftMode.INVERSE)
+    spectrum = r2c["cpu"](src=x_cpu)["dest"]
+    rowwise_error("Fft r2c, card vs CPU", r2c["card"](src=x_gpu)["dest"], spectrum, 1e-4)
+    rowwise_error("Fft c2r (unnormalised), card vs CPU", c2r["card"](src=spectrum.to(dev))["dest"],
+                  c2r["cpu"](src=spectrum)["dest"], 1e-3)
+    flag_cpu, _ = fftflagtest.make_spectral_flag(cpu, b, c, nsigma)(x_cpu)
+    spectral_flag = fftflagtest.make_spectral_flag(gpu, b, c, nsigma)
+    flag_gpu, cleaned = spectral_flag(x_gpu)
+    amp = numerics.complex_abs(spectrum)
+    threshold = float(np.float32(nsigma)) * (float(np.float32(MAD_NORMAL))
+                                             * rank.median_non_zero(amp))[:, None]
+    near = ((amp - threshold).abs() <= fftflagtest.NEAR * threshold).numpy()
+    differ = (flag_gpu.cpu() != flag_cpu).numpy()
+    bad = int(differ[~near].sum())
+    print(f"  flags, card vs CPU: {bad} mismatching of {differ.size} away from the threshold; "
+          f"{int(near.sum())} bins within {fftflagtest.NEAR:g} of it (relative), {int(differ[near].sum())} of "
+          f"them differ; {int(flag_cpu.sum())} flagged")
+    if bad:
+        raise AssertionError(f"FFT path: {bad} flags differ from the CPU run")
+    if not (flag_gpu[0].sum() > 0 and flag_gpu[1].sum() < flag_gpu[0].sum()):
+        raise AssertionError("FFT path: the planted sinusoid is not flagged as fftflagtest asserts")
+    if not bool(torch.isfinite(cleaned).all()):
+        raise AssertionError("FFT path: the cleaned series is not finite")
+    card_state("before the FFT path's timings")
+    ms = time_fn(lambda: spectral_flag(x_gpu), warmup=1, iters=5)
+    spectrum_gpu = r2c["card"](src=x_gpu)["dest"]
+    r2c_ms = time_fn(lambda: r2c["card"](src=x_gpu), warmup=1, iters=5)
+    c2r_ms = time_fn(lambda: c2r["card"](src=spectrum_gpu), warmup=1, iters=5)
+    device_share("the FFT path", lambda: spectral_flag(x_gpu))
+    print(f"  on the card: {ms:.3f} ms ({b * c / ms / 1e6:.3f} Gsamples/s), r2c {r2c_ms:.3f} ms, "
+          f"c2r {c2r_ms:.3f} ms (CUDA events, 1 warm-up, median of 5) [{card}]")
+    del x_gpu, spectrum_gpu, cleaned
+
+    print("FusedFlaggerTemplate on the seed-1 dump:")
+    ctx = backend.create_some_context()
+    saved = tune.autotuner_impl
+    tune.autotuner_impl = tune.force_autotuner
+    try:
+        pick = ff.FusedFlaggerTemplate(ctx).tuning
+    finally:
+        tune.autotuner_impl = saved
+    print(f"  forced search pick on {ctx.device_kind}: {pick}")
+    search = tune.autotune
+
+    def no_search(*args, **kwargs):
+        raise AssertionError("FusedFlaggerTemplate searched instead of reading the shipped table")
+
+    tune.autotune = no_search
+    try:
+        tmpl = ff.FusedFlaggerTemplate(ctx)
+    finally:
+        tune.autotune = search
+    if tmpl.tuning != pick:
+        raise AssertionError(f"shipped record {tmpl.tuning} is not the forced pick {pick}")
+    vis_t = torch.from_numpy(device.to_planar(vis_np)).to(dev).transpose(0, 1).contiguous()
+    got, want = tmpl(vis_t), ff.flag_transposed(vis_t)
+    bad = int((got != want).sum())
+    print(f"  FusedFlaggerTemplate vs flag_transposed: {bad} mismatching flags of {got.numel()} "
+          f"({int(want.count_nonzero())} flagged)")
+    if bad:
+        raise AssertionError(f"FusedFlaggerTemplate: {bad} flags differ from flag_transposed")
 
 
 def phase_stream(ff, device, vis_np: np.ndarray, card: str, check: Check) -> None:
@@ -1426,6 +1647,7 @@ def main() -> None:
     results.update(phase_probes(fp, ff, device, vis_np, card, check))
     results.update(phase_examples(card, check))
     results.update(phase_cost_probes(ff, device, vis_np, card, check))
+    phase_twod_fft(ff, device, vis_np, card)
     phase_stream(ff, device, vis_np, card, check)
     print(json.dumps({"kernels": [
         {"name": name, "route": ROUTES.get(name, "cuda"), "source": SOURCES[name],

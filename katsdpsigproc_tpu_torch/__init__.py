@@ -13,15 +13,17 @@ on first use (:mod:`.utils.kernels`), or, for the tutorial kernel of
 plain PyTorch version for a tensor on the CPU and launches the kernel
 for a tensor on the card.
 
-Ported so far: the 1-D RFI flagger's main path and its stage templates
-with the composed ``FlaggerDevice`` (``models.rfi``); the operation
-framework (``ops.base``) and the primitive ops (``ops``: fill, masked
-sum, row reduction, named reductions and scans, rank statistics,
-percentile5 and transpose); device contexts, the tuning table, shape
+Ported so far: the 1-D RFI flagger's main path, ``FusedFlaggerTemplate``
+and the stage templates with the composed ``FlaggerDevice``, and the 2-D
+SumThreshold flagger (``models.rfi``); the operation framework
+(``ops.base``) and the primitive ops (``ops``: fill, masked sum, row
+reduction, named reductions and scans, rank statistics, percentile5,
+transpose and FFT); device contexts, the tuning table, shape
 helpers, profiling and the asyncio resource layer (``utils``, with the
 deprecated ``asyncio.resource`` alias and the ``abc`` protocols); the
 examples of ``doc/examples`` (``examples``); the probes of the fused
-flagger's stages and costs (``scripts``).
+flagger's stages and costs and the harnesses ``rfiflagtest`` and
+``fftflagtest`` (``scripts``).
 """
 
 __version__ = "0.5.0"

@@ -44,11 +44,13 @@ call raises.  :data:`launches` counts the kernel launches.
 
 import ctypes
 import functools
+from typing import Any, Mapping
 
 import numpy as np
 import torch
 
 from ...ops import rank as rank_ops, transpose as transpose_ops
+from ...utils import backend, tune
 from . import device
 from .device import BackgroundFlags
 
@@ -485,3 +487,55 @@ def madnz_threshold(dev_t, n_sigma: float = 11.0, n_windows: int = 4, falloff: f
     launches["madnz_threshold"] += 1
     wide_launches["madnz_threshold"] += wide
     return out
+
+
+class FusedFlaggerTemplate:
+    """Template wrapper for :func:`flag_transposed` (K1) with the tuning convention.
+
+    Port of ``katsdpsigproc_tpu/models/rfi/pallas_flagger.py::FusedFlaggerTemplate``.
+    The JAX template's knobs (``bb``, ``nref``, ``pipeline``, ``ingest``,
+    ``fold``) lay the row out on the TPU; K1 takes a row a CTA and has no
+    knob, so :func:`...utils.tune.from_jax_tuning` drops them and a JAX
+    tuning dict is taken as it is.  The search measures K1's one
+    configuration; the shipped table holds its H100 record, so building
+    the template never searches on that card.  ``interpret`` has no
+    counterpart: a tensor on the CPU takes K1's plain version.
+    """
+
+    autotune_version = 1
+
+    def __init__(self, context, width: int = 13, n_windows: int = 4,
+                 threshold_falloff: float = 1.2, flag_value: int = 1, tuning=None):
+        self.context = context
+        self.width = width
+        self.n_windows = n_windows
+        self.threshold_falloff = threshold_falloff
+        self.flag_value = flag_value
+        if tuning is None:
+            tuning = self.autotune(context, width, n_windows)
+        self.tuning = tune.from_jax_tuning(tuning)
+
+    @classmethod
+    @tune.autotuner(test={})
+    def autotune(cls, context, width, n_windows) -> Mapping[str, Any]:
+        rs = np.random.RandomState(seed=1)
+        vis_t = torch.from_numpy(rs.standard_normal((1024, 32768, 2)).astype(np.float32))
+        vis_t = vis_t.to(backend.context_device(context))
+
+        def generate():
+            return tune.make_measure(
+                lambda v: flag_transposed(v, width=width, n_windows=n_windows), vis_t)
+
+        return tune.autotune(generate)
+
+    def __call__(self, vis_t, input_flags=None, n_sigma: float = 11.0, channel_flags=None):
+        return flag_transposed(
+            vis_t,
+            input_flags,
+            width=self.width,
+            n_sigma=n_sigma,
+            n_windows=self.n_windows,
+            falloff=self.threshold_falloff,
+            flag_value=self.flag_value,
+            channel_flags=channel_flags,
+        )

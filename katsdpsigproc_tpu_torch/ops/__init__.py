@@ -2,10 +2,12 @@
 
 ``base`` is the operation framework; ``percentile`` and ``transpose``
 wrap the hand-written CUDA kernels K4 and K5; ``fill``, ``maskedsum``,
-``reduce``, ``wgreduce`` and ``rank`` are plain PyTorch, as the JAX
-package leaves them to XLA.
+``reduce``, ``wgreduce``, ``rank`` and ``fft`` (``torch.fft``, cuFFT on
+the card) are plain PyTorch, as the JAX package leaves them to XLA.
 """
 
-from . import base, fill, maskedsum, percentile, rank, reduce, transpose, wgreduce  # noqa: F401
+from . import (base, fft, fill, maskedsum, percentile, rank, reduce, transpose,  # noqa: F401
+               wgreduce)
 
-__all__ = ["base", "fill", "maskedsum", "percentile", "rank", "reduce", "transpose", "wgreduce"]
+__all__ = ["base", "fft", "fill", "maskedsum", "percentile", "rank", "reduce", "transpose",
+           "wgreduce"]

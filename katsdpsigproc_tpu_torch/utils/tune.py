@@ -305,17 +305,21 @@ def autotune(generate: Callable[..., Callable[[int], float]], time_limit: float 
 
 #: JAX engine names and their port counterparts.
 _ENGINE_FROM_JAX = {"xla": "torch", "pallas": "cuda"}
-#: JAX tuning keys that size TPU blocks and have no port counterpart.
-_TPU_ONLY_KEYS = ("tile_r", "tile_c")
+#: JAX tuning keys that lay data out on the TPU and have no port counterpart:
+#: the transpose's tile sides and the fused flagger's block, fold and
+#: pipeline knobs.
+_TPU_ONLY_KEYS = ("tile_r", "tile_c", "bb", "nref", "pipeline", "ingest", "fold")
 
 
 def from_jax_tuning(tuning: Mapping[str, Any]) -> Dict[str, Any]:
     """Map a JAX template's tuning result to the port's.
 
     ``engine`` ``"xla"`` becomes ``"torch"`` and ``"pallas"`` becomes
-    ``"cuda"`` (the other engine names carry over), and the TPU tile sides
-    ``tile_r``/``tile_c`` are dropped; the port's kernels size their own
-    blocks.
+    ``"cuda"`` (the other engine names carry over), and the TPU layout
+    keys of :data:`_TPU_ONLY_KEYS` are dropped: the transpose's tile sides
+    ``tile_r``/``tile_c`` and the fused flagger's ``bb``, ``nref``,
+    ``pipeline``, ``ingest`` and ``fold``.  The port's kernels size their
+    own blocks.
     """
     out = {k: v for k, v in tuning.items() if k not in _TPU_ONLY_KEYS}
     if "engine" in out:

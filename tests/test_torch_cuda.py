@@ -866,3 +866,59 @@ def test_time_queued_times_the_card_not_the_launches(cuda):
                                             reps=3, iters=20)
     assert len(samples["add"]) == 3
     assert 0 < queued["add"] < 0.02 and 0 < queued["mul"] < 0.02, queued
+
+
+@pytest.mark.parametrize("complex_data", [False, True])
+@pytest.mark.parametrize("average_freq", [1, 4])
+def test_twodflag_on_the_card_matches_the_cpu(cuda, complex_data, average_freq):
+    """The 2-D flagger on the card flags as it does on the CPU (its window
+    sums are ordered adds and its medians exact on both)."""
+    from katsdpsigproc_tpu_torch.models.rfi import twodflag
+    from katsdpsigproc_tpu_torch.scripts.rfiflagtest import generate_data
+
+    data = generate_data(200, 300, 5)
+    if not complex_data:
+        data = np.abs(data)
+    rs = np.random.RandomState(average_freq)
+    flags = rs.random_sample(data.shape) < 0.05
+    data[rs.random_sample(data.shape) < 0.01] = np.nan
+    flagger = twodflag.SumThresholdFlagger(average_freq=average_freq, freq_chunks=7)
+    on_card = flagger.get_flags(data, flags)  # the card by default
+    assert on_card.any() and not on_card.all()
+    np.testing.assert_array_equal(on_card, flagger.get_flags(data, flags, device="cpu"))
+
+
+@pytest.mark.parametrize("kind", ["r2c", "c2r", "c2c"])
+def test_fft_on_the_card_matches_the_cpu(cuda, kind):
+    from katsdpsigproc_tpu_torch.ops import fft
+    from katsdpsigproc_tpu_torch.utils import backend
+
+    shape = (6, 1000)
+    rs = np.random.RandomState(3)
+    real = rs.standard_normal(shape).astype(np.float32)
+    spectrum = np.fft.rfft(real).astype(np.complex64)
+    cplx = (real + 1j * rs.standard_normal(shape)).astype(np.complex64)
+    dtypes, src, mode = {"r2c": ((np.float32, np.complex64), real, fft.FftMode.FORWARD),
+                         "c2r": ((np.complex64, np.float32), spectrum, fft.FftMode.INVERSE),
+                         "c2c": ((np.complex64, np.complex64), cplx, fft.FftMode.INVERSE)}[kind]
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        ctx = backend.DeviceContext(dev)
+        op = fft.FftTemplate(ctx, 1, shape, *dtypes).instantiate(None, mode)
+        assert op.device == dev
+        outs.append(op(src=torch.from_numpy(src).to(dev))["dest"])
+    assert outs[0].is_cuda and outs[0].dtype == outs[1].dtype
+    np.testing.assert_allclose(outs[0].cpu().numpy(), outs[1].numpy(), rtol=1e-4, atol=1e-2)
+
+
+def test_fused_template_matches_flag_transposed(cuda):
+    vis_t, flags = _dump(2048, 6, seed=31)
+    vis_t, flags = vis_t.to(cuda), flags.to(cuda)
+    tmpl = ff.FusedFlaggerTemplate(None, width=15, n_windows=5, tuning={"bb": 8, "nref": 2})
+    assert tmpl.tuning == {}
+    before = ff.launches["flagger"]
+    got = tmpl(vis_t, flags, n_sigma=9.0)
+    assert ff.launches["flagger"] == before + 1  # K1, not its plain version
+    assert torch.equal(got, ff.flag_transposed(vis_t, flags, width=15, n_sigma=9.0, n_windows=5))
+    assert torch.equal(got, ff.flag_transposed_plain(vis_t, flags, width=15, n_sigma=9.0,
+                                                     n_windows=5))

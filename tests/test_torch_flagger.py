@@ -9,6 +9,7 @@ enough to a threshold or a median tie for that ulp to flip a flag, and
 the masks are compared bit for bit.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -21,7 +22,9 @@ import torch
 
 from katsdpsigproc_tpu.models.rfi import device as jdev, host as jhost, pallas_flagger as jpf
 from katsdpsigproc_tpu_torch.models.rfi import device as tdev, fused_flagger as ff, host as thost
+from katsdpsigproc_tpu_torch.pytest_plugin import patch_autotune  # noqa: F401
 from katsdpsigproc_tpu_torch.scripts import k2_ab
+from katsdpsigproc_tpu_torch.utils import tune
 
 from .helpers import rfi_test_data
 
@@ -278,11 +281,20 @@ def test_port_runs_without_jax():
         "import sys; sys.modules['jax'] = None\n"
         "import numpy as np, torch\n"
         "import katsdpsigproc_tpu_torch as port\n"
-        "from katsdpsigproc_tpu_torch.models.rfi import fused_flagger, device\n"
+        "from katsdpsigproc_tpu_torch.models.rfi import fused_flagger, device, twodflag\n"
+        "from katsdpsigproc_tpu_torch.ops import fft\n"
+        "from katsdpsigproc_tpu_torch.scripts import fftflagtest, rfiflagtest\n"
         "rs = np.random.RandomState(0)\n"
         "v = rs.standard_normal((8, 96, 2)).astype(np.float32); v[:, 40] *= 50\n"
         "f = fused_flagger.flag_dump(torch.from_numpy(v))\n"
         "assert f.shape == (8, 96) and f[:, 40].all(), f\n"
+        "t = fused_flagger.FusedFlaggerTemplate(None, tuning={'bb': 8})\n"
+        "assert (t(torch.from_numpy(v)) == f).all()\n"
+        "a = np.abs(rs.standard_normal((16, 32, 2))).astype(np.float32); a[5, 9] = 60\n"
+        "g = twodflag.SumThresholdFlagger().get_flags(a, np.zeros(a.shape, bool), device='cpu')\n"
+        "assert g[5, 9].all(), g\n"
+        "op = fft.FftTemplate(None, 1, (4, 16), np.float32, np.complex64).instantiate()\n"
+        "assert op(src=torch.ones((4, 16)))['dest'][0, 0] == 16\n"
         "assert 'katsdpsigproc_tpu' not in sys.modules\n"
         "print('ok', port.__version__, port.MAD_NORMAL)\n"
     )
@@ -291,6 +303,58 @@ def test_port_runs_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok 0.5.0 1.4826")
+
+
+def test_fused_template_tuning_override(monkeypatch):
+    """The template honours an explicit JAX tuning dict without a search: its
+    TPU knobs (bb, nref) are dropped, and it flags as flag_transposed does.
+    (The port of tests/rfi/test_pallas_flagger.py::test_fused_template_tuning_override.)"""
+    vis, _, _ = rfi_test_data(shape=(256, 16), seed=17)
+    vt = _vis_t(vis)
+
+    def no_search(*args, **kwargs):
+        raise AssertionError("the template searched")
+
+    monkeypatch.setattr(tune, "autotuner_impl", no_search)
+    tmpl = ff.FusedFlaggerTemplate(None, tuning={"bb": 8, "nref": 2})
+    assert tmpl.tuning == {}
+    got = tmpl(torch.from_numpy(vt))
+    np.testing.assert_array_equal(got.numpy(), ff.flag_transposed(torch.from_numpy(vt)).numpy())
+    want = jpf.FusedFlaggerTemplate(None, tuning={"bb": 8, "nref": 2})(jnp.asarray(vt),
+                                                                       interpret=True)
+    assert got.any()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("mode", ["none", "full", "channel"])
+def test_fused_template_parameters_match_jax(mode):
+    """Width, windows, falloff and flag value from the template, n_sigma and
+    the flags from the call, as in the JAX template (whose shipped TPU
+    record the port maps to no knobs)."""
+    from katsdpsigproc_tpu.utils import tune as jtune
+
+    record = next(r["result"] for r in json.load(open(os.path.join(
+        os.path.dirname(jtune.__file__), "tuning_table.json")))
+        if r["fn"] == "FusedFlaggerTemplate.autotune")
+    assert tune.from_jax_tuning(record) == {}
+    vis, _, input_flags = rfi_test_data(shape=(200, 8), seed=24)
+    vt = _vis_t(vis)
+    flags = input_flags.T.astype(np.uint8).copy()
+    kw = {"none": {}, "full": {"input_flags": flags},
+          "channel": {"channel_flags": flags[0].copy()}}[mode]
+    params = dict(width=9, n_windows=5, threshold_falloff=1.3, flag_value=3)
+    got = ff.FusedFlaggerTemplate(None, tuning=record, **params)(
+        torch.from_numpy(vt), n_sigma=9.0, **{k: torch.from_numpy(v) for k, v in kw.items()})
+    want = jpf.FusedFlaggerTemplate(None, tuning={"bb": 8, "fold": 128}, **params)(
+        jnp.asarray(vt), n_sigma=9.0, interpret=True,
+        **{k: jnp.asarray(v) for k, v in kw.items()})
+    assert (got.numpy() == 3).any()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_fused_template_resolves_its_tuning(patch_autotune):
+    """Without `tuning`, the template asks its autotuner (stubbed here) and keeps no knob."""
+    assert ff.FusedFlaggerTemplate(None).tuning == {}
 
 
 def test_positional_parameters_in_the_jax_order():

@@ -197,6 +197,7 @@ def test_adapt_value():
     ({"engine": "rank"}, {"engine": "rank"}),
     ({"engine": "network"}, {"engine": "network"}),
     ({"radix_bits": 2}, {"radix_bits": 2}),
+    ({"bb": 16, "fold": 32768, "ingest": "planar", "nref": 1, "pipeline": "dma"}, {}),
 ])
 def test_from_jax_tuning(jax_tuning, port_tuning):
     assert tune.from_jax_tuning(jax_tuning) == port_tuning
@@ -218,7 +219,7 @@ def test_shipped_jax_records_map_to_port_engines():
 
 def _canonical():
     """The production instantiations of every autotuned template of the port."""
-    from katsdpsigproc_tpu_torch.models.rfi import device
+    from katsdpsigproc_tpu_torch.models.rfi import device, fused_flagger
     from katsdpsigproc_tpu_torch.ops import percentile, transpose
 
     return [
@@ -228,6 +229,7 @@ def _canonical():
         (device.BackgroundMedianFilterDeviceTemplate, (13,)),
         (device.NoiseEstMADTDeviceTemplate, (32768,)),
         (device.NoiseEstMADDeviceTemplate, ()),
+        (fused_flagger.FusedFlaggerTemplate, (13, 4)),
     ]
 
 
@@ -264,6 +266,7 @@ def test_shipped_table_covers_every_template(tmp_path, monkeypatch):
     monkeypatch.setattr(tune, "autotuner_impl", strict_impl)
     made = [cls(None, *args) for cls, args in _canonical()]
     assert made[2].engine == "cuda" and made[1].engine == "cuda"
+    assert made[-1].tuning == {}
 
 
 class TestBackend:
