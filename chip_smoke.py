@@ -115,7 +115,17 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
    against the CPU run apart from bins within 1e-5 of their threshold
    (counted and printed), timed; ``FusedFlaggerTemplate`` (its forced
    search, then built from the shipped table without one) flag for flag
-   ``flag_transposed`` (K1) on the seed-1 dump.
+   ``flag_transposed`` (K1) on the seed-1 dump;
+11. ``parallel`` on an NCCL process group of world size 1 (a ``TCPStore``
+   on 127.0.0.1) over the seed-1 dump: ``make_sharded_fused_flagger`` on a
+   (1,) baseline mesh (K1 through the mesh, with the launch counts set to
+   0 just before and read just after) and ``make_sharded_flagger`` on a
+   (1, 1) baseline x channel mesh (sum threshold, baseline_block 1008: the
+   rank search's ``all_reduce`` rounds run, the halos only pad), each
+   equal flag for flag to ``flag_dump`` (K1); ``get_flags_sharded`` on a
+   (1,) mesh at config 1, equal to ``get_flags``; then the sharded K1
+   against ``flag_dump`` interleaved, the stage flagger timed, the two 2-D
+   calls interleaved, and the stage flagger's device idle share.
 
 Any failure raises and exits non-zero before the result lines.  The
 second-to-last line is a JSON record of each kernel, with its bound: the
@@ -1619,6 +1629,90 @@ def phase_stream(ff, device, vis_np: np.ndarray, card: str, check: Check) -> Non
                     torch.from_numpy(results[i]), k1.T.cpu())
 
 
+def phase_parallel(ff, device, vis_np: np.ndarray, card: str, check: Check) -> None:
+    """The port of ``parallel`` at world size 1 on an NCCL process group: K1
+    through ``make_sharded_fused_flagger``, the stage flagger's collective rank
+    search and halos, and ``get_flags_sharded``, each against its one-device
+    counterpart, timed."""
+    import torch.distributed as dist
+    from katsdpsigproc_tpu_torch.models.rfi import twodflag
+    from katsdpsigproc_tpu_torch.parallel import flagger as pflagger, mesh as pmesh, multihost
+    from katsdpsigproc_tpu_torch.scripts.common import report
+    from katsdpsigproc_tpu_torch.utils.profiling import time_fn, time_interleaved
+
+    t0 = time.perf_counter()
+    store = dist.TCPStore("127.0.0.1", 0, 1, is_master=True)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        channels, rows = vis_np.shape
+        print(f"parallel on an NCCL group of world size 1 ({multihost.process_summary()}), "
+              f"the dump of {channels} x {rows}:")
+        m1 = pmesh.make_mesh((1,), (pmesh.BASELINE_AXIS,))
+        m11 = pmesh.make_mesh((1, 1), (pmesh.BASELINE_AXIS, pmesh.CHANNEL_AXIS))
+        vis = torch.from_numpy(device.to_planar(vis_np)).cuda()  # (C, rows, 2), channel-major
+        vis_t = vis.transpose(0, 1).contiguous()
+        local_t = pmesh.shard_with_spec(m1, vis_t, (pmesh.BASELINE_AXIS,))
+        local = pmesh.shard(m11, vis)
+        fused = pflagger.make_sharded_fused_flagger(m1)
+        staged = pflagger.make_sharded_flagger(m11, threshold="sum", baseline_block=1008)
+
+        # The sharded path, with the launch counts set to 0 just before and read just after.
+        for name in ff.launches:
+            ff.launches[name] = 0
+        fused_flags = fused(local_t)
+        staged_flags = staged(local)
+        torch.cuda.synchronize()
+        print(f"  launches during the sharded path: {dict(ff.launches)}")
+        if ff.launches["flagger"] < 1:
+            raise AssertionError("K1 was not launched by make_sharded_fused_flagger")
+        k1 = ff.flag_dump(vis_t)
+        check.flags("flagger", "make_sharded_fused_flagger on a (1,) mesh vs flag_dump (K1)",
+                    fused_flags, k1)
+        check.flags("flagger", "make_sharded_flagger on a (1, 1) mesh, sum, baseline_block "
+                    "1008, vs K1", staged_flags.T, k1)
+        del fused_flags, staged_flags
+
+        rs = np.random.RandomState(seed=1)  # bench.py config 1
+        shape = (3000, 1024, 1)
+        config1 = np.abs(rs.standard_normal(shape) + 1j * rs.standard_normal(shape)).astype(
+            np.float32)
+        zeros = np.zeros(shape, bool)
+        flagger = twodflag.SumThresholdFlagger()
+        print("get_flags_sharded on a (1,) mesh at config 1, 3000 x 1024 x 1 (seed 1):")
+        mask_check("get_flags_sharded vs get_flags", flagger.get_flags_sharded(config1, zeros, m1),
+                   flagger.get_flags(config1, zeros))
+
+        print(f"timings on {card}:")
+        card_state("before the sharded path's timings")
+        medians, samples = time_interleaved(
+            {"sharded_k1": lambda: fused(local_t), "flag_dump": lambda: ff.flag_dump(vis_t)},
+            reps=5, iters=3)
+        for name, ms in medians.items():
+            report(name, ms, samples[name], card)
+        staged_ms = time_fn(lambda: staged(local), warmup=1, iters=3)
+        # Host-bound calls (thousands of launches each): compared in turns.
+        medians_2d, samples_2d = time_interleaved(
+            {"sharded_2d": lambda: flagger.get_flags_sharded(config1, zeros, m1),
+             "single_2d": lambda: flagger.get_flags(config1, zeros)}, reps=7)
+        for name, ms in medians_2d.items():
+            report(name, ms, samples_2d[name], card)
+        card_state("after them")
+        n_vis = channels * rows
+        print(f"  make_sharded_fused_flagger (K1 through the mesh) {medians['sharded_k1']:.3f} ms "
+              f"against flag_dump's {medians['flag_dump']:.3f} (5 interleaved rounds of 3 calls, "
+              f"CUDA events), {n_vis / medians['sharded_k1'] / 1e6:.3f} Gvis/s [{card}]")
+        print(f"  make_sharded_flagger (1, 1), sum, baseline_block 1008: {staged_ms:.3f} ms "
+              f"(CUDA events, 1 warm-up, median of 3), {n_vis / staged_ms / 1e6:.3f} Gvis/s "
+              f"[{card}]")
+        print(f"  get_flags_sharded at config 1: {medians_2d['sharded_2d']:.3f} ms against "
+              f"get_flags' {medians_2d['single_2d']:.3f} ms (from and to the host; 7 interleaved "
+              f"rounds of 1 call) [{card}]")
+        device_share("make_sharded_flagger (1, 1)", lambda: staged(local))
+    finally:
+        dist.destroy_process_group()
+    print(f"  the phase took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     card = phase_device()
     sys.path.insert(0, str(ROOT))
@@ -1649,6 +1743,7 @@ def main() -> None:
     results.update(phase_cost_probes(ff, device, vis_np, card, check))
     phase_twod_fft(ff, device, vis_np, card)
     phase_stream(ff, device, vis_np, card, check)
+    phase_parallel(ff, device, vis_np, card, check)
     print(json.dumps({"kernels": [
         {"name": name, "route": ROUTES.get(name, "cuda"), "source": SOURCES[name],
          "replaces": REPLACES[name], "max_abs_err": check.max_abs_err[name], **numbers}

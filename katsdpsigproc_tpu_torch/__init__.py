@@ -23,7 +23,8 @@ helpers, profiling and the asyncio resource layer (``utils``, with the
 deprecated ``asyncio.resource`` alias and the ``abc`` protocols); the
 examples of ``doc/examples`` (``examples``); the probes of the fused
 flagger's stages and costs and the harnesses ``rfiflagtest`` and
-``fftflagtest`` (``scripts``).
+``fftflagtest`` (``scripts``); the sharded flaggers on
+``torch.distributed`` (``parallel``).
 """
 
 __version__ = "0.5.0"

@@ -5,9 +5,10 @@ Each runs as a module and asserts its result as its JAX twin does::
     python -m katsdpsigproc_tpu_torch.examples.<name> [--device cpu]
 
 ``hello_device``, ``triple_fn``, ``triple`` (the CUDA kernel K7),
-``triple_pallas`` (the Triton kernel K6), ``triple_op``, ``fill_reduce``
-and ``resource_pipeline`` (streaming ingest through the fused flagger).
-``sharded_flagger`` waits for the port of ``parallel``.
+``triple_pallas`` (the Triton kernel K6), ``triple_op``, ``fill_reduce``,
+``resource_pipeline`` (streaming ingest through the fused flagger) and
+``sharded_flagger`` (the flaggers of ``parallel`` over several ranks,
+``--world-size``).
 
 An example runs on the card and raises without one, unless it is asked
 for the CPU (``--device cpu``), where each kernel takes its plain PyTorch

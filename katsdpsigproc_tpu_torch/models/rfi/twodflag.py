@@ -563,6 +563,43 @@ class SumThresholdFlagger:
         self._impl_cache[shape] = impl
         return impl
 
+    def get_flags_sharded(self, data, flags, mesh, axis_name: Optional[str] = None):
+        """Multi-rank :meth:`get_flags`: baselines sharded over `mesh`.
+
+        Port of ``katsdpsigproc_tpu/models/rfi/twodflag.py::SumThresholdFlagger.get_flags_sharded``.
+        Every rank of `mesh` (a :mod:`...parallel.mesh` mesh) calls it with
+        the full host cube and flags; each flags its shard of the baselines
+        on its own device, with no collective, and the flags are gathered
+        back to every rank.  `axis_name` selects the mesh dim to shard
+        baselines over (default: the mesh's first dim); other dims
+        replicate.  The baselines are padded to a multiple of the dim's
+        size with copies of the last one, and the pad is cropped from the
+        result.
+
+        Returns
+        -------
+        (time, frequency, baseline) numpy bool flags, on every rank.
+        """
+        from ...parallel import mesh as pmesh
+
+        if data.shape != flags.shape:
+            raise ValueError("Shape mismatch")
+        if len(data.shape) != 3:
+            raise ValueError("data has wrong number of dimensions")
+        axis_name = axis_name or mesh.mesh_dim_names[0]
+        n_shards = pmesh.axis_size(mesh, axis_name)
+        n_bl = data.shape[-1]
+        pad = (-n_bl) % n_shards
+        data, flags = np.asarray(data), np.asarray(flags)
+        if pad:
+            data = np.concatenate([data] + [data[..., -1:]] * pad, -1)
+            flags = np.concatenate([flags] + [flags[..., -1:]] * pad, -1)
+        spec = (None, None, axis_name)
+        local = _as_tensor(pmesh.shard_with_spec(mesh, data, spec), pmesh.local_device(mesh))
+        local_flags = pmesh.shard_with_spec(mesh, flags, spec)
+        out = self._impl(tuple(local.shape))(local, local_flags)
+        return pmesh.gather(mesh, out, spec).cpu().numpy()[..., :n_bl]
+
     def get_flags(self, data, flags, pool=None, chunk_size=None, is_multiprocess=None,
                   device=None):
         """Compute flags for a (time, frequency, baseline) cube.
@@ -572,9 +609,7 @@ class SumThresholdFlagger:
         and ignored: the baselines of a chunk are one batch on the device.
         `chunk_size` bounds the baselines per batch (default 16).  `device`
         is where the flagger runs: the card by default, ``"cpu"`` only when
-        asked for; without a card and without ``"cpu"`` it raises.  The
-        JAX class's ``get_flags_sharded`` waits for the port of
-        ``parallel``.
+        asked for; without a card and without ``"cpu"`` it raises.
 
         Returns
         -------

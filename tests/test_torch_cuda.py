@@ -922,3 +922,63 @@ def test_fused_template_matches_flag_transposed(cuda):
     assert torch.equal(got, ff.flag_transposed(vis_t, flags, width=15, n_sigma=9.0, n_windows=5))
     assert torch.equal(got, ff.flag_transposed_plain(vis_t, flags, width=15, n_sigma=9.0,
                                                      n_windows=5))
+
+
+@pytest.fixture
+def nccl_world(cuda):
+    """A process group of world size 1 on NCCL (the card's machine has one card)."""
+    import torch.distributed as dist
+
+    store = dist.TCPStore("127.0.0.1", 0, 1, is_master=True)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        yield cuda
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_fused_flagger_runs_k1(nccl_world):
+    from katsdpsigproc_tpu_torch.parallel import flagger as pflagger, mesh as pmesh
+
+    vis_t, flags = _dump(4096, 16, seed=41)
+    m = pmesh.make_mesh((1,), (pmesh.BASELINE_AXIS,))
+    fn = pflagger.make_sharded_fused_flagger(m, bb=8)
+    spec = (pmesh.BASELINE_AXIS,)
+    local = pmesh.shard_with_spec(m, vis_t, spec)
+    local_flags = pmesh.shard_with_spec(m, flags, spec)
+    assert local.device == nccl_world
+    before = ff.launches["flagger"]
+    got, got_flags = fn(local), fn(local, local_flags)
+    assert ff.launches["flagger"] == before + 2  # K1, not its plain version
+    assert torch.equal(got, ff.flag_dump(vis_t.to(nccl_world))) and got.any()
+    assert torch.equal(got_flags, ff.flag_dump(vis_t.to(nccl_world), flags.to(nccl_world)))
+    assert torch.equal(pmesh.gather(m, got, spec).cpu(), ff.flag_transposed_plain(vis_t))
+
+
+def test_sharded_stage_flagger_matches_k1(nccl_world):
+    """The (1, 1) mesh's flagger (NCCL all_reduce rounds; halos that only pad)
+    equals K1 on a small dump."""
+    from katsdpsigproc_tpu_torch.parallel import flagger as pflagger, mesh as pmesh
+
+    vis_t, _ = _dump(2048, 16, seed=42)
+    m = pmesh.make_mesh((1, 1), (pmesh.BASELINE_AXIS, pmesh.CHANNEL_AXIS))
+    for block in (None, 8):
+        fn = pflagger.make_sharded_flagger(m, threshold="sum", baseline_block=block)
+        got = fn(pmesh.shard(m, vis_t.transpose(0, 1)))
+        assert got.device == nccl_world
+        assert torch.equal(got.T, ff.flag_dump(vis_t.to(nccl_world)))
+
+
+def test_get_flags_sharded_matches_get_flags(nccl_world):
+    from katsdpsigproc_tpu_torch.models.rfi import twodflag
+    from katsdpsigproc_tpu_torch.parallel import mesh as pmesh
+
+    rs = np.random.RandomState(5)
+    shape = (48, 128, 3)
+    data = np.abs(rs.standard_normal(shape)).astype(np.float32)
+    data[7, 40] = 60.0
+    flags = np.zeros(shape, bool)
+    flagger = twodflag.SumThresholdFlagger()
+    got = flagger.get_flags_sharded(data, flags, pmesh.make_mesh((1,), (pmesh.BASELINE_AXIS,)))
+    np.testing.assert_array_equal(got, flagger.get_flags(data, flags))
+    assert got[7, 40].all()

@@ -63,13 +63,31 @@ def test_example_runs_on_the_cpu(name, tmp_path):
     assert proc.stdout.strip()
 
 
-@pytest.mark.parametrize("name", EXAMPLES)
+@pytest.mark.parametrize("name", EXAMPLES + ("sharded_flagger",))
 def test_example_raises_without_a_card(name, monkeypatch):
     """No silent CPU fallback: without CUDA the default --device cuda exits."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     module = __import__(f"katsdpsigproc_tpu_torch.examples.{name}", fromlist=["main"])
     with pytest.raises(SystemExit, match="--device cpu"):
         module.main([])
+
+
+def test_sharded_flagger_runs_on_eight_cpu_ranks(tmp_path):
+    """The sharded example spawns 8 gloo ranks; both halves show 0 mismatches."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    env["TMPDIR"] = str(tmp_path)
+    proc = subprocess.run(
+        [sys.executable, "-m", "katsdpsigproc_tpu_torch.examples.sharded_flagger", "--device",
+         "cpu", "--world-size", "8"],
+        cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[0] == "devices: 8 × cpu", proc.stdout
+    assert lines[1].startswith("1-D sharded flagger on a (2, 4) mesh: flagged ")
+    assert lines[1].endswith("mismatches vs host oracle: 0"), proc.stdout
+    assert lines[2].startswith("2-D sharded flagger over 8 ranks")
+    assert lines[2].endswith("mismatches vs single-device: 0"), proc.stdout
 
 
 @pytest.mark.parametrize("n", [256, 4 * 256, 64 * 256])
@@ -263,7 +281,7 @@ def test_examples_import_and_run_without_jax():
         "from katsdpsigproc_tpu_torch import abc, asyncio\n"
         "from katsdpsigproc_tpu_torch.asyncio import resource\n"
         "from katsdpsigproc_tpu_torch.examples import (fill_reduce, hello_device,\n"
-        "    resource_pipeline, triple, triple_fn, triple_op, triple_pallas)\n"
+        "    resource_pipeline, sharded_flagger, triple, triple_fn, triple_op, triple_pallas)\n"
         "from katsdpsigproc_tpu_torch.scripts import prim_cost, roofline_skeleton\n"
         "for ex in (hello_device, triple_fn, triple, triple_pallas, triple_op, fill_reduce,\n"
         "           resource_pipeline):\n"

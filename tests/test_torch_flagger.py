@@ -284,6 +284,8 @@ def test_port_runs_without_jax():
         "from katsdpsigproc_tpu_torch.models.rfi import fused_flagger, device, twodflag\n"
         "from katsdpsigproc_tpu_torch.ops import fft\n"
         "from katsdpsigproc_tpu_torch.scripts import fftflagtest, rfiflagtest\n"
+        "import katsdpsigproc_tpu_torch.parallel\n"
+        "from katsdpsigproc_tpu_torch.parallel import collectives, flagger, mesh, multihost\n"
         "rs = np.random.RandomState(0)\n"
         "v = rs.standard_normal((8, 96, 2)).astype(np.float32); v[:, 40] *= 50\n"
         "f = fused_flagger.flag_dump(torch.from_numpy(v))\n"
