@@ -125,7 +125,22 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
    equal flag for flag to ``flag_dump`` (K1); ``get_flags_sharded`` on a
    (1,) mesh at config 1, equal to ``get_flags``; then the sharded K1
    against ``flag_dump`` interleaved, the stage flagger timed, the two 2-D
-   calls interleaved, and the stage flagger's device idle share.
+   calls interleaved, and the stage flagger's device idle share;
+12. harnesses and support, each through its ``main`` at the reference's
+   default size: ``scripts/transposetest --engine cuda`` (K5 on 3072 x
+   8320 complex64 planar, the whole output against numpy's ``.T``),
+   ``percentiletest --engine cuda`` (K4 on 4000 x 5000, exactly numpy's
+   lower percentiles), ``maskedsumtest`` and ``maskedsumabstest`` (4000 x
+   5000 complex64, within rtol 1e-4 / atol 1e-3 of numpy), each with the
+   launch counts set to 0 just before and read just after, one call of K5's
+   and of K4's under ``torch.profiler`` in a process of its own (one
+   kernel each), and each time
+   beside its byte bound; ``tune_all`` into
+   ``build/katsdpsigproc_tpu_torch/tuning_table.json``, each pick beside
+   the shipped record; ``utils/regions`` on CUDA tensors (a 3072 x 8320
+   complex64 region copied, read and written, bit for bit numpy's); and
+   the ``test.test_accel`` decorators ``device_test`` and ``cuda_test``
+   resolving to ``cuda:0``.
 
 Any failure raises and exits non-zero before the result lines.  The
 second-to-last line is a JSON record of each kernel, with its bound: the
@@ -1713,6 +1728,180 @@ def phase_parallel(ff, device, vis_np: np.ndarray, card: str, check: Check) -> N
     print(f"  the phase took {time.perf_counter() - t0:.1f} s")
 
 
+def run_harness(label: str, main, argv) -> str:
+    """Run a harness's ``main`` in this process; returns what it printed.
+
+    Its lines are printed indented; an exit code other than 0 raises.
+    """
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(out):
+        try:
+            main(argv)
+            code = 0
+        except SystemExit as e:
+            code = e.code
+    for line in out.getvalue().splitlines():
+        print(f"    {line}")
+    if code != 0:
+        raise AssertionError(f"{label} {' '.join(argv)} exited with {code}")
+    print(f"  {label} {' '.join(argv)}: exit 0 in {time.perf_counter() - t0:.1f} s")
+    return out.getvalue()
+
+
+def harness_ms(label: str, text: str) -> float:
+    """The time a harness printed for its call on the card."""
+    found = re.search(r"time on cuda(?::0)?: ([0-9.]+) ms/iter", text)
+    if found is None:
+        raise AssertionError(f"{label} printed no time on the card")
+    return float(found.group(1))
+
+
+# One call each of transposetest's and percentiletest's operation at the
+# reference's sizes, each under its own torch.profiler session after a
+# warm-up of both; prints the kernels each ran on the card, as JSON.
+PROFILE_K4_K5 = """
+import json, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from katsdpsigproc_tpu_torch.ops import transpose as tr
+from katsdpsigproc_tpu_torch.scripts import percentiletest, transposetest
+cuda = torch.device("cuda", 0)
+template = transposetest.make_template(cuda, "cuda")
+planar = torch.randn((3072, 8320, 2), device=cuda)
+op = percentiletest.make_op(cuda, (4000, 5000), "cuda")
+values = torch.rand((4000, 5000), device=cuda)
+calls = {"transposetest": lambda: tr.transpose(planar, template),
+         "percentiletest": lambda: op(src=values)["dest"]}
+for fn in calls.values():
+    fn()
+torch.cuda.synchronize()
+names = {}
+for label, fn in calls.items():
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names[label] = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                    and not e.name.startswith(("Memcpy", "Memset"))]
+print(json.dumps(names))
+"""
+
+
+def phase_support(card: str) -> None:
+    """Phase 12: the reference's harnesses at their default sizes (K5 and K4
+    among them), the offline tuner, region copies and the test decorators."""
+    from katsdpsigproc_tpu_torch.ops import percentile as pct, transpose as tr
+    from katsdpsigproc_tpu_torch.scripts import (maskedsumabstest, maskedsumtest, percentiletest,
+                                                 transposetest, tune_all)
+    from katsdpsigproc_tpu_torch.test import test_accel
+    from katsdpsigproc_tpu_torch.utils import regions
+    from katsdpsigproc_tpu_torch.utils.profiling import time_fn
+
+    t0 = time.perf_counter()
+    cuda = torch.device("cuda", 0)
+    print(f"harnesses and support at the reference's sizes [{card}]:")
+    times = {}
+    iters = ["--iters", "20"]
+
+    # K5: the corner turn of 3072 x 8320 complex64, planar.
+    tr.launches["transpose"] = 0
+    text = run_harness("transposetest", transposetest.main, ["--engine", "cuda"] + iters)
+    launched = tr.launches["transpose"]
+    print(f"  K5 launches during transposetest: {launched} (1 checked call, 2 warm-ups, "
+          "20 timed)")
+    if "Mismatches: 0 / 25559040" not in text or launched != 23:
+        raise AssertionError("transposetest did not turn every element with K5 once a call")
+    times["transposetest (K5)"] = (harness_ms("transposetest", text), 2 * 3072 * 8320 * 8)
+
+    # K4: the percentiles of 4000 x 5000 float32.
+    pct.launches["percentile5"] = 0
+    text = run_harness("percentiletest", percentiletest.main, ["--engine", "cuda"] + iters)
+    launched = pct.launches["percentile5"]
+    print(f"  K4 launches during percentiletest: {launched} (1 checked call, 2 warm-ups, "
+          "20 timed)")
+    if "exact match vs np.percentile(..., 'lower')" not in text or launched != 23:
+        raise AssertionError("percentiletest did not match numpy exactly with K4 once a call")
+    times["percentiletest (K4)"] = (harness_ms("percentiletest", text),
+                                    4000 * 5000 * 4 + 5 * 4000 * 4)
+
+    # One call of each harness's op under torch.profiler, in a process of
+    # its own: in this one, after the profiler sessions of phases 10 and 11,
+    # the profiler was seen to trace no kernel of K4's or K5's library.
+    proc = subprocess.run([sys.executable, "-c", PROFILE_K4_K5], cwd=ROOT, check=True,
+                          capture_output=True, text=True, timeout=300)
+    names = json.loads(proc.stdout.strip().splitlines()[-1])
+    for label, want in (("transposetest", "transpose_kernel"),
+                        ("percentiletest", "percentile5_radix_kernel")):
+        print(f"  kernels of one {label} call under torch.profiler (a fresh process): "
+              f"{names[label]}")
+        if len(names[label]) != 1 or want not in names[label][0]:
+            raise AssertionError(f"one {label} call is not one launch of {want}")
+
+    # The masked sums (torch.matmul: no kernel of the port's own).
+    for label, main, out_bytes in (("maskedsumtest", maskedsumtest.main, 5000 * 8),
+                                   ("maskedsumabstest", maskedsumabstest.main, 5000 * 4)):
+        text = run_harness(label, main, iters)
+        if "Mismatches: 0 / " not in text:
+            raise AssertionError(f"{label} is not within its tolerance")
+        times[label] = (harness_ms(label, text), 4000 * 5000 * 8 + 4000 * 4 + out_bytes)
+
+    # The offline tuner, into a table under build/.
+    table = ROOT / "build" / "katsdpsigproc_tpu_torch" / "tuning_table.json"
+    if table.exists():
+        table.unlink()
+    run_harness("tune_all", tune_all.main, ["--table", str(table)])
+    written = json.loads(table.read_text())
+    print(f"  tune_all wrote {len(written)} records to {table.relative_to(ROOT)}")
+
+    # Region copies of a 3072 x 8320 complex64 region on the card.
+    rs = np.random.RandomState(12)
+    h_src = rs.standard_normal((3100, 8400, 2)).astype(np.float32).view(np.complex64)[..., 0]
+    sr, dr = np.s_[10:3082, 40:8360], np.s_[100:3172, :]
+    expected = np.zeros((3200, 8320), np.complex64)
+    expected[dr] = h_src[sr]
+    src = torch.from_numpy(h_src).to(cuda)
+    dest = torch.zeros((3200, 8320), dtype=torch.complex64, device=cuda)
+    checks = {"copy_region": regions.copy_region(src, dest, sr, dr).cpu().numpy(),
+              "set_region": regions.set_region(torch.zeros_like(dest), h_src, dr, sr)
+              .cpu().numpy()}
+    got = np.zeros((3200, 8320), np.complex64)
+    regions.get_region(src, got, sr, dr)
+    checks["get_region"] = got
+    for label, out in checks.items():
+        bad = int((out.view(np.uint64) != expected.view(np.uint64)).sum())
+        print(f"  regions.{label} of a 3072 x 8320 complex64 region on {cuda}: {bad} mismatching "
+              f"elements of {out.size}")
+        if bad:
+            raise AssertionError(f"regions.{label} differs from numpy")
+    times["regions.copy_region"] = (time_fn(lambda: regions.copy_region(src, dest, sr, dr)),
+                                    2 * 3072 * 8320 * 8)
+    del src, dest
+
+    # The test decorators on the card.
+    seen = []
+
+    @test_accel.device_test
+    @test_accel.cuda_test
+    def on_card(context, device):
+        seen.append((context.device, device))
+
+    on_card()
+    print(f"  device_test and cuda_test resolved to {seen}")
+    if seen != [(cuda, cuda)]:
+        raise AssertionError("device_test and cuda_test did not resolve to cuda:0")
+
+    print(f"  times on {card} (the harnesses' CUDA events, median of 20 calls; bound: the "
+          "bytes read and written once at 3.35 TB/s):")
+    for label, (ms, nbytes) in times.items():
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"    {label}: {ms:.3f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB), "
+              f"{bound / ms:.2f} of it [{card}]")
+    print(f"  the phase took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     card = phase_device()
     sys.path.insert(0, str(ROOT))
@@ -1744,6 +1933,8 @@ def main() -> None:
     phase_twod_fft(ff, device, vis_np, card)
     phase_stream(ff, device, vis_np, card, check)
     phase_parallel(ff, device, vis_np, card, check)
+    del vis_np
+    phase_support(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": ROUTES.get(name, "cuda"), "source": SOURCES[name],
          "replaces": REPLACES[name], "max_abs_err": check.max_abs_err[name], **numbers}

@@ -24,7 +24,11 @@ deprecated ``asyncio.resource`` alias and the ``abc`` protocols); the
 examples of ``doc/examples`` (``examples``); the probes of the fused
 flagger's stages and costs and the harnesses ``rfiflagtest`` and
 ``fftflagtest`` (``scripts``); the sharded flaggers on
-``torch.distributed`` (``parallel``).
+``torch.distributed`` (``parallel``); region copies (``utils.regions``),
+the device-parametrised pytest plugin (``pytest_plugin``) and the test
+decorators of ``test.test_accel``; the harnesses ``transposetest``,
+``percentiletest``, ``maskedsumtest`` and ``maskedsumabstest`` and the
+offline tuner ``tune_all`` (``scripts``).
 """
 
 __version__ = "0.5.0"
@@ -32,7 +36,7 @@ __version__ = "0.5.0"
 # MAD-to-sigma conversion factor (katsdpsigproc_tpu/__init__.py::MAD_NORMAL).
 MAD_NORMAL = 1.4826
 
-from . import models, ops  # noqa: E402,F401
+from . import models, ops, parallel, utils  # noqa: E402,F401
 from .models import rfi  # noqa: E402,F401
 
-__all__ = ["MAD_NORMAL", "ops", "models", "rfi", "__version__"]
+__all__ = ["MAD_NORMAL", "ops", "models", "parallel", "utils", "rfi", "__version__"]

@@ -1,4 +1,4 @@
-"""What the probe scripts share: the card, the dump and the CLI."""
+"""What the probe scripts and harnesses share: the card, the dump and the CLI."""
 
 import argparse
 import subprocess
@@ -32,6 +32,29 @@ def require_card() -> str:
     if not torch.cuda.is_available():
         sys.exit("no CUDA device: this probe measures the card and runs only there")
     return card_line()
+
+
+def add_device_option(parser: argparse.ArgumentParser) -> None:
+    """The harnesses' ``--device``: the card by default, or the CPU with the plain versions."""
+    parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                        help="where to run (default %(default)s; cpu runs the plain versions)")
+
+
+def harness_device(name: str) -> torch.device:
+    """The device a harness runs on; exits when it asks for the card and there is none."""
+    if name == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
+    return torch.device(name)
+
+
+def clock_name(device: torch.device) -> str:
+    """How ``utils/profiling.time_fn`` times a call on `device`."""
+    return "CUDA events" if device.type == "cuda" else "host clock"
+
+
+def device_line(device: torch.device) -> str:
+    """The card's name and power limit (:func:`card_line`), or ``cpu``."""
+    return card_line() if device.type == "cuda" else "cpu"
 
 
 def meerkat_dump(channels: int, rows: int) -> np.ndarray:

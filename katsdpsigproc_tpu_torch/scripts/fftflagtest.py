@@ -31,6 +31,8 @@ from katsdpsigproc_tpu_torch import MAD_NORMAL
 from katsdpsigproc_tpu_torch.ops import fft, rank
 from katsdpsigproc_tpu_torch.utils import backend, numerics
 
+from . import common
+
 #: Relative distance to its threshold within which a bin's flag may
 #: differ between FFT libraries and is not held.
 NEAR = 1e-5
@@ -87,12 +89,9 @@ def main(argv=None):
     parser.add_argument("--channels", type=int, default=32768)
     parser.add_argument("--nsigma", type=float, default=5.0)
     parser.add_argument("--iters", type=int, default=5)
-    parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                        help="where to run (default %(default)s)")
+    common.add_device_option(parser)
     args = parser.parse_args(argv)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
-    context = backend.DeviceContext(torch.device(args.device))
+    context = backend.DeviceContext(common.harness_device(args.device))
 
     b, c = args.baselines, args.channels
     data = make_data(b, c)

@@ -31,6 +31,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from . import common
+
 ROOT = Path(__file__).resolve().parents[2]
 TWODFLAG_ORACLE = ROOT / "tests" / "rfi" / "twodflag_oracle.py"
 
@@ -139,12 +141,9 @@ def main(argv=None):
                              "pallas); the TPU pipelines pallas_dma and pallas_dma_amp have no "
                              "counterpart")
     parser.add_argument("--skip-host", action="store_true")
-    parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                        help="where to run (default %(default)s; cpu runs the plain versions)")
+    common.add_device_option(parser)
     args = parser.parse_args(argv)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
-    device = torch.device(args.device)
+    device = common.harness_device(args.device)
 
     data = generate_data(args.time, args.channels, args.baselines)
     if args.time is None:

@@ -19,7 +19,13 @@ import torch
 
 from katsdpsigproc_tpu_torch.examples import triple, triple_pallas
 from katsdpsigproc_tpu_torch.models.rfi import device, fused_flagger as ff
-from katsdpsigproc_tpu_torch.scripts import examples_ab, k2_ab, k4_ab
+from katsdpsigproc_tpu_torch.ops import percentile as pct, transpose as tr
+from katsdpsigproc_tpu_torch.scripts import (examples_ab, k2_ab, k4_ab, percentiletest,
+                                             transposetest)
+from katsdpsigproc_tpu_torch.test import test_accel
+from katsdpsigproc_tpu_torch.utils import regions
+
+from .test_torch_test_support import run_plugin
 
 pytestmark = pytest.mark.cuda
 
@@ -982,3 +988,79 @@ def test_get_flags_sharded_matches_get_flags(nccl_world):
     got = flagger.get_flags_sharded(data, flags, pmesh.make_mesh((1,), (pmesh.BASELINE_AXIS,)))
     np.testing.assert_array_equal(got, flagger.get_flags(data, flags))
     assert got[7, 40].all()
+
+
+def test_regions_on_cuda_tensors(cuda):
+    """copy_region between CUDA tensors and from a CPU tensor to one,
+    set_region and get_region, each bit for bit numpy's slice assignment."""
+    rs = np.random.RandomState(8)
+    h_src = (rs.standard_normal((40, 70)) + 1j * rs.standard_normal((40, 70))).astype(
+        np.complex64)
+    h_dest = (rs.standard_normal((20, 64)) + 0j).astype(np.complex64)
+    sr, dr = np.s_[3:35:2, 5:65], np.s_[2:18, 2:62]
+    expected = h_dest.copy()
+    expected[dr] = h_src[sr]
+    for src in (torch.from_numpy(h_src).to(cuda), torch.from_numpy(h_src)):
+        dest = torch.from_numpy(h_dest).to(cuda)
+        assert regions.copy_region(src, dest, sr, dr) is dest
+        assert torch.equal(dest.cpu(), torch.from_numpy(expected))
+    dest = torch.from_numpy(h_dest).to(cuda)
+    regions.set_region(dest, h_src, dr, sr)
+    assert torch.equal(dest.cpu(), torch.from_numpy(expected))
+    ary = h_dest.copy()
+    regions.get_region(torch.from_numpy(h_src).to(cuda), ary, sr, dr)
+    np.testing.assert_array_equal(ary.view(np.uint64), expected.view(np.uint64))
+    with pytest.raises(TypeError, match="dtype mismatch"):
+        regions.set_region(dest, h_src.astype(np.complex128), dr, sr)
+
+
+def test_plugin_lists_the_card(cuda, tmp_path):
+    """The port's plugin in a subprocess (--noconftest), first-per-api: cuda:0
+    and the CPU; cuda_only runs on cuda:0."""
+    outcomes, proc = run_plugin(tmp_path)
+    assert proc.returncode == 0, proc.stdout
+    assert outcomes["test_device[cuda:0]"] == outcomes["test_device[cpu]"] == "PASSED"
+    assert outcomes["test_cuda_only[cuda:0]"] == "PASSED"
+    assert outcomes["test_cpu_only[cpu]"] == "PASSED"
+    assert outcomes["test_context[cuda:0]"] == "PASSED"
+    assert not any("cuda:1" in name for name in outcomes)
+
+
+def test_cuda_test_runs_on_the_card(cuda):
+    seen = []
+
+    @test_accel.device_test
+    @test_accel.cuda_test
+    def my_test(context, device):
+        seen.append(device)
+        return torch.ones(4, device=device).sum().item()
+
+    assert my_test() == 4.0
+    assert seen == [torch.device("cuda", 0)]
+
+
+def _harness(main, argv, capsys):
+    with pytest.raises(SystemExit) as exit_info:
+        main(argv)
+    err = capsys.readouterr().err
+    assert exit_info.value.code == 0, err
+    return err
+
+
+def test_transposetest_at_the_reference_size(cuda, capsys):
+    """3072 x 8320 complex64 through K5: the whole output equals numpy's .T;
+    one K5 launch for the checked call and each of time_fn's 2 warm-ups and
+    3 timed calls."""
+    before = tr.launches["transpose"]
+    err = _harness(transposetest.main, ["--engine", "cuda", "--iters", "3"], capsys)
+    assert "engine: cuda" in err and "Mismatches: 0 / 25559040" in err, err
+    assert tr.launches["transpose"] - before == 6
+
+
+def test_percentiletest_at_the_reference_size(cuda, capsys):
+    """4000 x 5000 through K4, exactly numpy's lower percentiles; one K4 launch
+    a call, as for K5."""
+    before = pct.launches["percentile5"]
+    err = _harness(percentiletest.main, ["--engine", "cuda", "--iters", "3"], capsys)
+    assert "engine: cuda" in err and "exact match vs np.percentile(..., 'lower')" in err, err
+    assert pct.launches["percentile5"] - before == 6

@@ -386,7 +386,8 @@ class TestPercentile5:
 
 def test_ops_and_templates_run_without_jax_or_triton():
     """A subprocess where `import jax` and `import triton` fail imports every
-    module of the port and runs the ops path and FlaggerDevice on the CPU."""
+    module of the port, the package root's `parallel` and `utils` among them,
+    and runs a region copy, the ops path and FlaggerDevice on the CPU."""
     import os
     import subprocess
     import sys
@@ -401,6 +402,14 @@ def test_ops_and_templates_run_without_jax_or_triton():
         "from katsdpsigproc_tpu_torch.utils import backend, kernels, numerics, shapes, tune\n"
         "from katsdpsigproc_tpu_torch.models.rfi import device, fused_flagger, host\n"
         "import katsdpsigproc_tpu_torch.pytest_plugin\n"
+        "from katsdpsigproc_tpu_torch.utils import regions\n"
+        "from katsdpsigproc_tpu_torch.test import test_accel\n"
+        "from katsdpsigproc_tpu_torch.scripts import (maskedsumabstest, maskedsumtest,\n"
+        "    percentiletest, transposetest, tune_all)\n"
+        "assert katsdpsigproc_tpu_torch.parallel.mesh and katsdpsigproc_tpu_torch.utils.tune\n"
+        "assert {'parallel', 'utils'} <= set(katsdpsigproc_tpu_torch.__all__)\n"
+        "d = regions.copy_region(torch.arange(6.), torch.zeros(4), np.s_[1:5], np.s_[:])\n"
+        "assert d.tolist() == [1, 2, 3, 4]\n"
         "ctx = backend.create_some_context(devices=[torch.device('cpu')])\n"
         "x = torch.rand((6, 50))\n"
         "p = percentile.Percentile5Template(ctx, 50, True).instantiate(None, (6, 50))\n"

@@ -3,7 +3,11 @@
 The cases of ``tests/test_tune.py`` on the port: the grid search, the
 table and user-cache lookup with exact and nearest matching, the stub and
 forced modes and their pytest fixture, the staleness check of the shipped
-table, and the mapping of JAX tuning results to the port's.
+table, and the mapping of JAX tuning results to the port's; and the
+offline tuner ``scripts/tune_all``: a CPU run into a table of its own
+(two templates' searches, to keep it short: the percentile and fused
+flagger searches take tens of seconds each on the CPU), the merge on the
+table's key, and a search that raises leaving the script.
 """
 
 import enum
@@ -16,6 +20,7 @@ import pytest
 import torch
 
 from katsdpsigproc_tpu_torch.pytest_plugin import patch_autotune  # noqa: F401
+from katsdpsigproc_tpu_torch.scripts import tune_all
 from katsdpsigproc_tpu_torch.utils import backend, tune
 
 
@@ -268,6 +273,87 @@ def test_shipped_table_covers_every_template(tmp_path, monkeypatch):
     assert made[2].engine == "cuda" and made[1].engine == "cuda"
     assert made[-1].tuning == {}
 
+
+def test_tune_all_templates_are_the_shipped_tables(monkeypatch):
+    """Every shipped record's template and arguments are searched, and
+    nothing else (each search short-cut to its first candidate)."""
+    monkeypatch.setattr(tune, "autotune",
+                        lambda generate, time_limit=0.1, **kw: {k: v[0] for k, v in kw.items()})
+    picks = tune_all.search_all(backend.DeviceContext(torch.device("cpu")))
+    shipped = json.load(open(tune._TABLE_PATH))
+    assert sorted((r["fn"], r["version"], r["args"]) for _, r in picks) == sorted(
+        (r["fn"], r["version"], r["args"]) for r in shipped)
+    assert [label for label, _ in picks] == [
+        "transpose f32", "transpose c64", "percentile 5000", "background median",
+        "madnz transposed", "madnz straight", "fused flagger"]
+
+
+class TestTuneAll:
+    """``scripts/tune_all`` on the CPU, each run writing a table under tmp_path."""
+
+    @pytest.fixture(autouse=True)
+    def _own_cache(self, tmp_path, monkeypatch):
+        monkeypatch.setenv("KATSDPSIGPROC_TPU_TORCH_TUNE_DB", str(tmp_path / "cache.json"))
+        monkeypatch.setattr(tune_all, "TEMPLATES", tune_all.TEMPLATES[:2])
+
+    def test_cpu_run_merges_the_picks_into_the_shipped_records(self, tmp_path, capsys):
+        table = tmp_path / "out" / "table.json"
+        tune_all.main(["--device", "cpu", "--table", str(table)])
+        err = capsys.readouterr().err
+        records = json.load(open(table))
+        shipped = json.load(open(tune._TABLE_PATH))
+        new = [r for r in records if r["platform"] == "cpu"]
+        assert [r for r in records if r["platform"] != "cpu"] == shipped
+        assert sorted((r["fn"], r["version"], r["platform"], r["device_kind"], r["args"])
+                      for r in new) == [
+            ("TransposeTemplate.autotune", 2, "cpu", "cpu", '{"dtype": "complex64"}'),
+            ("TransposeTemplate.autotune", 2, "cpu", "cpu", '{"dtype": "float32"}')]
+        assert all(r["result"] == {"engine": "torch"} for r in new)  # cuda skipped on a CPU
+        assert records == sorted(records, key=lambda r: (r["fn"], r["args"]))
+        assert 'transpose f32: TransposeTemplate.autotune {"dtype": "float32"}: ' \
+               '{"engine": "torch"} (shipped: none)' in err, err
+        assert "differ from the shipped table: transpose f32, transpose c64" in err
+        assert f"wrote 9 records to {table}" in err
+        assert tune.autotuner_impl is not tune.force_autotuner
+        # The search is forced: nothing is read from or saved to the user cache.
+        assert not (tmp_path / "cache.json").exists()
+
+    def test_merge_replaces_the_record_of_the_same_key_only(self, tmp_path):
+        table = tmp_path / "table.json"
+        stale = {"fn": "TransposeTemplate.autotune", "version": 2, "platform": "cpu",
+                 "device_kind": "cpu", "args": '{"dtype": "float32"}',
+                 "result": {"engine": "cuda"}}
+        older = dict(stale, version=1)
+        other = dict(stale, device_kind="another cpu")
+        table.write_text(json.dumps([stale, older, other]))
+        tune_all.main(["--device", "cpu", "--table", str(table)])
+        records = json.load(open(table))
+        assert len(records) == 4  # the table's own three, the float32 pick replacing one
+        assert older in records and other in records and stale not in records
+        assert dict(stale, result={"engine": "torch"}) in records
+
+    def test_a_search_that_raises_leaves_the_script(self, tmp_path, monkeypatch):
+        class Broken:
+            autotune_version = 1
+
+            def __init__(self, context):
+                self.tuning = self.autotune(context)
+
+            @classmethod
+            @tune.autotuner(test={})
+            def autotune(cls, context):
+                def generate(engine):
+                    raise RuntimeError(f"{engine} kernel failed to launch")
+
+                return tune.autotune(generate, engine=["cuda"])
+
+        monkeypatch.setattr(tune_all, "TEMPLATES",
+                            tune_all.TEMPLATES[:1] + (("broken", Broken),))
+        table = tmp_path / "table.json"
+        with pytest.raises(RuntimeError, match="cuda kernel failed to launch"):
+            tune_all.main(["--device", "cpu", "--table", str(table)])
+        assert not table.exists()
+        assert tune.autotuner_impl is not tune.force_autotuner
 
 class TestBackend:
     """The port's device contexts (the cases of ``tests/test_backend.py``)."""
