@@ -18,9 +18,11 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
    ``madnz_threshold_kernel``, every instance of K4's
    ``percentile5_radix_kernel``, every K9, K11, K13 and ``channel_major``
    instance of ``flagger_probe.cu``'s ``probe_kernel``, each build of K12
-   (clusters of 1, 2, 4 and 8 rows, baseline-major, its earlier design) and
-   K10's ``skeleton_kernel`` must spill no bytes, and the SASS local loads
-   and stores of each are counted (``cuobjdump -sass``);
+   (clusters of 1, 2, 4 and 8 rows, baseline-major, its earlier design),
+   K10's ``skeleton_kernel`` and every instance of K8 at K1's launch
+   (``k1_prim_kernel``) must spill no bytes, and the SASS local loads and
+   stores of each are counted (``cuobjdump -sass``), with the SASS
+   instructions a rep of each K8 body costs an element;
 3. each kernel against its plain PyTorch version on the card, exact on
    the uint8 flags: K1 in every flag mode at the edge shapes of its run
    layout (1, 13, 99, 257, 1023, 1024, 1025, 4097 and 32768 channels and
@@ -90,19 +92,26 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
    card) with the launch counts read; ``scripts/examples_ab``: K7 and K6
    against their other designs, PyTorch's calls and ``copy_``, 5
    interleaved rounds at 2**28 and 5 at 2**24, host-paced (the record)
-   and device-paced; K8 (``csrc/prim_cost.cu``) against its plain chains
-   and K10 (``csrc/roofline_skeleton.cu``) against its plain version on
-   its uint8 output and its rank carry, at several shapes and on 512 rows
-   and the whole of the dump; the cost-probe path (K8's per-op table,
-   then K10 on the whole dump priced by that table) with the launch
-   counts read, K10 beside K11's ``full`` in the same rounds; K8's add
-   chain on (264, 1024), two full waves of one CTA per SM, device-paced,
-   which gives the float32 instruction rate the card reaches beside
-   :data:`F32_OPS_PER_S`; then the
+   and device-paced; K8 (``csrc/prim_cost.cu``) at both of its launches
+   against its plain chains (the strided launch on (256, 1024); K1's
+   launch on (132, 32768), (137, 32768) and (7, 4160)), and K10
+   (``csrc/roofline_skeleton.cu``) against its plain version on its uint8
+   output and its rank carry, at several shapes and on 512 rows and the
+   whole of the dump; the cost-probe path (K8's per-op tables at both
+   launches, then K10 and K11's ``full``, ``no_median``, ``no_rank``,
+   ``no_thresh`` and ``skeleton`` on the whole dump in the same rounds,
+   beside the model of ``models/rfi/roofline.py`` priced by the shipped
+   table, by K8 at K1's launch and by K8 at the strided launch, stage by
+   stage against K11's stage costs) with the launch counts read; K8's add
+   chain at K1's launch on (264, 32768) (the record) and at the strided
+   launch on (256, 1024), device-paced; the strided add chain on (264,
+   1024), two full waves of one CTA per SM, which gives the float32
+   instruction rate beside :data:`F32_OPS_PER_S`; then the
    streaming ingest example at the full dump (5 dumps through one device
    slot and K1), each dump's flags equal to ``flag_dump``'s on the card,
-   with the upload, flag and pipeline times.  K10 is held to K1's launch
-   (the run layout), K8 to the strided layout's;
+   with the upload, flag and pipeline times.  K10 and K8 at K1's launch
+   are held to K1's launch (the run layout), K8's strided launch to the
+   strided layout's;
 10. the 2-D and FFT paths, plain PyTorch as XLA computes them in JAX, and
    ``FusedFlaggerTemplate``: the 2-D ``SumThresholdFlagger`` at
    ``bench.py`` config 1 (3000 times x 1024 channels x 1 baseline, seed 1)
@@ -223,10 +232,10 @@ def inventory_ops(stages=None) -> int:
     """The op inventory's operations per visibility (over `stages`, default all).
 
     The inventory is the least vector work of the exact flagger
-    (``katsdpsigproc_tpu_torch/scripts/roofline_skeleton.py::op_inventory``),
+    (``katsdpsigproc_tpu_torch/models/rfi/roofline.py::op_inventory``),
     the operation count of K1's bound.
     """
-    from katsdpsigproc_tpu_torch.scripts.roofline_skeleton import op_inventory
+    from katsdpsigproc_tpu_torch.models.rfi.roofline import op_inventory
 
     return sum(count for stage, _, count in op_inventory() if stages is None or stage in stages)
 
@@ -499,6 +508,48 @@ def phase_build(ff, pct, tr, fp, kernels) -> None:
     if ("madnz_threshold_kernel" not in checked or len(checked) < 2
             or any(r["spill_stores"] or r["spill_loads"] for r in checked.values())):
         raise AssertionError(f"K2 or K4 spills or is missing from the report: {checked}")
+    # K8 at K1's launch, __launch_bounds__(1024, 1) as K1: no spills; and the
+    # SASS instructions one rep of each body costs an element: the kernel
+    # unrolled 16 times less 8 times, 8 reps (16 for rank_round and reduce,
+    # which peel rep 0) of 8 elements (32 for the bodies on a whole run),
+    # behind models/rfi/roofline.DEFAULT_PRIM_NS.
+    pc_key = kernels.build_key("prim_cost", ["prim_cost.cu"],
+                               {"ff_network.h": ff._network_header(13)})
+    k8_names = {spec[3]: name for name, spec in prim_cost.bodies("k1").items()}
+    k8_names[0] = "empty"
+
+    def k8_kernel(mangled: str):
+        m = re.search(r"k1_prim_kernelILi(\d+)ELi(\d+)E", mangled)
+        return (k8_names[int(m.group(1))], int(m.group(2))) if m else None
+
+    report = {k8_kernel(name): r
+              for name, r in ptxas_report(kernels.build_info[pc_key]["log"]).items()
+              if k8_kernel(name)}
+    sass = subprocess.run([cuobjdump, "-sass", str(kernels.BUILD_DIR / pc_key / "libprim_cost.so")],
+                          capture_output=True, text=True).stdout
+    opcodes = {}
+    for part in sass.split("Function : ")[1:]:
+        key = k8_kernel(part.split("\n")[0])
+        if key:
+            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", part)
+            opcodes[key] = {op: ops.count(op) for op in set(ops)}
+    spills = {k: r for k, r in report.items() if r["spill_stores"] or r["spill_loads"]}
+    print(f"  K8 at K1's launch: {len(report)} k1_prim_kernel instances, "
+          f"{max((r.get('registers', 0) for r in report.values()), default=None)} registers at "
+          f"most, {len(spills)} spilling")
+    if len(report) != 5 * len(k8_names) or spills:
+        raise AssertionError(f"K8 at K1's launch spills or is missing from the report: {spills}")
+    for name in k8_names.values():
+        if name == "empty" or (name, 8) not in opcodes or (name, 16) not in opcodes:
+            continue
+        per = {"rank_round": 16 * 32, "reduce": 16 * 32, "shift_ch": 8 * 32,
+               "roll_lane": 8 * 32}.get(name, 8 * 8)
+        a, b = opcodes[(name, 16)], opcodes[(name, 8)]
+        diff = {op: (a.get(op, 0) - b.get(op, 0)) / per for op in set(a) | set(b)}
+        print(f"  K8 {name} at K1's launch: {report[(name, 16)].get('registers')} registers "
+              f"(unroll 16); SASS a rep an element: {sum(diff.values()):.2f} instructions ("
+              + ", ".join(f"{op} {n:.2f}" for op, n in sorted(diff.items()) if abs(n) >= 0.01)
+              + ")")
     print(f"  K1 and K2 take rows of up to {ff.max_channels()} channels on the run layout, "
           f"longer ones on the wide-row path ({ff._library(13).ff_wide_ctas()} CTAs); the "
           f"strided layout holds {ff._library(13).ff_strided_max_channels()}")
@@ -1309,15 +1360,18 @@ def phase_examples(card: str, check: Check) -> dict:
 def instruction_rate(prim_cost, dev, card: str, steps: int = 512, unroll: int = 16) -> float:
     """The float32 instruction rate the card reaches, behind every operation bound.
 
-    K8's add chain (``fminf`` and ``__fadd_rn``, two instructions a rep)
-    on 264 rows of 1024, enough for whole waves of CTAs, device-paced.
+    K8's add chain at the strided launch (``fminf`` and ``__fadd_rn``, two
+    instructions a rep) on 264 rows of 1024, enough for whole waves of CTAs,
+    device-paced: the rate the bounds have taken from it, so they do not
+    move silently.  Phase 9 prints the rate of the chain at K1's launch beside it.
     """
     from katsdpsigproc_tpu_torch.utils.profiling import time_queued
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    cfg = prim_cost.launch_config("add")
+    cfg = prim_cost.launch_config("add", launch="strided")
     wave = prim_cost.block(264, 1024, dev)
-    wave_ms = time_queued({"add": lambda: prim_cost.chain(wave, "add", steps, unroll)},
+    wave_ms = time_queued({"add": lambda: prim_cost.chain(wave, "add", steps, unroll,
+                                                          "strided")},
                           reps=5, iters=3)[0]["add"]
     rate = wave.numel() * 2 * steps * unroll / (wave_ms / 1e3)
     waves = 264 / (sms * cfg["ctas_per_sm"])
@@ -1336,22 +1390,36 @@ def phase_cost_probes(ff, device, vis_np: np.ndarray, card: str, check: Check) -
 
     dev = torch.device("cuda", 0)
     channels, rows = vis_np.shape
-    print("K8 (csrc/prim_cost.cu) against its plain chains, (256, 1024), 2 steps x 4 reps:")
-    block = prim_cost.block(256, 1024, dev)
-    for body in [None] + list(prim_cost.BODIES):
-        got = prim_cost.chain(block, body, 2, 4)
-        want = prim_cost.chain_plain(block, body, 2, 4)
-        if body == "reduce":  # the kernel sums a row in another order
-            check.close("prim_cost", f"K8 {body}", got, want, rtol=1e-6)
-        else:
-            check.exact("prim_cost", f"K8 {body or 'empty'}", got, want)
-    # K8 runs at the strided layout's occupancy, K10 exactly as K1 launches.
+    # K8 at both launches: the strided one on (256, 1024), K1's on a full
+    # wave of 32768-channel rows, a row count that is not a multiple of the
+    # SMs', and a narrower row whose last warp is partly without a run.
+    print("K8 (csrc/prim_cost.cu) against its plain chains, 2 steps x 4 reps:")
+    for launch, shape in (("strided", (256, 1024)), ("k1", (132, 32768)), ("k1", (137, 32768)),
+                          ("k1", (7, 4160))):
+        x = prim_cost.block(*shape, dev)
+        for body in [None] + list(prim_cost.bodies(launch)):
+            got = prim_cost.chain(x, body, 2, 4, launch)
+            want = prim_cost.chain_plain(x, body, 2, 4)
+            label = f"K8 {launch} {shape[0]}x{shape[1]} {body or 'empty'}"
+            if body == "reduce":  # the kernel sums a row in another order
+                check.close("prim_cost", label, got, want, rtol=1e-6)
+            else:
+                check.exact("prim_cost", label, got, want)
+    del x, got, want
+    # K8 at K1's launch exactly as K1 launches (as K10), its strided launch
+    # at the strided layout's occupancy.
     k2_cfg, k1_cfg = ff.strided_launch_config(channels), ff.launch_config(channels)
-    cfg = prim_cost.launch_config("rank_round")
-    print(f"  launch K8 rank_round: {cfg['threads']} threads, {cfg['smem_bytes']} B dynamic "
-          f"shared memory, {cfg['ctas_per_sm']} CTA per SM (the strided layout's K2: {k2_cfg})")
+    cfg = prim_cost.launch_config("rank_round", launch="strided")
+    print(f"  launch K8 strided rank_round: {cfg['threads']} threads, {cfg['smem_bytes']} B "
+          f"dynamic shared memory, {cfg['ctas_per_sm']} CTA per SM (the strided layout's K2: "
+          f"{k2_cfg})")
     if cfg["ctas_per_sm"] != k2_cfg["ctas_per_sm"] or cfg["threads"] != k2_cfg["threads"]:
         raise AssertionError(f"K8 does not run at the strided layout's occupancy: {cfg}")
+    for body in [None] + list(prim_cost.bodies("k1")):
+        cfg = prim_cost.launch_config(body, launch="k1")
+        if cfg != k1_cfg:
+            raise AssertionError(f"K8 {body} does not launch as K1 does ({k1_cfg}): {cfg}")
+    print(f"  launch K8 at K1's launch, every body: {cfg} (K1: {k1_cfg})")
     cfg = rsk.launch_config(channels)
     print(f"  launch K10: {cfg['threads']} threads, {cfg['smem_bytes']} B dynamic shared memory, "
           f"{cfg['ctas_per_sm']} CTA per SM (K1: {k1_cfg})")
@@ -1394,39 +1462,52 @@ def phase_cost_probes(ff, device, vis_np: np.ndarray, card: str, check: Check) -
         raise AssertionError("the skeleton's output is not 0")
     del out, rank, want_out, want_rank
 
-    # The cost-probe path: K8's table, then K10 on the whole dump priced by
-    # it, with the launch counts set to 0 just before and read just after.
-    print(f"the cost-probe tools (prim_cost at 256 x 1024, 512 steps x 16 reps; the skeleton "
-          f"on the whole dump) on {card}:")
-    for name in prim_cost.launches:
-        prim_cost.launches[name] = 0
+    # The cost-probe path: K8's tables at both launches, then K10 and K11 on
+    # the whole dump beside the model priced three ways, with the launch
+    # counts set to 0 just before and read just after.
+    print(f"the cost-probe tools (prim_cost at K1's launch on {prim_cost.K1_ROWS} x "
+          f"{prim_cost.K1_CHANNELS} and strided on 256 x 1024, 512 steps x 16 reps; the skeleton "
+          f"and K11 on the whole dump) on {card}:")
+    prim_cost.reset_launches()
     rsk.launches["skeleton"] = 0
     result = rsk.run(vis_t, iters=3, reps=5, card=card)
     del vis_t
     torch.cuda.synchronize()
     card_state("after the cost-probe tools")
-    launches = {"prim_cost": sum(prim_cost.launches.values()),
+    launches = {"prim_cost": sum(prim_cost.launches["k1"].values()),
+                "prim_cost strided": sum(prim_cost.launches["strided"].values()),
                 "roofline_skeleton": rsk.launches["skeleton"]}
     print(f"  launches during the cost-probe path: {launches} "
-          f"(per body: {dict(prim_cost.launches)})")
+          f"(per body at K1's launch: {dict(prim_cost.launches['k1'])})")
     for name, count in launches.items():
         if count < 1:
             raise AssertionError(f"kernel {name} was not launched on the cost-probe path")
 
+    # The record: K8's add chain at K1's launch on its block; the strided
+    # launch's beside it (its earlier record).
     steps, unroll = 512, 16
-    add_ms = time_queued({"add": lambda: prim_cost.chain(block, "add", steps, unroll)},
-                         reps=5, iters=3)[0]["add"]
-    add_plain = time_fn(lambda: prim_cost.chain_plain(block, "add", steps, unroll), warmup=1,
+    k1_block = prim_cost.default_block("k1", dev)
+    strided_block = prim_cost.default_block("strided", dev)
+    med = time_queued({
+        "k1": lambda: prim_cost.chain(k1_block, "add", steps, unroll, "k1"),
+        "strided": lambda: prim_cost.chain(strided_block, "add", steps, unroll, "strided")},
+        reps=5, iters=3)[0]
+    add_plain = time_fn(lambda: prim_cost.chain_plain(k1_block, "add", steps, unroll), warmup=1,
                         iters=2)
     skel_plain = time_fn(plain_whole(), warmup=1, iters=2)
-    print(f"kernel vs plain on {card}: K8 add chain {add_ms:.3f} ms vs {add_plain:.3f} ms; "
-          f"K10 whole dump {result['skeleton_ms']:.3f} ms vs {skel_plain:.3f} ms; K10 / K11 "
-          f"full {result['skeleton_ms'] / result['full_ms']:.3f} in the same rounds")
+    elems = k1_block.numel()
+    k1_rate = elems * 2 * steps * unroll / (med["k1"] / 1e3)
+    print(f"kernel vs plain on {card}: K8 add chain at K1's launch ({prim_cost.K1_ROWS} x "
+          f"{prim_cost.K1_CHANNELS}) {med['k1']:.3f} ms vs {add_plain:.3f} ms, "
+          f"{k1_rate:.4e} instructions/s ({k1_rate / F32_OPS_PER_S:.3f} of the bounds' rate); "
+          f"strided (256 x 1024) {med['strided']:.4f} ms; K10 whole dump "
+          f"{result['skeleton_ms']:.3f} ms vs {skel_plain:.3f} ms; K10 / K11 full "
+          f"{result['skeleton_ms'] / result['full_ms']:.3f} in the same rounds")
     instruction_rate(prim_cost, dev, card, steps, unroll)
-    elems, n_vis = block.numel(), rows * channels
+    n_vis = rows * channels
     return {
         # The chain reads and writes the block once; y0, 2 operations a rep, x + y.
-        "prim_cost": record(launches["prim_cost"], add_ms, add_plain, 2 * elems * 4,
+        "prim_cost": record(launches["prim_cost"], med["k1"], add_plain, 2 * elems * 4,
                             elems * (2 + 2 * steps * unroll + 1)),
         # 4 B of amplitude in and 1 B out per visibility; the inventory's work.
         "roofline_skeleton": record(launches["roofline_skeleton"], result["skeleton_ms"],

@@ -2,8 +2,8 @@
 
 Port of ``scripts/roofline_skeleton.py``.  The compute model prices the
 exact flagger's least vector work as the sum of count x ns over an op
-inventory (:func:`op_inventory`, a copy of
-``katsdpsigproc_tpu/models/rfi/roofline.py::op_inventory``).  The skeleton
+inventory (:func:`op_inventory`, from
+``katsdpsigproc_tpu_torch/models/rfi/roofline.py``).  The skeleton
 kernel (``csrc/roofline_skeleton.cu``) runs that inventory on dummy
 amplitudes, with none of the flagger's masks, valid counts or halfway
 corrections, on K1's machine: its run layout (``csrc/ff_runs.cuh``) at
@@ -18,11 +18,13 @@ model:
 - skeleton ms >> model ms: per-op costs do not add up at this occupancy;
 - skeleton ms << model ms: a chain folded or the inventory overcounts.
 
-The model is priced with the primitive costs of K8
-(:mod:`.prim_cost`) measured in the same call, at the strided layout's
-occupancy where K8 still runs: no table on disk and no default costs
-(``roofline.py``'s ``prim_ns.json`` and ``DEFAULT_PRIM_NS`` are not
-ported).
+The model (``models/rfi/roofline.py``, whose op inventory this tool
+imports) is priced three ways, printed beside K10 and K11's ``full`` timed
+in the same rounds: the shipped table (``prim_ns.json``), K8
+(:mod:`.prim_cost`) measured in the call at K1's launch, and K8 at the
+strided launch (K8's earlier design).  Each of the model's stages is
+printed beside K11's measured cost of it: ``full`` less ``no_median``,
+``no_rank`` and ``no_thresh``, and K11's ``skeleton`` for load + store.
 
 Per row of C float32 amplitudes x (``skeleton_block`` :64-112; a channel
 shift by d reads channel c + d, wrapped)::
@@ -49,12 +51,13 @@ Usage::
 
 import ctypes
 import functools
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
-from ..models.rfi import flagger_probe as fp, fused_flagger as ff
+from ..models.rfi import flagger_probe as fp, fused_flagger as ff, roofline
+from ..models.rfi.roofline import op_inventory
 from ..ops import rank as rank_ops
 from ..utils import numerics, profiling
 from . import common, prim_cost
@@ -167,37 +170,6 @@ def skeleton(amp, *, width: int = 13, flag_scale: float = FLAG_SCALE, return_ran
     return (out, rank) if return_rank else out
 
 
-def op_inventory(width: int = 13, n_windows: int = 4,
-                 rank_rounds: int = 31) -> List[Tuple[str, str, int]]:
-    """The least full-block vector work per block of the exact flagger: (stage, primitive, count).
-
-    A copy of ``katsdpsigproc_tpu/models/rfi/roofline.py::op_inventory``
-    (:111-168), on the port's :func:`..ops.rank.selection_network`: the
-    amplitude (2 add-class + sqrt), the median's ``width - 1`` channel
-    shifts, 2 parity fills, the two-middle-ranks network (a ``both``
-    comparator is a min and a max) and a subtract, ``rank_rounds + 1``
-    rank rounds and 2 adds, the SumThreshold's ladder and dilation shifts
-    with their adds, compares and scale, and the output's cast pair.
-    """
-    half_ladders = sum(int(w).bit_length() - 1 for w in (2 ** i for i in range(n_windows)))
-    net = rank_ops.selection_network(width, (width // 2, width // 2 + 1))
-    net_ops = sum(2 if mode == "both" else 1 for _, _, mode in net)
-    return [
-        ("amplitude", "add", 2),
-        ("amplitude", "sqrt", 1),
-        ("median", "shift_ch", width - 1),
-        ("median", "add", 2),
-        ("median", "minmax", net_ops),
-        ("median", "add", 1),
-        ("rank", "rank_round", rank_rounds + 1),
-        ("rank", "add", 2),
-        ("threshold", "shift_ch", half_ladders * 2),
-        ("threshold", "add", half_ladders + n_windows + 1),
-        ("threshold", "add", half_ladders),
-        ("output", "add", 2),
-    ]
-
-
 def ops_per_element(width: int = 13, n_windows: int = 4) -> int:
     """The inventory's operations per element (per visibility of the dump)."""
     return sum(count for _, _, count in op_inventory(width, n_windows))
@@ -205,61 +177,91 @@ def ops_per_element(width: int = 13, n_windows: int = 4) -> int:
 
 def compute_roofline(baselines: int, channels: int, prim_table: Mapping[str, float], *,
                      width: int = 13, n_windows: int = 4, rows: int = 256) -> Dict[str, object]:
-    """The inventory priced at `prim_table` (ns per op of a ``rows * 1024``-element block).
+    """The inventory priced at `prim_table` (ns per op of a ``rows * 1024``-element block):
+    :func:`..models.rfi.roofline.compute_roofline`."""
+    return roofline.compute_roofline(baselines, channels, width=width, n_windows=n_windows,
+                                     prim_table=prim_table, rows=rows)
 
-    The arithmetic of ``roofline.py::compute_roofline`` (:171-213): the
-    stages' ns per block, summed, scaled from the block's elements to the
-    dump's ``baselines * channels``.
-    """
-    stage_ns: Dict[str, float] = {}
-    for stage, prim, count in op_inventory(width, n_windows):
-        stage_ns[stage] = stage_ns.get(stage, 0.0) + count * prim_table[prim]
-    block_ns = sum(stage_ns.values())
-    n_vis = baselines * channels
-    s_per_dump = block_ns * n_vis / (rows * 1024.0) * 1e-9
-    return {"seconds_per_dump": s_per_dump, "vis_per_second": n_vis / s_per_dump,
-            "block_ns": block_ns, "stage_ns": stage_ns}
+
+def plausible(measured: Mapping[str, float]) -> Dict[str, object]:
+    """A table of K8's measured costs, as :func:`..models.rfi.roofline.prim_ns`
+    reads one: each at or above the floor, the defaults for the rest."""
+    loaded = {k: v for k, v in measured.items()
+              if k in roofline.DEFAULT_PRIM_NS and v >= roofline.MIN_PLAUSIBLE_NS}
+    return {**roofline.DEFAULT_PRIM_NS, **loaded, "__measured_keys__": sorted(loaded)}
+
+
+# The model's stages beside K11's measured stage costs (``full`` less the
+# stand-in; ``skeleton``, K11's load + store).
+_K11_STAGES = (("median", "no_median"), ("rank", "no_rank"), ("threshold", "no_thresh"))
 
 
 def run(vis_t, *, width: int = 13, iters: int = 3, reps: int = 5, card: str = "",
         prim_block: Optional[torch.Tensor] = None, prim_steps: int = 512,
         prim_unroll: int = 16) -> Dict[str, object]:
     """Time the skeleton on the amplitudes of (rows, channels, 2) `vis_t` and
-    set it against the model and K1.
+    set it against the model, priced three ways, and K11.
 
-    The primitive costs are measured first, in this call, by
-    :func:`.prim_cost.measure` on `prim_block` (default: the (256, 1024)
-    block of ``prim_cost``).  K11's ``full`` (K1's code) on `vis_t` is
-    timed in the skeleton's rounds.  Returns the skeleton's median ms, the
-    model's ms, their ratio, the primitive costs and ``full``'s ms.
+    K8's primitive costs are measured first, in this call, at K1's launch
+    and at the strided one (:func:`.prim_cost.measure`, on `prim_block` at
+    both when given, else each launch's :func:`.prim_cost.default_block`).
+    K10 and K11's ``full``, ``no_median``, ``no_rank``, ``no_thresh`` and
+    ``skeleton`` (K1's code) on `vis_t` are timed in the same rounds.  The
+    model (:func:`..models.rfi.roofline.compute_roofline`) is priced by the
+    shipped table, by K8 at K1's launch and by K8 at the strided launch,
+    and each of its stages is printed beside K11's.  Returns the skeleton's
+    median ms, the model's ms at K1's launch and their ratio, K8's costs at
+    K1's launch, ``full``'s ms, and per pricing the model's ms and stages.
     """
     amp = fp.amp_pairs(vis_t)
-    if prim_block is None:
-        prim_block = prim_cost.block(256, 1024, amp.device)
-    prim_ns = prim_cost.measure(prim_block, steps=prim_steps, unroll=prim_unroll, iters=iters,
-                                reps=reps, card=card)
+    prim = {launch: prim_cost.measure(
+        prim_block if prim_block is not None else prim_cost.default_block(launch, amp.device),
+        steps=prim_steps, unroll=prim_unroll, iters=iters, reps=reps, card=card, launch=launch)
+        for launch in prim_cost.LAUNCHES}
     fns = {"skeleton": functools.partial(skeleton, amp, width=width),
-           "full": functools.partial(fp.probe, vis_t, "full", width=width)}
+           **{v: functools.partial(fp.probe, vis_t, v, width=width)
+              for v in ("full", "no_median", "no_rank", "no_thresh")},
+           "k11 skeleton": functools.partial(fp.probe, vis_t, "skeleton", width=width)}
     med, samples = profiling.time_interleaved(fns, reps=reps, iters=iters)
     rows, channels = amp.shape
     ms = med["skeleton"]
-    model = compute_roofline(rows, channels, prim_ns, width=width,
-                             rows=prim_block.numel() // 1024)
-    model_ms = model["seconds_per_dump"] * 1e3
     for name in fns:
         common.report(name, med[name], samples[name], card)
     print(f"skeleton: {ms:.3f} ms over {rows} rows x {channels} channels, one launch at K1's; "
           f"K11 full (K1's code) {med['full']:.3f} ms, skeleton / full = "
           f"{ms / med['full']:.3f} [{card}]")
-    print(f"model:    {model_ms:.3f} ms (block_ns={model['block_ns']:.1f}, primitive costs "
-          f"measured by K8 in this call at {tuple(prim_block.shape)}, at the strided layout's "
-          f"occupancy; stages "
-          + ", ".join(f"{k} {v * rows * channels / prim_block.numel() * 1e-6:.3f} ms"
-                      for k, v in model["stage_ns"].items()) + ")")
-    print(f"skeleton/model = {ms / model_ms:.3f}  (~1: floor priced right; >>1: costs not "
-          f"additive; <<1: chain folded / inventory overcounts)")
-    return {"skeleton_ms": ms, "model_ms": model_ms, "ratio": ms / model_ms, "prim_ns": prim_ns,
-            "full_ms": med["full"]}
+    pricings = {"shipped table": roofline.prim_ns(), "K8 at K1's launch": plausible(prim["k1"]),
+                "K8 strided": plausible(prim["strided"])}
+    models = {label: compute_roofline(rows, channels, table, width=width)
+              for label, table in pricings.items()}
+    k11 = {stage: med["full"] - med[v] for stage, v in _K11_STAGES}
+    k11["load + store"] = med["k11 skeleton"]
+    per_ms = rows * channels / prim_cost.NORM_ELEMS * 1e-6  # block ns -> dump ms
+    stages = {label: {k: v * per_ms for k, v in m["stage_ns"].items()}
+              for label, m in models.items()}
+    labels = list(models)
+    print("model ms a dump by stage, priced three ways, beside K11's measured stage costs "
+          f"[{card}]:")
+    print(f"  {'stage':12s}" + "".join(f"{label:>20s}" for label in labels) + f"{'K11':>12s}")
+    for stage in list(stages[labels[0]]) + ["load + store"]:
+        print(f"  {stage:12s}"
+              + "".join(f"{stages[label].get(stage, float('nan')):20.3f}" for label in labels)
+              + (f"{k11[stage]:12.3f}" if stage in k11 else f"{'':>12s}"))
+    print(f"  {'model':12s}"
+          + "".join(f"{models[label]['seconds_per_dump'] * 1e3:20.3f}" for label in labels)
+          + f"{med['full']:12.3f}  (K11: full; K10 {ms:.3f})")
+    for label in labels:
+        print(f"  {label}: measured fraction {models[label]['prim_ns_measured']:.2f}; "
+              + ", ".join(f"{k} {pricings[label][k]:.2f}" for k in roofline.DEFAULT_PRIM_NS))
+    model_ms = models["K8 at K1's launch"]["seconds_per_dump"] * 1e3
+    print(f"skeleton/model = {ms / model_ms:.3f} at K1's launch (~1: floor priced right; >>1: "
+          f"costs not additive; <<1: chain folded / inventory overcounts); strided "
+          f"{ms / (models['K8 strided']['seconds_per_dump'] * 1e3):.3f}, shipped table "
+          f"{ms / (models['shipped table']['seconds_per_dump'] * 1e3):.3f}")
+    return {"skeleton_ms": ms, "model_ms": model_ms, "ratio": ms / model_ms,
+            "prim_ns": prim["k1"], "prim_ns_strided": prim["strided"], "full_ms": med["full"],
+            "models_ms": {label: m["seconds_per_dump"] * 1e3 for label, m in models.items()},
+            "stages_ms": stages, "k11_stages_ms": k11}
 
 
 def main(argv=None) -> None:

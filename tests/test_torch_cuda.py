@@ -8,7 +8,8 @@ the JAX package's test configuration must not be loaded:
 
 Tolerance: exact on every uint8 mask and float32 result (the kernels
 round each operation as the plain versions do), except K8's ``reduce``
-chain, whose row sums are taken in another order (rtol 1e-6).
+chain at either launch, whose row sums are taken in another order (rtol
+1e-6).
 """
 
 import asyncio
@@ -782,18 +783,27 @@ def _cost():
     return prim_cost, roofline_skeleton
 
 
-@pytest.mark.parametrize("body", [None, "add", "minmax", "mul", "select", "cmp_f32", "roll_lane",
-                                  "shift_ch", "reduce", "rank_round", "sqrt"])
-@pytest.mark.parametrize("rows,width", [(256, 1024), (5, 96)])
-def test_prim_cost_chain_matches_plain(cuda, body, rows, width):
+_K8_BODIES = [None, "add", "minmax", "mul", "select", "cmp_f32", "roll_lane", "shift_ch",
+              "reduce", "rank_round", "sqrt"]
+# K8's launches and shapes: the strided launch's rows of up to 1024 lanes;
+# at K1's launch a full wave of 32768-channel rows, a row count that is not
+# a multiple of the SMs', and a narrower row (a partly idle last warp).
+_K8_CASES = [(launch, rows, width, body)
+             for launch, rows, width in (("strided", 256, 1024), ("strided", 5, 96),
+                                         ("k1", 132, 32768), ("k1", 137, 32768), ("k1", 7, 4160))
+             for body in _K8_BODIES + (["shift_reg"] if launch == "k1" else [])]
+
+
+@pytest.mark.parametrize("launch,rows,width,body", _K8_CASES)
+def test_prim_cost_chain_matches_plain(cuda, launch, rows, width, body):
     """Exact, but `reduce`: the kernel sums a row by warp shuffles, so rtol 1e-6."""
     prim_cost, _ = _cost()
     x = prim_cost.block(rows, width, cuda)
-    before = prim_cost.launches[body]
-    got = prim_cost.chain(x, body, 2, 4)
+    before = prim_cost.launches[launch][body]
+    got = prim_cost.chain(x, body, 2, 4, launch)
     want = prim_cost.chain_plain(x, body, 2, 4)
     torch.cuda.synchronize()
-    assert prim_cost.launches[body] == before + 1
+    assert prim_cost.launches[launch][body] == before + 1
     if body == "reduce":
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-6, atol=0)
     else:
@@ -802,13 +812,29 @@ def test_prim_cost_chain_matches_plain(cuda, body, rows, width):
 
 @pytest.mark.parametrize("unroll", [1, 2, 4, 8, 16])
 def test_prim_cost_unrolls_and_launches_as_k1(cuda, unroll):
+    """Every unroll at both launches, no reps at K1's; K8 at K1's launch as K1
+    at 32768 channels, the strided launch as the strided layout's K2."""
     prim_cost, _ = _cost()
     x = prim_cost.block(8, 256, cuda)
-    assert torch.equal(prim_cost.chain(x, "roll_lane", 3, unroll),
-                       prim_cost.chain_plain(x, "roll_lane", 3, unroll))
-    cfg = prim_cost.launch_config("rank_round", 1024, unroll)  # the strided layout's launch
+    for launch in prim_cost.LAUNCHES:
+        assert torch.equal(prim_cost.chain(x, "roll_lane", 3, unroll, launch),
+                           prim_cost.chain_plain(x, "roll_lane", 3, unroll)), launch
+    for body in ("shift_ch", "reduce", "rank_round"):
+        assert torch.equal(prim_cost.chain(x, body, 0, unroll, "k1"), x + (x * 0.5 + 0.125))
+    cfg = prim_cost.launch_config("rank_round", unroll=unroll, launch="k1")
+    assert cfg == ff.launch_config(32768) and cfg["ctas_per_sm"] == 1, cfg
+    cfg = prim_cost.launch_config("rank_round", 1024, unroll, launch="strided")
     assert cfg == dict(ff.strided_launch_config(32768), threads=1024), cfg
     assert cfg["ctas_per_sm"] == 1
+
+
+@pytest.mark.parametrize("body", _K8_BODIES + ["shift_reg"])
+def test_prim_cost_k1_launch_is_k1s(cuda, body):
+    """Threads, dynamic shared memory and CTAs per SM of K1 at 32768 channels."""
+    prim_cost, _ = _cost()
+    assert prim_cost.launch_config(body, launch="k1") == ff.launch_config(32768)
+    with pytest.raises(ValueError, match="width"):
+        prim_cost.chain(torch.zeros((2, 32768 + 64), device=cuda), body, 1, 1, "k1")
 
 
 def _amplitudes(kind, rows, channels, seed):
