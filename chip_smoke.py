@@ -43,8 +43,11 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
    2016 baselines x 4 pols = 8064 rows, channel-major planar float32)
    through ``flag_dump(vis.transpose(0, 1))``, the bench's call (K5's
    corner turn, then K1), the plain version, K1 in the strided layout
-   (probe ``strided_full``) and the hybrid engine (K2), which must agree flag for
-   flag, then CUDA-event timings, and ``scripts/k2_ab``: K2 against its
+   (probe ``strided_full``), ``flag_transposed_dma`` on the view and on a
+   (2, rows, channels) copy (``layout="leading"``), and the hybrid engine
+   (K2) on its general and its fast background (``background_fast=True``),
+   which must agree flag for flag, with one K1 launch per call; then
+   CUDA-event timings, both hybrid paths among them, and ``scripts/k2_ab``: K2 against its
    strided design on the dump's deviations, 5 interleaved rounds of 3
    calls, with each one's median and spread;
 6. the ops path: K4 (percentile5) and K5 (transpose) against their plain
@@ -742,19 +745,41 @@ def phase_main(ff, fp, tr, device, vis_np: np.ndarray, card: str, check: Check) 
     vis = torch.from_numpy(device.to_planar(vis_np)).cuda()  # (C, rows, 2), channel-major
     block = 1008
     hybrid_fn = device.make_flagger_fn(13, 11.0, engine="hybrid", baseline_block=block)
+    hybrid_fast_fn = device.make_flagger_fn(13, 11.0, engine="hybrid", baseline_block=block,
+                                            background_fast=True)
+    # The JAX package's (2, rows, channels) input form, copied on the card.
+    vis_leading = vis.permute(2, 1, 0).contiguous()
 
-    # The bench's call, flag_dump(swapaxes(v, 0, 1)): K5 turns the view, K1 flags.
+    # The bench's call, flag_dump(swapaxes(v, 0, 1)): K5 turns the view, K1
+    # flags; the same through flag_transposed_dma, on the view and on the
+    # leading copy; the hybrid engine on its general and its fast background.
     for name in ff.launches:
         ff.launches[name] = 0
     tr.launches["transpose"] = 0
     k1 = ff.flag_dump(vis.transpose(0, 1))  # (rows, C)
+    k1_dma = ff.flag_transposed_dma(vis.transpose(0, 1))
+    k1_leading = ff.flag_transposed_dma(vis_leading, layout="leading")
     hybrid = hybrid_fn(vis)  # (C, rows)
+    hybrid_fast = hybrid_fast_fn(vis)
     torch.cuda.synchronize()
     launches = dict(ff.launches, transpose=tr.launches["transpose"])
     print(f"  launches during the main path: {launches}")
     for name, count in launches.items():
         if count < 1:
             raise AssertionError(f"kernel {name} was not launched on the main path")
+    # One K1 launch per flag_dump and flag_transposed_dma call, one K2 launch
+    # per block of each hybrid call; K5 turns the two views, not the leading copy.
+    want = {"flagger": 3, "madnz_threshold": 2 * -(-rows // block), "transpose": 2}
+    if launches != want:
+        raise AssertionError(f"main path launches {launches}, expected {want}")
+    check.flags("flagger", "full dump: flag_transposed_dma (K5 + K1) vs flag_dump's K1",
+                k1_dma, k1)
+    check.flags("flagger", "full dump: flag_transposed_dma(layout='leading') vs flag_dump's K1",
+                k1_leading, k1)
+    check.flags("madnz_threshold",
+                "full dump: hybrid with background_fast=True vs its general path",
+                hybrid_fast, hybrid)
+    del k1_dma, k1_leading, hybrid_fast
 
     vis_t = vis.transpose(0, 1).contiguous()
 
@@ -804,6 +829,10 @@ def phase_main(ff, fp, tr, device, vis_np: np.ndarray, card: str, check: Check) 
             lambda: fp.probe(vis_t, "strided_full")),
         "K1 plain (flag_transposed_plain)": time_fn(plain_k1),
         "hybrid engine (plain background + K2)": time_fn(lambda: hybrid_fn(vis)),
+        "hybrid engine, background_fast=True (fast plain background + K2)": time_fn(
+            lambda: hybrid_fast_fn(vis)),
+        "K1 flag_transposed_dma(layout='leading'), copy to rows included": time_fn(
+            lambda: ff.flag_transposed_dma(vis_leading, layout="leading")),
         "K2 madnz_threshold": time_fn(lambda: ff.madnz_threshold(dev_t)),
         "K2 plain (madnz_threshold_plain)": time_fn(plain_k2),
     }

@@ -293,6 +293,10 @@ def make_flagger_fn(
     flag_value: int = 1,
     baseline_block: Optional[int] = None,
     engine: str = "torch",
+    pallas_kw: Optional[dict] = None,
+    layout: str = "straight",
+    block_impl: str = "pad",
+    background_fast: Optional[bool] = None,
 ):
     """Build the single-device flagger ``fn(vis[, input_flags]) -> flags``.
 
@@ -303,11 +307,20 @@ def make_flagger_fn(
     tensor code.  ``engine="hybrid"`` (threshold ``"sum"`` only) runs the
     background as tensor code, then MAD noise + SumThreshold in the CUDA
     kernel :func:`.fused_flagger.madnz_threshold` (its plain version for a
-    tensor on the CPU).  ``baseline_block`` processes the baseline axis in
-    column slabs of that many baselines to bound peak memory; the JAX
-    package's four slab implementations work around TPU slicing costs and
-    become this one loop.  The background runs its general path, as the
-    JAX engines do by default (bit-identical to the fast path).
+    tensor on the CPU); ``pallas_kw`` is passed on to that call, so its
+    TPU layout knobs (``bb``, ``fold``, ``interpret``, ``nref``,
+    ``pipeline``, ``rank_radix``) are taken and an unknown key raises
+    ``TypeError``.  ``baseline_block`` processes the baseline axis in
+    column slabs of that many baselines to bound peak memory.  The JAX
+    package's stage layouts (``layout``: ``"straight"``, ``"transposed"``)
+    and slab implementations (``block_impl``: ``"pad"``, ``"slice"``,
+    ``"scan"``, ``"unroll"``) work around TPU layout and slicing costs and
+    give identical flags there, so each is checked as in JAX and all of
+    them run this one channel-major slab loop.  ``background_fast``
+    (``None`` means ``False``, as in the JAX engines) takes the
+    background's edge-fill fast path where it applies (no input flags,
+    visibilities rather than amplitudes); it is bit-identical to the
+    general path on finite input.
     """
     use_flags = BackgroundFlags.NONE if use_flags is None else use_flags
     if engine not in ("torch", "hybrid"):
@@ -316,16 +329,22 @@ def make_flagger_fn(
         raise ValueError("engine='hybrid' implements threshold='sum' only")
     if threshold not in ("sum", "simple"):
         raise ValueError(f"unknown threshold {threshold!r}")
+    if layout not in ("transposed", "straight"):
+        raise ValueError(f"unknown layout {layout!r}")
+    if baseline_block is not None and block_impl not in ("slice", "scan", "unroll", "pad"):
+        raise ValueError(f"unknown block_impl {block_impl!r}")
+    background_fast = bool(background_fast)
 
     def block_fn(vis, input_flags=None):
         deviations = background_median_filter(
-            vis, input_flags, width, is_amplitude, use_flags, fast_path=False)
+            vis, input_flags, width, is_amplitude, use_flags, fast_path=background_fast)
         if engine == "hybrid":
             from . import fused_flagger
 
             flags_t = fused_flagger.madnz_threshold(
                 deviations.transpose(0, 1).contiguous(), n_sigma=n_sigma,
-                n_windows=n_windows, falloff=threshold_falloff, flag_value=flag_value)
+                n_windows=n_windows, falloff=threshold_falloff, flag_value=flag_value,
+                **(pallas_kw or {}))
             return flags_t.transpose(0, 1)
         noise = madnz(deviations, axis=0)
         if threshold == "simple":

@@ -23,7 +23,9 @@ kernels live in ``csrc/fused_flagger.cu``:
   cost probe K8 are held to, and as the "before" of ``scripts/k2_ab.py``.
 
 Both run as one launch over all rows, which takes the place of the TPU's
-in-kernel DMA block loop (``_dma_block_loop``).  A row longer than
+in-kernel DMA block loop (``_dma_block_loop``): :func:`flag_transposed`,
+:func:`flag_transposed_dma` and :func:`flag_dump` are each one launch of
+K1, and :func:`madnz_threshold` one of K2.  A row longer than
 :func:`max_channels` does not fit one CTA's shared memory: it takes the
 *wide-row path*, the same stages in the strided layout's arithmetic on a
 slice of a device scratch buffer that the wrapper allocates, one slice for
@@ -32,9 +34,11 @@ each CTA of a grid of about one CTA per SM that loops over the rows
 JAX functions' parameters in their order.  The TPU layout knobs (``bb``,
 ``fold``, ``interpret``, ``nref``, ``pipeline``, ``rank_radix``,
 ``slab``) are accepted and ignored: a row is one CTA.  ``rank_radix`` is
-checked as the JAX functions check it (1..4).  The TPU's other
-layouts (``layout="leading"``, ``ingest="amp"``) are not ported and
-raise ``NotImplementedError``.
+checked as the JAX functions check it (1..4).  The JAX functions' other
+input forms give the same flags there, and are taken here: a
+``layout="leading"`` (2, rows, channels) input is read through its
+(rows, channels, 2) view, and ``ingest="amp"`` (where the TPU streams
+amplitudes made outside the kernel) is K1 on the planar pairs.
 
 A tensor on the CPU goes to the plain version beside each kernel
 (:func:`flag_transposed_plain`, :func:`madnz_threshold_plain`), composed
@@ -163,14 +167,33 @@ def _check_rank_radix(rank_radix: int) -> None:
         raise ValueError("rank_radix must be 1..4")
 
 
-def _check_layout(layout: str, ingest: str) -> None:
-    """The JAX package's other input layouts are TPU layouts, not ported."""
-    if layout != "trailing":
-        raise NotImplementedError(f"layout={layout!r}: the port takes (rows, channels, 2) "
-                                  f"planar input only (layout='trailing')")
-    if ingest != "planar":
-        raise NotImplementedError(f"ingest={ingest!r}: the port takes planar (re, im) pairs "
-                                  f"only (ingest='planar')")
+def _vis_dims(vis_t, layout: str):
+    """(rows, channels) of planar visibilities in `layout`, checked as JAX's ``_vis_dims``.
+
+    ``"trailing"``: (rows, channels, 2); ``"leading"``: (2, rows, channels).
+    """
+    if not isinstance(vis_t, torch.Tensor):
+        raise ValueError(f"vis_t must be a tensor, got {type(vis_t).__name__}")
+    if layout == "trailing":
+        if vis_t.ndim != 3 or vis_t.shape[-1] != 2:
+            raise ValueError(
+                f"layout='trailing' expects (baselines, channels, 2), got {tuple(vis_t.shape)}: "
+                f"vis_t must be a (rows, channels, 2) tensor")
+        return vis_t.shape[0], vis_t.shape[1]
+    if layout == "leading":
+        if vis_t.ndim != 3 or vis_t.shape[0] != 2:
+            raise ValueError(
+                f"layout='leading' expects (2, baselines, channels), got {tuple(vis_t.shape)}: "
+                f"vis_t must be a (2, rows, channels) tensor")
+        return vis_t.shape[1], vis_t.shape[2]
+    raise ValueError("layout must be 'trailing' or 'leading'")
+
+
+def _check_ingest(ingest: str, nref: int) -> None:
+    if ingest not in ("planar", "amp"):
+        raise ValueError(f"unknown ingest {ingest!r}")
+    if ingest == "amp" and nref != 1:
+        raise ValueError("ingest='amp' supports nref=1 only")
 
 
 def _check_tensor(name: str, t, dtype, shape, device_of) -> None:
@@ -328,8 +351,8 @@ def flag_transposed(vis_t, input_flags=None, width: int = 13, n_sigma: float = 1
                     layout: str = "trailing", ingest: str = "planar"):
     """Fused flagger on baseline-major planar visibilities (K1).
 
-    Port of ``katsdpsigproc_tpu/models/rfi/pallas_flagger.py::flag_transposed``
-    and ``::flag_transposed_dma``, with their parameters in their order.
+    Port of ``katsdpsigproc_tpu/models/rfi/pallas_flagger.py::flag_transposed``,
+    with its parameters in its order.
 
     Parameters
     ----------
@@ -337,7 +360,8 @@ def flag_transposed(vis_t, input_flags=None, width: int = 13, n_sigma: float = 1
         (rows, channels, 2) float32 (re, im) pairs, one row per baseline
         (and polarization), in any layout: on the card the transposed view
         of a channel-major dump is corner-turned by K5 first, any other
-        strided layout copied.
+        strided layout copied.  With ``layout="leading"``, (2, rows,
+        channels).
     input_flags
         Optional (rows, channels) uint8 prior flags (FULL mode); non-zero
         samples are excluded from the background.
@@ -358,27 +382,32 @@ def flag_transposed(vis_t, input_flags=None, width: int = 13, n_sigma: float = 1
         The TPU kernel's layout knobs.  Accepted and ignored: they do not
         change the result, and a row here is one CTA.  ``rank_radix``
         outside 1..4 raises ``ValueError``, as in the JAX function.
-    layout, ingest
-        Only ``"trailing"`` and ``"planar"``; the TPU's other layouts raise
-        ``NotImplementedError``.
+    layout
+        ``"trailing"`` (rows, channels, 2) or ``"leading"`` (2, rows,
+        channels); a leading input is read through its (rows, channels,
+        2) view, so on the card it is copied to row-major first.
+    ingest
+        ``"planar"`` or ``"amp"``.  The TPU kernel's amplitude stream
+        gives the same flags, so both are K1 reading the planar pairs;
+        ``"amp"`` takes ``nref=1`` only, as in the JAX function.
 
     Returns
     -------
     (rows, channels) uint8 flags on the input's device.
     """
     _check_rank_radix(rank_radix)
-    del bb, fold, interpret, nref, rank_radix
-    _check_layout(layout, ingest)
     if input_flags is not None and channel_flags is not None:
         raise ValueError("pass either input_flags (FULL) or channel_flags (CHANNEL), not both")
+    _check_ingest(ingest, nref)
+    del bb, fold, interpret, nref, rank_radix, ingest
     if width % 2 != 1 or width < 3:
         raise ValueError(f"width must be odd and at least 3, got {width}")
     _check_params(n_windows, flag_value)
-    if not isinstance(vis_t, torch.Tensor) or vis_t.ndim != 3 or vis_t.shape[-1] != 2:
-        raise ValueError("vis_t must be a (rows, channels, 2) tensor")
+    rows, channels = _vis_dims(vis_t, layout)
     if vis_t.dtype != torch.float32:
         raise TypeError(f"vis_t must be torch.float32, got {vis_t.dtype}")
-    rows, channels = vis_t.shape[:2]
+    if layout == "leading":
+        vis_t = vis_t.permute(1, 2, 0)
     if input_flags is not None:
         _check_tensor("input_flags", input_flags, torch.uint8, (rows, channels), vis_t.device)
     if channel_flags is not None:
@@ -418,6 +447,24 @@ def flag_transposed(vis_t, input_flags=None, width: int = 13, n_sigma: float = 1
     return out
 
 
+def flag_transposed_dma(vis_t, input_flags=None, width: int = 13, n_sigma: float = 11.0,
+                        n_windows: int = 4, falloff: float = 1.2, flag_value: int = 1,
+                        bb: int = 1, fold: int = 1024, interpret: bool = False,
+                        channel_flags=None, rank_radix: int = 1,
+                        layout: str = "trailing", ingest: str = "planar"):
+    """:func:`flag_transposed` as one launch over all rows (K1).
+
+    Port of ``katsdpsigproc_tpu/models/rfi/pallas_flagger.py::flag_transposed_dma``,
+    with its parameters in its order.  The JAX function runs its block
+    loop inside one kernel (``_dma_block_loop``); K1's one launch over
+    every row, a CTA a row, is that loop, so this is
+    :func:`flag_transposed` with the same flags, checks and launch count.
+    """
+    return flag_transposed(vis_t, input_flags, width, n_sigma, n_windows, falloff, flag_value,
+                           bb, fold, interpret, channel_flags, rank_radix=rank_radix,
+                           layout=layout, ingest=ingest)
+
+
 def flag_dump(vis_t, input_flags=None, slab: int = 256, width: int = 13,
               n_sigma: float = 11.0, n_windows: int = 4, falloff: float = 1.2,
               flag_value: int = 1, bb: int = 1, fold: int = 1024, interpret: bool = False,
@@ -427,15 +474,19 @@ def flag_dump(vis_t, input_flags=None, slab: int = 256, width: int = 13,
 
     Port of ``katsdpsigproc_tpu/models/rfi/pallas_flagger.py::flag_dump``,
     with its parameters in its order.  The JAX function slabs a dump
-    through a scan or an in-kernel DMA loop; here one launch already
-    covers every row, so ``slab`` and ``pipeline`` are accepted and
-    ignored, as are the TPU layout knobs.  The rest is
-    :func:`flag_transposed`.
+    through a scan (``pipeline="grid"``, :func:`flag_transposed`) or an
+    in-kernel DMA loop (``"dma"``, :func:`flag_transposed_dma`); here
+    one launch already covers every row, so ``slab`` is ignored, and
+    ``pipeline`` only picks which of the two wrappers (the same launch)
+    takes the call, as in the JAX function.
     """
-    del slab, pipeline
-    return flag_transposed(vis_t, input_flags, width, n_sigma, n_windows, falloff, flag_value,
-                           bb, fold, interpret, channel_flags, nref, layout=layout,
-                           ingest=ingest)
+    del slab
+    kw = dict(width=width, n_sigma=n_sigma, n_windows=n_windows, falloff=falloff,
+              flag_value=flag_value, bb=bb, fold=fold, interpret=interpret,
+              channel_flags=channel_flags, layout=layout, ingest=ingest)
+    if pipeline == "dma":
+        return flag_transposed_dma(vis_t, input_flags, **kw)
+    return flag_transposed(vis_t, input_flags, nref=nref, **kw)
 
 
 def madnz_threshold(dev_t, n_sigma: float = 11.0, n_windows: int = 4, falloff: float = 1.2,

@@ -185,11 +185,11 @@ class Slot:
             n *= s
         return n * self.dtype.itemsize
 
-    def validate(self, tensor) -> None:
-        if tuple(tensor.shape) != self.shape:
-            raise ValueError(f"expected shape {self.shape}, got {tuple(tensor.shape)}")
-        if tensor.dtype != self.dtype:
-            raise TypeError(f"expected dtype {self.dtype}, got {tensor.dtype}")
+    def validate(self, array) -> None:
+        if tuple(array.shape) != self.shape:
+            raise ValueError(f"expected shape {self.shape}, got {tuple(array.shape)}")
+        if array.dtype != self.dtype:
+            raise TypeError(f"expected dtype {self.dtype}, got {array.dtype}")
 
     def __repr__(self) -> str:  # pragma: nocover
         return f"Slot({self.shape}, {dtype_name(self.dtype)}, {self.direction.value})"
@@ -396,6 +396,6 @@ def visualize_operation(op: Operation) -> str:
     return "\n".join(lines)
 
 
-def as_output(name: str, tensor) -> Dict[str, Any]:
+def as_output(name: str, array) -> Dict[str, Any]:
     """Convenience for single-output ``_run`` implementations."""
-    return {name: tensor}
+    return {name: array}

@@ -221,12 +221,16 @@ def _launch(values: torch.Tensor, design: int) -> torch.Tensor:
     return out
 
 
-def percentile5(values: torch.Tensor, engine: str = "rank") -> torch.Tensor:
+def percentile5(values: torch.Tensor, engine: str = "rank",
+                interpret: bool = False) -> torch.Tensor:
     """[min, max, p25, p75, p50] per row of positive data (..., n) -> (5, ...).
 
     Port of ``katsdpsigproc_tpu/ops/percentile.py::percentile5``.
-    ``engine="cuda"`` takes 2-D (rows, cols) float32 only.
+    ``engine="cuda"`` takes 2-D (rows, cols) float32 only.  ``interpret``
+    (the TPU kernel's interpret mode) is accepted and ignored: a tensor
+    on the CPU takes K4's plain version, with the same result.
     """
+    del interpret
     n = values.shape[-1]
     r25, r75, r50 = _targets(n)
     if engine == "cuda":

@@ -330,6 +330,7 @@ def find_rank_float(
     count_fn: Callable = _default_count,
     max_below_fn: Optional[Callable] = None,
     radix_bits: int = 1,
+    unroll: bool = True,
     axis: int = -1,
 ):
     """Exact order statistic of positive float32 data via bitwise radix search.
@@ -341,8 +342,9 @@ def find_rank_float(
     returns the average of ranks `target_rank` and ``target_rank - 1``.
     Each round resolves a ``radix_bits``-wide digit by counting against
     the ``2**radix_bits - 1`` candidate prefixes at once; every radix
-    gives the bit-identical result.  (The JAX ``unroll`` flag chooses
-    between two traced forms of one loop; eager PyTorch has only one.)
+    gives the bit-identical result.  ``unroll`` is accepted and ignored:
+    the JAX flag chooses between two traced forms of one loop, and eager
+    PyTorch has only one.
 
     Parameters
     ----------
@@ -367,6 +369,7 @@ def find_rank_float(
     axis
         The data axis.
     """
+    del unroll
     values = torch.as_tensor(values)
     if axis % values.ndim != values.ndim - 1:
         kw = {}
@@ -428,7 +431,7 @@ def fmax(values, reduce_fn: Optional[Callable] = None):
 
 
 def median_non_zero(values, n=None, count_fn: Callable = _default_count,
-                    radix_bits: int = 4, axis: int = -1):
+                    radix_bits: int = 4, unroll: bool = True, axis: int = -1):
     """Median of the non-zero values (positive float32; NaN = absent).
 
     Port of ``katsdpsigproc_tpu/ops/rank.py::median_non_zero``.  `n` is
@@ -436,8 +439,10 @@ def median_non_zero(values, n=None, count_fn: Callable = _default_count,
     `axis`.  With ``z`` zeros among ``n`` values, the median of the
     ``n - z`` non-zeros has strict-rank target ``(n + z) // 2``, averaged
     halfway when ``n - z`` is even, which matches ``np.median`` on the
-    non-zero subset.
+    non-zero subset.  ``unroll`` is accepted and ignored, as in
+    :func:`find_rank_float`.
     """
+    del unroll
     values = torch.as_tensor(values)
     if n is None:
         n = values.shape[axis]

@@ -178,12 +178,16 @@ class Transpose(base.Operation):
                 "engine": self.template.engine}
 
 
-def transpose(src: torch.Tensor, template: Optional[TransposeTemplate] = None) -> torch.Tensor:
+def transpose(src: torch.Tensor, template: Optional[TransposeTemplate] = None,
+              interpret: bool = False) -> torch.Tensor:
     """Transpose with a template's engine choice (default ``"torch"``).
 
     Port of ``katsdpsigproc_tpu/ops/transpose.py::transpose``: 2-D real
-    or complex, or planar (rows, cols, 2) input.
+    or complex, or planar (rows, cols, 2) input.  ``interpret`` (the TPU
+    kernel's interpret mode) is accepted and ignored: a tensor on the CPU
+    takes K5's plain version, with the same result.
     """
+    del interpret
     if template is not None and template.engine == "cuda":
         return transpose_cuda(src)
     if template is not None and template.engine != "torch":

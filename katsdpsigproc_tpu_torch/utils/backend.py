@@ -14,7 +14,7 @@ Port of ``katsdpsigproc_tpu/utils/backend.py:68-135``
 
 import os
 import sys
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
 import torch
@@ -52,10 +52,12 @@ class DeviceContext:
     """A single-device placement context.
 
     Port of ``katsdpsigproc_tpu/utils/backend.py::DeviceContext``: it
-    carries the ``torch.device`` that templates allocate on and measure on.
+    carries the ``torch.device`` that templates allocate on and measure on,
+    and, as in JAX, an ``extra`` dict that callers may fill.
     """
 
     device: torch.device
+    extra: dict = field(default_factory=dict)
 
     def __post_init__(self) -> None:
         self.device = torch.device(self.device)

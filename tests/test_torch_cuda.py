@@ -60,6 +60,41 @@ def test_flagger_matches_plain(cuda, channels, rows, mode):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("channels,rows", [(99, 8), (300, 8), (32768, 2), (70000, 3)])
+@pytest.mark.parametrize("mode", ["none", "full", "channel"])
+@pytest.mark.parametrize("form", ["dma", "leading", "leading_amp"])
+def test_flag_transposed_dma_and_leading_match_plain(cuda, channels, rows, mode, form):
+    """flag_transposed_dma, and a (2, rows, channels) input, are one K1 launch
+    with the plain version's flags (70000 channels: the wide-row path)."""
+    vis_t, flags = _dump(channels, rows, seed=channels + 3 * rows)
+    vis_t, flags = vis_t.to(cuda), flags.to(cuda)
+    kw = {"none": {}, "full": {"input_flags": flags},
+          "channel": {"channel_flags": flags[0].contiguous()}}[mode]
+    want = ff.flag_transposed_plain(vis_t, **kw)
+    vis, form_kw = vis_t, {}
+    if form.startswith("leading"):
+        vis, form_kw = vis_t.permute(2, 0, 1).contiguous(), {"layout": "leading"}
+    if form.endswith("amp"):
+        form_kw["ingest"] = "amp"
+    before = ff.launches["flagger"]
+    got = ff.flag_transposed_dma(vis, **kw, **form_kw)
+    assert ff.launches["flagger"] == before + 1
+    assert got.device == vis_t.device and got.any()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("channels", [99, 4097])
+def test_hybrid_background_fast_matches_its_general_path(cuda, channels):
+    vis_t, _ = _dump(channels, 7, seed=channels)
+    vis = vis_t.transpose(0, 1).contiguous().to(cuda)  # (channels, rows, 2)
+    general = device.make_flagger_fn(13, 11.0, engine="hybrid", baseline_block=3)(vis)
+    before = ff.launches["madnz_threshold"]
+    fast = device.make_flagger_fn(13, 11.0, engine="hybrid", baseline_block=3,
+                                  background_fast=True, pallas_kw=dict(bb=8))(vis)
+    assert ff.launches["madnz_threshold"] == before + 3
+    assert fast.any() and torch.equal(fast, general)
+
+
 @pytest.mark.parametrize("n_windows,flag_value", [(1, 1), (4, 2), (6, 3), (9, 1)])
 def test_madnz_threshold_matches_plain(cuda, n_windows, flag_value):
     vis_t, _ = _dump(1000, 8, seed=n_windows)
@@ -102,7 +137,7 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         ff.flag_transposed(vis_t, torch.zeros((4, 64), dtype=torch.uint8))
     with pytest.raises(ValueError, match="odd"):
         ff.flag_transposed(vis_t, width=34)
-    with pytest.raises(NotImplementedError, match="leading"):
+    with pytest.raises(ValueError, match="leading"):
         ff.flag_dump(vis_t, layout="leading")
     with pytest.raises(ValueError, match="rank_radix"):
         ff.flag_transposed(vis_t, rank_radix=8)

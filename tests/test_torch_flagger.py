@@ -402,12 +402,19 @@ def test_strided_views_flag_as_their_copies():
 
 
 @pytest.mark.parametrize("kw", [{"layout": "leading"}, {"ingest": "amp"}])
-def test_tpu_layouts_are_not_ported(kw):
-    vt = torch.zeros((4, 64, 2))
-    with pytest.raises(NotImplementedError, match=next(iter(kw.values()))):
-        ff.flag_dump(vt, **kw)
-    with pytest.raises(NotImplementedError, match=next(iter(kw.values()))):
-        ff.flag_transposed(vt, **kw)
+def test_leading_layout_and_amp_ingest_match_pallas(kw):
+    """The JAX package's other input forms give its flags, FULL flags too."""
+    vis, _, input_flags = rfi_test_data(shape=(128, 8), seed=25)
+    vt = np.ascontiguousarray(np.moveaxis(jdev.to_planar(vis), 0, 1))  # (B, C, 2)
+    if kw.get("layout") == "leading":
+        vt = np.ascontiguousarray(np.moveaxis(vt, -1, 0))  # (2, B, C)
+    f_t = np.ascontiguousarray(input_flags.T)
+    for flags in (None, f_t):
+        jargs = [jnp.asarray(vt)] + ([] if flags is None else [jnp.asarray(flags)])
+        targs = [torch.from_numpy(vt)] + ([] if flags is None else [torch.from_numpy(flags)])
+        want = np.asarray(jpf.flag_transposed(*jargs, bb=8, interpret=True, **kw))
+        np.testing.assert_array_equal(ff.flag_transposed(*targs, **kw).numpy(), want)
+        np.testing.assert_array_equal(ff.flag_dump(*targs, **kw).numpy(), want)
 
 
 def _tree_sum(x, c: int, level: int):
