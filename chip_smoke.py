@@ -136,8 +136,8 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
    rank search's ``all_reduce`` rounds run, the halos only pad), each
    equal flag for flag to ``flag_dump`` (K1); ``get_flags_sharded`` on a
    (1,) mesh at config 1, equal to ``get_flags``; then the sharded K1
-   against ``flag_dump`` interleaved, the stage flagger timed, the two 2-D
-   calls interleaved, and the stage flagger's device idle share;
+   against ``flag_dump`` interleaved, the stage flagger timed and the two
+   2-D calls interleaved;
 12. harnesses and support, each through its ``main`` at the reference's
    default size: ``scripts/transposetest --engine cuda`` (K5 on 3072 x
    8320 complex64 planar, the whole output against numpy's ``.T``),
@@ -1574,35 +1574,6 @@ def rowwise_error(label: str, got: torch.Tensor, want: torch.Tensor, rtol: float
         raise AssertionError(f"{label}: a row's relative error {worst:.3g} exceeds {rtol}")
 
 
-def device_share(label: str, fn) -> None:
-    """One call of `fn` under ``torch.profiler``: the work it put on the card
-    (kernels and copies), their summed device time, and the card's idle
-    share of the call's wall time (which the profiler lengthens)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    work = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in work) / 1e3
-    if not work:
-        print(f"  {label}: the profiler saw no work on the card; idle share not measured")
-        return
-    by_name = {}
-    for e in work:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    top = sorted(by_name.items(), key=lambda item: -item[1])[:3]
-    print(f"  {label}, one call under torch.profiler: {len(work)} kernels and copies on the "
-          f"card, {busy_ms:.3f} ms of device time in a {wall_ms:.3f} ms call: idle share "
-          f"{1 - busy_ms / wall_ms:.3f}; most device time: "
-          + "; ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in top))
-
-
 def phase_twod_fft(ff, device, vis_np: np.ndarray, card: str) -> None:
     """The 2-D flagger (configs 1 and rfiflagtest's 16 baselines), the FFT path
     (config 4) and FusedFlaggerTemplate on the card."""
@@ -1642,7 +1613,6 @@ def phase_twod_fft(ff, device, vis_np: np.ndarray, card: str) -> None:
         card_state("before the 2-D flagger's timings")
         ms = time_fn(lambda: impl(data, flags), warmup=1, iters=5)
         host_ms = time_fn(lambda: flagger.get_flags(amp, zeros), warmup=1, iters=5)
-        device_share("the flagger on tensors on the card", lambda: impl(data, flags))
         n_vis = amp.size
         print(f"  on the card: {ms:.3f} ms ({n_vis / ms / 1e3:.3f} Mvis/s), the flagger on tensors "
               f"on the card (CUDA events, 1 warm-up, median of 5); get_flags from and to the "
@@ -1688,7 +1658,6 @@ def phase_twod_fft(ff, device, vis_np: np.ndarray, card: str) -> None:
     spectrum_gpu = r2c["card"](src=x_gpu)["dest"]
     r2c_ms = time_fn(lambda: r2c["card"](src=x_gpu), warmup=1, iters=5)
     c2r_ms = time_fn(lambda: c2r["card"](src=spectrum_gpu), warmup=1, iters=5)
-    device_share("the FFT path", lambda: spectral_flag(x_gpu))
     print(f"  on the card: {ms:.3f} ms ({b * c / ms / 1e6:.3f} Gsamples/s), r2c {r2c_ms:.3f} ms, "
           f"c2r {c2r_ms:.3f} ms (CUDA events, 1 warm-up, median of 5) [{card}]")
     del x_gpu, spectrum_gpu, cleaned
@@ -1832,7 +1801,6 @@ def phase_parallel(ff, device, vis_np: np.ndarray, card: str, check: Check) -> N
         print(f"  get_flags_sharded at config 1: {medians_2d['sharded_2d']:.3f} ms against "
               f"get_flags' {medians_2d['single_2d']:.3f} ms (from and to the host; 7 interleaved "
               f"rounds of 1 call) [{card}]")
-        device_share("make_sharded_flagger (1, 1)", lambda: staged(local))
     finally:
         dist.destroy_process_group()
     print(f"  the phase took {time.perf_counter() - t0:.1f} s")

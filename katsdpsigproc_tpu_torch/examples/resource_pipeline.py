@@ -148,6 +148,12 @@ class _Timeline:
         return origin.elapsed_time(self.events[name])
 
 
+def _copy_out(flags: torch.Tensor, i: int) -> np.ndarray:
+    """Dump `i`'s flags copied out of the pinned ring into an array of their own."""
+    with profiling.annotate("ksp.stream.flags_copy.work", i):
+        return np.array(flags.numpy())
+
+
 async def stream(source, dumps: int, flagger: str, ctx, shape) -> tuple:
     """Flag `dumps` dumps from `source` through one slot; returns (flags, timings).
 
@@ -157,6 +163,17 @@ async def stream(source, dumps: int, flagger: str, ctx, shape) -> tuple:
     back as a (channels, baselines) uint8 numpy array.  The timings (on the
     card only) are each dump's :class:`_Timeline`, the origin event and the
     host's milliseconds from the origin to the last dump's flags.
+
+    While a profiler session records, each dump's host work on the event
+    loop's thread is a span keyed by its index
+    (:func:`..utils.profiling.annotate`): ``ksp.stream.get`` (the source's
+    ``get``), ``ksp.stream.slot_wait`` (the wait for the slot),
+    ``ksp.stream.enqueue`` (queueing its upload, flagger and download),
+    ``ksp.stream.flags_wait`` (the wait for its flags on the host),
+    ``ksp.stream.flags_copy`` (the wait for their copy out of the ring) and
+    ``ksp.stream.backpressure`` (the wait until at most two dumps are in
+    flight).  On the card the copy itself, in an executor's thread, is
+    ``ksp.stream.flags_copy.work`` (:func:`_copy_out`).
     """
     on_card = ctx.device.type == "cuda"
     flag = flag_function(flagger)
@@ -179,8 +196,9 @@ async def stream(source, dumps: int, flagger: str, ctx, shape) -> tuple:
 
     async def process(i: int, host: torch.Tensor) -> None:
         acq = slot.acquire()  # acquire EARLY: the FIFO position
-        events = await acq.wait()  # the previous holder's events, not waited on here
-        with acq as buf:
+        with profiling.annotate("ksp.stream.slot_wait", i):
+            events = await acq.wait()  # the previous holder's events, not waited on here
+        with profiling.annotate("ksp.stream.enqueue", i), acq as buf:
             if not on_card:
                 buf.copy_(host)
                 source.uploaded(i, None)
@@ -216,15 +234,20 @@ async def stream(source, dumps: int, flagger: str, ctx, shape) -> tuple:
                     out = ring[i % len(ring)]
                     out.copy_(flags, non_blocking=True)
                     done = tl.record("download_end")
-        await async_wait_for_events([done])
+        with profiling.annotate("ksp.stream.flags_wait", i):
+            await async_wait_for_events([done])
         # Copied out of the ring in a worker thread, off the event loop.
-        results[i] = (await loop.run_in_executor(None, np.array, out.numpy()) if on_card
-                      else flags.numpy())
+        with profiling.annotate("ksp.stream.flags_copy", i):
+            results[i] = (await loop.run_in_executor(None, _copy_out, out, i) if on_card
+                          else flags.numpy())
 
     for i in range(dumps):
-        jobs.add(process(i, await source.get(i)))
+        with profiling.annotate("ksp.stream.get", i):
+            host = await source.get(i)
+        jobs.add(process(i, host))
         jobs.clean()
-        await jobs.finish(max_remaining=2)  # at most two dumps in flight
+        with profiling.annotate("ksp.stream.backpressure", i):
+            await jobs.finish(max_remaining=2)  # at most two dumps in flight
     await jobs.finish()
     wall_ms = (time.perf_counter() - t0) * 1e3
     return results, (timelines, origin, wall_ms) if on_card else None

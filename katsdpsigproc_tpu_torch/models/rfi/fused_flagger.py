@@ -43,7 +43,13 @@ amplitudes made outside the kernel) is K1 on the planar pairs.
 A tensor on the CPU goes to the plain version beside each kernel
 (:func:`flag_transposed_plain`, :func:`madnz_threshold_plain`), composed
 of the :mod:`.device` stages; a CUDA tensor goes to the kernel, or the
-call raises.  :data:`launches` counts the kernel launches.
+call raises.  :data:`launches` counts the kernel launches and
+:data:`row_major` how their rows were made contiguous.  While a profiler
+session records, :func:`flag_transposed` (and so :func:`flag_dump` and
+:func:`flag_transposed_dma`) records its host work as spans
+(:func:`..utils.profiling.annotate`): ``ksp.flag_dump`` the whole call,
+``ksp.flag_dump.check`` its checks and the flags' allocation, and
+``ksp.launch.k1`` (``ksp.launch.k1_wide``) K1's launch alone.
 """
 
 import ctypes
@@ -54,7 +60,7 @@ import numpy as np
 import torch
 
 from ...ops import rank as rank_ops, transpose as transpose_ops
-from ...utils import backend, tune
+from ...utils import backend, profiling, tune
 from . import device
 from .device import BackgroundFlags
 
@@ -63,6 +69,9 @@ from .device import BackgroundFlags
 launches = {"flagger": 0, "madnz_threshold": 0}
 # Of those, the launches on the wide-row path.
 wide_launches = {"flagger": 0, "madnz_threshold": 0}
+# How :func:`_row_major` gave the kernels their rows since the counts were
+# last reset: corner-turned by K5, or copied whole by ``contiguous()``.
+row_major = {"turned": 0, "copied": 0}
 
 # The widest window whose members K1 holds in registers, sorted by a
 # selection network without spilling at 64 registers (nvcc 12.9 for
@@ -216,7 +225,9 @@ def _row_major(t):
     if t.is_contiguous():
         return t
     if t.ndim >= 2 and t.transpose(0, 1).is_contiguous():
+        row_major["turned"] += 1
         return transpose_ops.transpose_cuda(t.transpose(0, 1))
+    row_major["copied"] += 1
     return t.contiguous()
 
 
@@ -344,6 +355,42 @@ def madnz_threshold_plain(dev_t, *, n_sigma: float = 11.0, n_windows: int = 4,
                                 transposed=True)
 
 
+def _prepare(vis_t, input_flags, channel_flags, width: int, n_windows: int, flag_value: int,
+             layout: str, ingest: str, nref: int, rank_radix: int):
+    """:func:`flag_transposed`'s checks, and on the card its flags' allocation and K1's library.
+
+    Returns the (rows, channels, 2) view of `vis_t`, the (rows, channels)
+    uint8 flags to fill, the library and whether the rows take the
+    wide-row path.  On the CPU the last three are None, None, False, and
+    so are the last two for a dump with no rows or no channels.
+    """
+    _check_rank_radix(rank_radix)
+    if input_flags is not None and channel_flags is not None:
+        raise ValueError("pass either input_flags (FULL) or channel_flags (CHANNEL), not both")
+    _check_ingest(ingest, nref)
+    if width % 2 != 1 or width < 3:
+        raise ValueError(f"width must be odd and at least 3, got {width}")
+    _check_params(n_windows, flag_value)
+    rows, channels = _vis_dims(vis_t, layout)
+    if vis_t.dtype != torch.float32:
+        raise TypeError(f"vis_t must be torch.float32, got {vis_t.dtype}")
+    if layout == "leading":
+        vis_t = vis_t.permute(1, 2, 0)
+    if input_flags is not None:
+        _check_tensor("input_flags", input_flags, torch.uint8, (rows, channels), vis_t.device)
+    if channel_flags is not None:
+        _check_tensor("channel_flags", channel_flags, torch.uint8, (channels,), vis_t.device)
+    if vis_t.device.type == "cpu":
+        return vis_t, None, None, False
+    if vis_t.device.type != "cuda":
+        raise ValueError(f"unsupported device {vis_t.device}")
+    out = torch.empty((rows, channels), dtype=torch.uint8, device=vis_t.device)
+    if rows == 0 or channels == 0:
+        return vis_t, out, None, False
+    lib = _library(width)
+    return vis_t, out, lib, _wide_path(channels, lib.ff_max_channels(), width)
+
+
 def flag_transposed(vis_t, input_flags=None, width: int = 13, n_sigma: float = 11.0,
                     n_windows: int = 4, falloff: float = 1.2, flag_value: int = 1,
                     bb: int = 4, fold: int = 1024, interpret: bool = False,
@@ -395,56 +442,43 @@ def flag_transposed(vis_t, input_flags=None, width: int = 13, n_sigma: float = 1
     -------
     (rows, channels) uint8 flags on the input's device.
     """
-    _check_rank_radix(rank_radix)
-    if input_flags is not None and channel_flags is not None:
-        raise ValueError("pass either input_flags (FULL) or channel_flags (CHANNEL), not both")
-    _check_ingest(ingest, nref)
-    del bb, fold, interpret, nref, rank_radix, ingest
-    if width % 2 != 1 or width < 3:
-        raise ValueError(f"width must be odd and at least 3, got {width}")
-    _check_params(n_windows, flag_value)
-    rows, channels = _vis_dims(vis_t, layout)
-    if vis_t.dtype != torch.float32:
-        raise TypeError(f"vis_t must be torch.float32, got {vis_t.dtype}")
-    if layout == "leading":
-        vis_t = vis_t.permute(1, 2, 0)
-    if input_flags is not None:
-        _check_tensor("input_flags", input_flags, torch.uint8, (rows, channels), vis_t.device)
-    if channel_flags is not None:
-        _check_tensor("channel_flags", channel_flags, torch.uint8, (channels,), vis_t.device)
-    kw = dict(width=width, n_sigma=n_sigma, n_windows=n_windows, falloff=falloff,
-              flag_value=flag_value)
-    if vis_t.device.type == "cpu":
-        return flag_transposed_plain(vis_t, input_flags, channel_flags=channel_flags, **kw)
-    if vis_t.device.type != "cuda":
-        raise ValueError(f"unsupported device {vis_t.device}")
-    out = torch.empty((rows, channels), dtype=torch.uint8, device=vis_t.device)
-    if rows == 0 or channels == 0:
+    del bb, fold, interpret
+    with profiling.annotate("ksp.flag_dump"):
+        with profiling.annotate("ksp.flag_dump.check"):
+            vis_t, out, lib, wide = _prepare(vis_t, input_flags, channel_flags, width, n_windows,
+                                             flag_value, layout, ingest, nref, rank_radix)
+        kw = dict(width=width, n_sigma=n_sigma, n_windows=n_windows, falloff=falloff,
+                  flag_value=flag_value)
+        if vis_t.device.type == "cpu":
+            return flag_transposed_plain(vis_t, input_flags, channel_flags=channel_flags, **kw)
+        if out.numel() == 0:
+            return out
+        rows, channels = out.shape
+        with torch.cuda.device(vis_t.device):
+            mode, flags = 0, None
+            if input_flags is not None:
+                mode, flags = 1, input_flags
+            elif channel_flags is not None:
+                mode, flags = 2, channel_flags
+            vis_t = _row_major(vis_t)
+            flags = None if flags is None else _row_major(flags)
+            scales, sigma, stream = _launch_args(
+                [t for t in (vis_t, flags) if t is not None], channels, n_sigma, falloff,
+                n_windows)
+            args = (vis_t.data_ptr(), None if flags is None else flags.data_ptr(), mode,
+                    out.data_ptr(), rows, channels, sigma, scales.ctypes.data, len(scales),
+                    flag_value)
+            if wide:
+                ctas, scratch = _wide_scratch(lib, rows, channels, vis_t.device)
+                with profiling.annotate("ksp.launch.k1_wide"):
+                    err = lib.ff_flagger_wide(*args, scratch.data_ptr(), ctas, stream)
+            else:
+                with profiling.annotate("ksp.launch.k1"):
+                    err = lib.ff_flagger(*args, stream)
+        _raise_on(lib, err, "flagger")
+        launches["flagger"] += 1
+        wide_launches["flagger"] += wide
         return out
-    with torch.cuda.device(vis_t.device):
-        mode, flags = 0, None
-        if input_flags is not None:
-            mode, flags = 1, input_flags
-        elif channel_flags is not None:
-            mode, flags = 2, channel_flags
-        lib = _library(width)
-        wide = _wide_path(channels, lib.ff_max_channels(), width)
-        vis_t = _row_major(vis_t)
-        flags = None if flags is None else _row_major(flags)
-        scales, sigma, stream = _launch_args(
-            [t for t in (vis_t, flags) if t is not None], channels, n_sigma, falloff, n_windows)
-        args = (vis_t.data_ptr(), None if flags is None else flags.data_ptr(), mode,
-                out.data_ptr(), rows, channels, sigma, scales.ctypes.data, len(scales),
-                flag_value)
-        if wide:
-            ctas, scratch = _wide_scratch(lib, rows, channels, vis_t.device)
-            err = lib.ff_flagger_wide(*args, scratch.data_ptr(), ctas, stream)
-        else:
-            err = lib.ff_flagger(*args, stream)
-    _raise_on(lib, err, "flagger")
-    launches["flagger"] += 1
-    wide_launches["flagger"] += wide
-    return out
 
 
 def flag_transposed_dma(vis_t, input_flags=None, width: int = 13, n_sigma: float = 11.0,

@@ -11,6 +11,9 @@ counterpart: the kernel fixes its CTA shape by the element size.
 :func:`transpose_cuda` is K5's wrapper: a tensor on the CPU takes the
 plain version beside it (:func:`transpose_plain`), a CUDA tensor goes to
 the kernel or the call raises.  :data:`launches` counts its launches.
+While a profiler session records, it records its host work as spans
+(:func:`..utils.profiling.annotate`): ``ksp.transpose`` the whole call,
+``ksp.launch.k5`` the launch alone.
 """
 
 import ctypes
@@ -19,7 +22,7 @@ from typing import Any, Mapping, Optional, Tuple
 
 import torch
 
-from ..utils import backend, tune
+from ..utils import backend, profiling, tune
 from . import base
 
 # Kernel launches since the count was last reset; the wrapper adds one
@@ -76,38 +79,40 @@ def transpose_cuda(src: torch.Tensor) -> torch.Tensor:
     stride apart (a column slice is not copied).  Returns a contiguous
     (cols, rows[, 2]) tensor on the input's device.
     """
-    _check_input(src)
-    if src.device.type == "cpu":
-        return transpose_plain(src)
-    if src.device.type != "cuda":
-        raise ValueError(f"unsupported device {src.device}")
-    planar = _planar(src)
-    elem = src.element_size() * (_PAIR if planar else 1)
-    if (planar and src.element_size() != 4) or elem not in (1, 4, 8):
-        raise TypeError(f"K5 moves 1-, 4- or 8-byte elements or pairs of 4-byte elements; "
-                        f"got {src.dtype}{' pairs' if planar else ''}")
-    rows, cols = src.shape[:2]
-    inner_ok = src.stride(1) == (_PAIR if planar else 1) and (not planar or src.stride(2) == 1)
-    if cols > 1 and not inner_ok:
-        raise ValueError("K5 takes rows whose elements are contiguous")
-    row_stride = src.stride(0) // _PAIR if planar else src.stride(0)
-    if rows > 1 and (row_stride < cols or (planar and src.stride(0) % _PAIR)):
-        raise ValueError(f"row stride {src.stride(0)} does not hold a row of {cols} elements")
-    if src.data_ptr() % elem:
-        raise ValueError(f"src is not aligned to its {elem}-byte elements")
-    out = torch.empty((cols, rows) + src.shape[2:], dtype=src.dtype, device=src.device)
-    if rows == 0 or cols == 0:
+    with profiling.annotate("ksp.transpose"):
+        _check_input(src)
+        if src.device.type == "cpu":
+            return transpose_plain(src)
+        if src.device.type != "cuda":
+            raise ValueError(f"unsupported device {src.device}")
+        planar = _planar(src)
+        elem = src.element_size() * (_PAIR if planar else 1)
+        if (planar and src.element_size() != 4) or elem not in (1, 4, 8):
+            raise TypeError(f"K5 moves 1-, 4- or 8-byte elements or pairs of 4-byte elements; "
+                            f"got {src.dtype}{' pairs' if planar else ''}")
+        rows, cols = src.shape[:2]
+        inner_ok = src.stride(1) == (_PAIR if planar else 1) and (not planar or src.stride(2) == 1)
+        if cols > 1 and not inner_ok:
+            raise ValueError("K5 takes rows whose elements are contiguous")
+        row_stride = src.stride(0) // _PAIR if planar else src.stride(0)
+        if rows > 1 and (row_stride < cols or (planar and src.stride(0) % _PAIR)):
+            raise ValueError(f"row stride {src.stride(0)} does not hold a row of {cols} elements")
+        if src.data_ptr() % elem:
+            raise ValueError(f"src is not aligned to its {elem}-byte elements")
+        out = torch.empty((cols, rows) + src.shape[2:], dtype=src.dtype, device=src.device)
+        if rows == 0 or cols == 0:
+            return out
+        with torch.cuda.device(src.device):
+            lib = _library()
+            stream = torch.cuda.current_stream(src.device).cuda_stream
+            with profiling.annotate("ksp.launch.k5"):
+                err = lib.tr_transpose(src.data_ptr(), out.data_ptr(), elem, rows, cols,
+                                       max(row_stride, cols), stream)
+        if err != 0:
+            raise RuntimeError(
+                f"transpose launch failed: cudaError {err} ({lib.tr_error_string(err).decode()})")
+        launches["transpose"] += 1
         return out
-    with torch.cuda.device(src.device):
-        lib = _library()
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = lib.tr_transpose(src.data_ptr(), out.data_ptr(), elem, rows, cols,
-                               max(row_stride, cols), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"transpose launch failed: cudaError {err} ({lib.tr_error_string(err).decode()})")
-    launches["transpose"] += 1
-    return out
 
 
 class TransposeTemplate:
