@@ -400,7 +400,8 @@ def phase_build(ff, pct, tr, fp, kernels) -> None:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"  nvcc: {line.strip()}")
-    # K1 at __launch_bounds__(1024, 1), a cap of 64 registers: no spills, at
+    # K1 at __launch_bounds__(kT, 1024 / kT) for each of its CTA sizes kT
+    # (ff.K1_THREADS), a cap of 64 registers: no spills, at
     # width 13 and at each wide width built (the median's members in
     # registers up to ff.REGISTER_MAX_WIDTH, counted from memory above it),
     # on the run layout and on the wide-row path, and K2 on the wide-row
@@ -410,9 +411,9 @@ def phase_build(ff, pct, tr, fp, kernels) -> None:
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
 
     def k1_name(mangled: str):
-        m = re.search(r"(flagger(?:_wide)?_kernel)ILi(\d)E", mangled)
+        m = re.search(r"(flagger(?:_wide)?_kernel)ILi(\d)E(?:Li(\d+)E)?", mangled)
         if m:
-            return f"{m.group(1)}<{m.group(2)}>"
+            return f"{m.group(1)}<{', '.join(a for a in m.groups()[1:] if a)}>"
         return "madnz_threshold_wide_kernel" if "madnz_threshold_wide_kernel" in mangled else None
 
     for width in (13,) + WIDE_WIDTHS:
@@ -433,7 +434,9 @@ def phase_build(ff, pct, tr, fp, kernels) -> None:
             print(f"  K1 width {width} ({median}) {name}: {r.get('registers')} registers, "
                   f"{r['stack']} B stack frame, {r['spill_stores']} B spill stores, "
                   f"{r['spill_loads']} B spill loads; SASS {lds} local loads, {sts} local stores")
-        if len(k1) != 7 or any(r["spill_stores"] or r["spill_loads"] for r in k1.values()):
+        # 3 flag modes at each CTA size, 3 on the wide-row path, K2's wide kernel
+        if (len(k1) != 3 * len(ff.K1_THREADS) + 4
+                or any(r["spill_stores"] or r["spill_loads"] for r in k1.values())):
             raise AssertionError(f"K1 at width {width} spills or is missing from the report: {k1}")
         if width == 13:
             k1_13 = k1_key
@@ -793,6 +796,22 @@ def phase_main(ff, fp, tr, device, vis_np: np.ndarray, card: str, check: Check) 
     if not (k1.shape == plain.shape and set(k1.unique().tolist()) <= {0, 1}):
         raise AssertionError(f"unexpected K1 output {k1.shape} {k1.unique().tolist()}")
     check.flags("flagger", "full dump: K5 + K1 (flag_dump of the view) vs plain", k1, plain)
+    # The 4k mode's dump, the first 4096 channels of each row: K5 + K1 in the
+    # CTA the rule picks (128 threads, 8 rows to an SM) against the plain version.
+    vis_4k = vis[:4096]
+    before = dict(ff.k1_ctas)
+    k1_4k = ff.flag_dump(vis_4k.transpose(0, 1))
+    torch.cuda.synchronize()
+    threads = ff.k1_threads(4096)
+    if ff.k1_ctas[threads] != before[threads] + 1:
+        raise AssertionError(f"K1 at 4096 channels did not launch {threads} threads: "
+                             f"{ff.k1_ctas} after {before}")
+    vis_4k_t = vis_4k.transpose(0, 1).contiguous()
+    plain_4k = torch.cat([ff.flag_transposed_plain(vis_4k_t[s:s + 2 * block])
+                          for s in range(0, rows, 2 * block)])
+    check.flags("flagger", f"4096 x {rows}: K5 + K1 ({threads}-thread CTAs) vs plain", k1_4k,
+                plain_4k)
+    del vis_4k_t, plain_4k, k1_4k
     check.flags("flagger", "full dump: K1 on the contiguous dump vs K5 + K1", ff.flag_dump(vis_t),
                 k1)
     check.flags("flagger", "full dump: K1 vs probe strided_full (K1 in the strided layout)",

@@ -18,8 +18,9 @@
 // channel, the window ladders, and 31 dependent block-wide count reductions
 // per row, each a pass over the row plus a barrier.
 //
-// Two layouts of the row, both one 1024-thread CTA per row that reads each
-// visibility once and writes each flag once:
+// Two layouts of the row, both one CTA per row that reads each visibility
+// once and writes each flag once (1024 threads, or for K1 in the run layout
+// the fewest of 128-1024 whose rank search holds the row in registers):
 //  * the run layout of K1 (ff_runs.cuh): deviations padded one word in 32,
 //    SumThreshold on per-thread runs of channels with bit-mask flags and
 //    window sums by doubling in registers, one-instruction min.NaN/max.NaN
@@ -67,22 +68,25 @@
 namespace {
 
 // K1.  kMode 0: no input flags; 1: FULL (rows, C) u8; 2: CHANNEL (C,) u8.
-// Its stage probes (flagger_probe.cu, K11 and K13) repeat kMode 0 with one
-// stage replaced, at this launch.
-template <int kMode>
-__global__ void __launch_bounds__(kThreads, 1)
+// kT threads a CTA, 1024 / kT CTAs to an SM at 64 registers a thread (the
+// caller's rule, fused_flagger.py::k1_threads, picks kT from C).  Its stage
+// probes (flagger_probe.cu, K11 and K13) repeat kMode 0 with one stage
+// replaced, at the 1024-thread launch.
+template <int kMode, int kT>
+__global__ void __launch_bounds__(kT, kThreads / kT)
     flagger_kernel(const float2* __restrict__ vis, const uint8_t* __restrict__ in_flags,
                    uint8_t* __restrict__ out, Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = p.channels;
   float* buf = reinterpret_cast<float*>(smem);
   runs::u64* flag_masks = reinterpret_cast<runs::u64*>(smem + runs::masks_offset(C));
-  runs::u64* hit_masks = flag_masks + kThreads;
-  int* red = reinterpret_cast<int*>(hit_masks + kThreads);
+  runs::u64* hit_masks = flag_masks + kT;
+  int* red = reinterpret_cast<int*>(hit_masks + kT);
+  float* stage = reinterpret_cast<float*>(red + 2 * (kT / 32));  // below 1024 threads
   const size_t row = blockIdx.x;
 
   const float2* v = vis + row * C;
-  for (int c = threadIdx.x; c < C; c += kThreads) {
+  for (int c = threadIdx.x; c < C; c += kT) {
     float a = amplitude(v[c]);
     if (kMode == 1 && in_flags[row * C + c] != 0) a = CUDART_INF_F;
     if (kMode == 2 && in_flags[c] != 0) a = CUDART_INF_F;
@@ -90,13 +94,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
   if (kMode == 0 && C >= FF_WIDTH) {
-    runs::median_to_deviations<true, false>(buf, C);
+    runs::median_to_deviations<true, false, kT>(buf, C, stage);
   } else {
-    runs::median_to_deviations<false, kMode != 0>(buf, C);
+    runs::median_to_deviations<false, kMode != 0, kT>(buf, C, stage);
   }
   int bank = 0;
-  const float noise = runs::mad_noise(buf, red, bank, C);
-  runs::sum_threshold(buf, flag_masks, hit_masks, noise, out + row * C, p);
+  const float noise = runs::mad_noise<kT>(buf, red, bank, C);
+  runs::sum_threshold<kT>(buf, flag_masks, hit_masks, noise, out + row * C, p);
 }
 
 // K2, in the run layout: the deviations, coalesced, into the padded words,
@@ -279,17 +283,54 @@ int launch_madnz(Kernel kernel, size_t smem, const void* dev, void* out, int row
 }
 
 // Threads per CTA, dynamic shared memory and the CTAs that fit one SM at
-// once for `kernel` at `smem` bytes.
+// once for `kernel` at `smem` bytes and `block` threads.
 template <typename Kernel>
 int launch_config(Kernel kernel, size_t smem, int* threads, long long* smem_bytes_out,
-                  int* ctas_per_sm) {
+                  int* ctas_per_sm, int block = kThreads) {
   int err = set_smem(kernel, smem);
   if (!err) {
-    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kernel, kThreads, smem);
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kernel, block, smem);
   }
-  *threads = kThreads;
+  *threads = block;
   *smem_bytes_out = (long long)smem;
   return err;
+}
+
+// K1's instance of kT threads at `channels`: its launch configuration, or
+// its launch over `rows` rows in flag mode `mode`.  A row's runs must fit a
+// u64 mask (ceil(C / kT) <= 64).
+template <int kT>
+bool k1_takes(int channels) {
+  return channels >= 1 && runs::run_length<kT>(channels) <= 64;
+}
+
+template <int kT>
+int k1_launch_config(int channels, int* threads, long long* smem_bytes_out, int* ctas_per_sm) {
+  if (!k1_takes<kT>(channels) || channels > runs::max_channels()) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_config(flagger_kernel<0, kT>, runs::smem_bytes<kT>(channels), threads,
+                       smem_bytes_out, ctas_per_sm, kT);
+}
+
+template <int kMode, int kT>
+int k1_launch_mode(const float2* v, const uint8_t* f, uint8_t* o, int rows, const Params& p,
+                   cudaStream_t s) {
+  const size_t smem = runs::smem_bytes<kT>(p.channels);
+  if (int err = set_smem(flagger_kernel<kMode, kT>, smem)) return err;
+  flagger_kernel<kMode, kT><<<rows, kT, smem, s>>>(v, f, o, p);
+  return (int)cudaGetLastError();
+}
+
+template <int kT>
+int k1_launch(int mode, const float2* v, const uint8_t* f, uint8_t* o, int rows, const Params& p,
+              cudaStream_t s) {
+  if (!k1_takes<kT>(p.channels)) return (int)cudaErrorInvalidValue;
+  switch (mode) {
+    case 0: return k1_launch_mode<0, kT>(v, f, o, rows, p, s);
+    case 1: return k1_launch_mode<1, kT>(v, f, o, rows, p, s);
+    default: return k1_launch_mode<2, kT>(v, f, o, rows, p, s);
+  }
 }
 
 }  // namespace
@@ -305,12 +346,19 @@ int ff_strided_max_channels(void) { return max_channels(); }
 
 const char* ff_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// K1's launch configuration at `channels` (flagger_kernel<0>): threads per
-// CTA, dynamic shared memory, and the CTAs that fit one SM at once.
-int ff_launch_config(int channels, int* threads, long long* smem_bytes_out, int* ctas_per_sm) {
-  if (channels < 1 || channels > runs::max_channels()) return (int)cudaErrorInvalidValue;
-  return launch_config(flagger_kernel<0>, runs::smem_bytes(channels), threads, smem_bytes_out,
-                       ctas_per_sm);
+// K1's launch configuration at `channels` in its instance of `block`
+// threads a CTA (flagger_kernel<0, block>; the caller's rule picks
+// `block`): threads per CTA, dynamic shared memory, and the CTAs that fit
+// one SM at once.
+int ff_launch_config(int channels, int block, int* threads, long long* smem_bytes_out,
+                     int* ctas_per_sm) {
+  switch (block) {
+    case 128: return k1_launch_config<128>(channels, threads, smem_bytes_out, ctas_per_sm);
+    case 256: return k1_launch_config<256>(channels, threads, smem_bytes_out, ctas_per_sm);
+    case 512: return k1_launch_config<512>(channels, threads, smem_bytes_out, ctas_per_sm);
+    case 1024: return k1_launch_config<1024>(channels, threads, smem_bytes_out, ctas_per_sm);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The strided layout's launch configuration at `channels`, that of K2's
@@ -323,41 +371,34 @@ int ff_strided_launch_config(int channels, int* threads, long long* smem_bytes_o
                        smem_bytes_out, ctas_per_sm);
 }
 
-// K1 over `rows` rows of planar (re, im) float32 pairs, (rows, channels, 2).
+// K1 over `rows` rows of planar (re, im) float32 pairs, (rows, channels, 2),
+// in CTAs of `block` threads (128, 256, 512 or 1024, with runs of
+// ceil(channels / block) <= 64 channels; the caller's rule picks it).
 // mode 0: in_flags unused; 1: (rows, channels) u8; 2: (channels,) u8.
 // Rows up to ff_max_channels() (a longer row's shared memory cannot be
 // set) and windows up to ff_max_in_place_width(); the rest take
 // ff_flagger_wide.  Returns a cudaError_t; 0 when the launch was accepted.
 int ff_flagger(const void* vis, const void* in_flags, int mode, void* out, int rows,
                int channels, float n_sigma, const float* scales, int n_windows,
-               int flag_value, void* stream) {
+               int flag_value, int block, void* stream) {
   Params p;
-  int err = make_params(&p, channels, n_sigma, scales, n_windows, flag_value);
+  int err = make_params(&p, channels, n_sigma, scales, n_windows, flag_value, true);
   if (err) return err;
   if (rows < 1 || mode < 0 || mode > 2 || (mode != 0 && in_flags == nullptr) ||
       !runs::kInPlaceMedian) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = runs::smem_bytes(channels);
   const float2* v = static_cast<const float2*>(vis);
   const uint8_t* f = static_cast<const uint8_t*>(in_flags);
   uint8_t* o = static_cast<uint8_t*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case 0:
-      if ((err = set_smem(flagger_kernel<0>, smem))) return err;
-      flagger_kernel<0><<<rows, kThreads, smem, s>>>(v, f, o, p);
-      break;
-    case 1:
-      if ((err = set_smem(flagger_kernel<1>, smem))) return err;
-      flagger_kernel<1><<<rows, kThreads, smem, s>>>(v, f, o, p);
-      break;
-    default:
-      if ((err = set_smem(flagger_kernel<2>, smem))) return err;
-      flagger_kernel<2><<<rows, kThreads, smem, s>>>(v, f, o, p);
-      break;
+  switch (block) {
+    case 128: return k1_launch<128>(mode, v, f, o, rows, p, s);
+    case 256: return k1_launch<256>(mode, v, f, o, rows, p, s);
+    case 512: return k1_launch<512>(mode, v, f, o, rows, p, s);
+    case 1024: return k1_launch<1024>(mode, v, f, o, rows, p, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 // K2 over (rows, channels) float32 deviations.

@@ -10,8 +10,9 @@ kernels live in ``csrc/fused_flagger.cu``:
   SumThreshold) with one CTA per row and the row resident in shared
   memory, so each visibility is read once and each flag written once.
   Its row is in the run layout of ``csrc/ff_runs.cuh``
-  (:func:`launch_config`, :func:`max_channels`); longer rows and wider
-  windows take the wide-row path (below).
+  (:func:`launch_config`, :func:`max_channels`), in a CTA sized to the
+  row (:func:`k1_threads`); longer rows and wider windows take the
+  wide-row path (below).
 * **K2** (``madnz_threshold``) replaces
   ``pallas_flagger.py::_madnz_threshold_block``: MAD noise + SumThreshold
   from deviations, for the hybrid engine, on K1's run layout up to K1's
@@ -43,8 +44,9 @@ amplitudes made outside the kernel) is K1 on the planar pairs.
 A tensor on the CPU goes to the plain version beside each kernel
 (:func:`flag_transposed_plain`, :func:`madnz_threshold_plain`), composed
 of the :mod:`.device` stages; a CUDA tensor goes to the kernel, or the
-call raises.  :data:`launches` counts the kernel launches and
-:data:`row_major` how their rows were made contiguous.  While a profiler
+call raises.  :data:`launches` counts the kernel launches,
+:data:`k1_ctas` K1's by the threads of its CTAs, and :data:`row_major`
+how their rows were made contiguous.  While a profiler
 session records, :func:`flag_transposed` (and so :func:`flag_dump` and
 :func:`flag_transposed_dma`) records its host work as spans
 (:func:`..utils.profiling.annotate`): ``ksp.flag_dump`` the whole call,
@@ -69,6 +71,10 @@ from .device import BackgroundFlags
 launches = {"flagger": 0, "madnz_threshold": 0}
 # Of those, the launches on the wide-row path.
 wide_launches = {"flagger": 0, "madnz_threshold": 0}
+# K1's CTA sizes, fewest threads first: the instances ``ff_flagger`` launches.
+K1_THREADS = (128, 256, 512, 1024)
+# K1's launches, wide-row path included, by the threads of their CTAs.
+k1_ctas = {threads: 0 for threads in K1_THREADS}
 # How :func:`_row_major` gave the kernels their rows since the counts were
 # last reset: corner-turned by K5, or copied whole by ``contiguous()``.
 row_major = {"turned": 0, "copied": 0}
@@ -82,6 +88,23 @@ REGISTER_MAX_WIDTH = 49
 # The widest window of the run layout's in-place median
 # (``runs::kMaxInPlaceWidth``); wider ones take the wide-row path.
 IN_PLACE_MAX_WIDTH = 65
+# The channels a thread of K1 holds in registers for its rank search
+# (``runs::kRankRegs``).
+RANK_REGS = 32
+
+
+def k1_threads(channels: int) -> int:
+    """The threads of K1's CTA for a row of `channels`: the rule, and its only home.
+
+    The fewest of :data:`K1_THREADS` whose rank search holds every channel
+    of the row in registers, :data:`RANK_REGS` a thread, and 1024 for
+    longer rows.  Each thread's run of SumThreshold is then at most 32
+    channels, so every window up to 8 takes the register path where the
+    run is at least 7 channels.  At 64 registers a thread, 1024 / threads
+    rows share an SM: 128 threads and 8 rows at 4096 channels, 1024 and 1
+    at 32768.
+    """
+    return next((t for t in K1_THREADS if channels <= RANK_REGS * t), K1_THREADS[-1])
 
 
 def _network_header(width: int) -> str:
@@ -136,17 +159,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         query.restype = ctypes.c_int
     lib.ff_wide_row_bytes.argtypes = [ctypes.c_int]
     lib.ff_wide_row_bytes.restype = ctypes.c_longlong
+    lib.ff_launch_config.argtypes = [ctypes.c_int, ctypes.c_int] + _LAUNCH_CONFIG_OUT
+    lib.ff_strided_launch_config.argtypes = [ctypes.c_int] + _LAUNCH_CONFIG_OUT
     for query in (lib.ff_launch_config, lib.ff_strided_launch_config):
-        query.argtypes = [ctypes.c_int] + _LAUNCH_CONFIG_OUT
         query.restype = ctypes.c_int
-    lib.ff_flagger.argtypes = [
+    k1_args = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
     ]
+    lib.ff_flagger.argtypes = k1_args + [ctypes.c_int, ctypes.c_void_p]
     lib.ff_flagger.restype = ctypes.c_int
-    lib.ff_flagger_wide.argtypes = lib.ff_flagger.argtypes[:-1] + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.ff_flagger_wide.argtypes = k1_args + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.ff_flagger_wide.restype = ctypes.c_int
     lib.ff_madnz_threshold_wide.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
@@ -291,14 +314,20 @@ def _query_launch_config(lib, query, *args) -> dict:
 def launch_config(channels: int) -> dict:
     """How K1 launches at `channels`, from the library itself.
 
-    ``threads`` per CTA, ``smem_bytes`` of dynamic shared memory and
-    ``ctas_per_sm``, the CTAs the occupancy calculator fits on one SM.
-    K1 holds a row in the run layout of ``csrc/ff_runs.cuh``, as K2 and
-    K1's stage and rank-search probes (K11, K13) do in the same shared
-    memory.  Needs a CUDA device.
+    ``threads`` per CTA (:func:`k1_threads`), ``smem_bytes`` of dynamic
+    shared memory and ``ctas_per_sm``, the CTAs the occupancy calculator
+    fits on one SM.  K1 holds a row in the run layout of
+    ``csrc/ff_runs.cuh``, as K2 and K1's stage and rank-search probes
+    (K11, K13) do in the same shared memory at K1's 1024-thread instance
+    (:func:`_launch_config_at`).  Needs a CUDA device.
     """
+    return _launch_config_at(channels, k1_threads(channels))
+
+
+def _launch_config_at(channels: int, threads: int) -> dict:
+    """:func:`launch_config` of K1's instance of `threads` threads a CTA at `channels`."""
     lib = _library(13)  # the network header's width does not change the launch
-    return _query_launch_config(lib, lib.ff_launch_config, channels)
+    return _query_launch_config(lib, lib.ff_launch_config, channels, threads)
 
 
 def strided_launch_config(channels: int) -> dict:
@@ -447,38 +476,65 @@ def flag_transposed(vis_t, input_flags=None, width: int = 13, n_sigma: float = 1
         with profiling.annotate("ksp.flag_dump.check"):
             vis_t, out, lib, wide = _prepare(vis_t, input_flags, channel_flags, width, n_windows,
                                              flag_value, layout, ingest, nref, rank_radix)
-        kw = dict(width=width, n_sigma=n_sigma, n_windows=n_windows, falloff=falloff,
-                  flag_value=flag_value)
+        kw = dict(n_sigma=n_sigma, n_windows=n_windows, falloff=falloff, flag_value=flag_value)
         if vis_t.device.type == "cpu":
-            return flag_transposed_plain(vis_t, input_flags, channel_flags=channel_flags, **kw)
+            return flag_transposed_plain(vis_t, input_flags, channel_flags=channel_flags,
+                                         width=width, **kw)
         if out.numel() == 0:
             return out
-        rows, channels = out.shape
-        with torch.cuda.device(vis_t.device):
-            mode, flags = 0, None
-            if input_flags is not None:
-                mode, flags = 1, input_flags
-            elif channel_flags is not None:
-                mode, flags = 2, channel_flags
-            vis_t = _row_major(vis_t)
-            flags = None if flags is None else _row_major(flags)
-            scales, sigma, stream = _launch_args(
-                [t for t in (vis_t, flags) if t is not None], channels, n_sigma, falloff,
-                n_windows)
-            args = (vis_t.data_ptr(), None if flags is None else flags.data_ptr(), mode,
-                    out.data_ptr(), rows, channels, sigma, scales.ctypes.data, len(scales),
-                    flag_value)
-            if wide:
-                ctas, scratch = _wide_scratch(lib, rows, channels, vis_t.device)
-                with profiling.annotate("ksp.launch.k1_wide"):
-                    err = lib.ff_flagger_wide(*args, scratch.data_ptr(), ctas, stream)
-            else:
-                with profiling.annotate("ksp.launch.k1"):
-                    err = lib.ff_flagger(*args, stream)
-        _raise_on(lib, err, "flagger")
-        launches["flagger"] += 1
-        wide_launches["flagger"] += wide
-        return out
+        return _k1(vis_t, input_flags, channel_flags, out, lib, wide,
+                   k1_threads(out.shape[1]), **kw)
+
+
+def _k1(vis_t, input_flags, channel_flags, out, lib, wide: bool, threads: int, *,
+        n_sigma: float, n_windows: int, falloff: float, flag_value: int):
+    """K1's launch into `out`, from :func:`_prepare`'s results, in CTAs of `threads`.
+
+    The wide-row path takes 1024 threads whatever `threads` says.
+    """
+    rows, channels = out.shape
+    with torch.cuda.device(vis_t.device):
+        mode, flags = 0, None
+        if input_flags is not None:
+            mode, flags = 1, input_flags
+        elif channel_flags is not None:
+            mode, flags = 2, channel_flags
+        vis_t = _row_major(vis_t)
+        flags = None if flags is None else _row_major(flags)
+        scales, sigma, stream = _launch_args(
+            [t for t in (vis_t, flags) if t is not None], channels, n_sigma, falloff, n_windows)
+        args = (vis_t.data_ptr(), None if flags is None else flags.data_ptr(), mode,
+                out.data_ptr(), rows, channels, sigma, scales.ctypes.data, len(scales),
+                flag_value)
+        if wide:
+            threads = K1_THREADS[-1]
+            ctas, scratch = _wide_scratch(lib, rows, channels, vis_t.device)
+            with profiling.annotate("ksp.launch.k1_wide"):
+                err = lib.ff_flagger_wide(*args, scratch.data_ptr(), ctas, stream)
+        else:
+            with profiling.annotate("ksp.launch.k1"):
+                err = lib.ff_flagger(*args, threads, stream)
+    _raise_on(lib, err, "flagger")
+    launches["flagger"] += 1
+    wide_launches["flagger"] += wide
+    k1_ctas[threads] += 1
+    return out
+
+
+def _flag_at(vis_t, threads: int, input_flags=None, channel_flags=None, width: int = 13,
+             n_sigma: float = 11.0, n_windows: int = 4, falloff: float = 1.2,
+             flag_value: int = 1):
+    """K1 on a CUDA `vis_t` in its instance of `threads` threads a CTA, rule or not.
+
+    :func:`flag_transposed`'s flags, for holding every instance to the
+    plain version and to the others, and for timing one against another.
+    """
+    vis_t, out, lib, wide = _prepare(vis_t, input_flags, channel_flags, width, n_windows,
+                                     flag_value, "trailing", "planar", 1, 1)
+    if lib is None or wide:
+        raise ValueError("K1's instances need a CUDA dump whose rows fit the run layout")
+    return _k1(vis_t, input_flags, channel_flags, out, lib, wide, threads, n_sigma=n_sigma,
+               n_windows=n_windows, falloff=falloff, flag_value=flag_value)
 
 
 def flag_transposed_dma(vis_t, input_flags=None, width: int = 13, n_sigma: float = 11.0,

@@ -84,7 +84,8 @@ def build(vis_t, name: str):
         scales, sigma, stream = ff._launch_args([vis_t], channels, fp.PARAMS["n_sigma"],
                                                 fp.PARAMS["falloff"], fp.PARAMS["n_windows"])
         err = lib.ff_flagger(vis_t.data_ptr(), None, 0, out.data_ptr(), rows, channels, sigma,
-                             scales.ctypes.data, len(scales), fp.PARAMS["flag_value"], stream)
+                             scales.ctypes.data, len(scales), fp.PARAMS["flag_value"],
+                             ff.k1_threads(channels), stream)
     ff._raise_on(lib, err, f"flagger build {name}")
     launches[name] += 1
     return out

@@ -302,6 +302,64 @@ def test_k1_wide_windows_match_plain(cuda, width, channels, mode):
     assert ff.wide_launches["flagger"] == before + (width > ff.IN_PLACE_MAX_WIDTH)
 
 
+# K1's CTA sizes: each instance whose runs fit a u64 mask (ceil(C / threads)
+# <= 64) against the plain version and the 1024-thread instance, across the
+# rule's boundaries (4096/4097, 8192, 16385), with the edge-fill parity at
+# 99 and 257 channels and a run cut short at 127, 4095 and 4097.
+_CTA_CHANNELS = (99, 100, 127, 128, 257, 4095, 4096, 4097, 8192, 16385, 32768)
+
+
+@pytest.mark.parametrize("channels", _CTA_CHANNELS)
+@pytest.mark.parametrize("mode", ["none", "full", "channel"])
+def test_k1_every_cta_size_matches_plain_and_1024(cuda, channels, mode):
+    """Widths 3, 13 and 49, 1 and 5 windows.  Without input flags (the fast
+    path) rows hold NaN, +inf amplitudes, a noise target on +inf or past
+    the non-NaN count, and +inf above a finite target; every even row
+    length puts the rank target halfway."""
+    vis_t, flags = _dump(channels, 6, seed=channels + 11)
+    if mode == "none":
+        vis_t[1, channels // 2, 0] = float("nan")  # NaN through the fast median
+        vis_t[2] = torch.tensor([1.0, 0.0])  # deviations 0, and +inf at every third
+        vis_t[2, ::3, 0] = float("inf")  # channel: the noise's target lies on +inf
+        vis_t[3, ::4, 1] = float("nan")  # every deviation NaN: the target past the count
+        vis_t[4, ::5] = float("inf")  # +inf deviations above a finite target
+    vis_t, flags = vis_t.to(cuda), flags.to(cuda)
+    kw = {"none": {}, "full": {"input_flags": flags},
+          "channel": {"channel_flags": flags[0].contiguous()}}[mode]
+    sizes = [t for t in ff.K1_THREADS if -(-channels // t) <= 64]
+    assert ff.k1_threads(channels) in sizes
+    for width in (3, 13, 49):
+        for n_windows in (1, 5):
+            p = dict(kw, width=width, n_windows=n_windows)
+            want = ff.flag_transposed_plain(vis_t, **p)
+            ref = ff._flag_at(vis_t, 1024, **p)
+            assert torch.equal(ref, want), (width, n_windows, int((ref != want).sum()))
+            for threads in sizes:
+                got = ff._flag_at(vis_t, threads, **p)
+                assert torch.equal(got, ref), (threads, width, n_windows,
+                                               int((got != ref).sum()))
+
+
+def test_k1_cta_size_follows_the_row(cuda):
+    """The rule's CTA sizes launch 1024 / threads rows to an SM; 32768
+    channels keep 1024 threads, 151840 B and one CTA per SM; k1_ctas counts
+    each launch under the CTA it took, the wide-row path's under 1024."""
+    for channels in (4096, 8192, 16384):
+        threads = ff.k1_threads(channels)
+        cfg = ff.launch_config(channels)
+        assert cfg["threads"] == threads and cfg["ctas_per_sm"] == 1024 // threads, cfg
+    assert ff.launch_config(4096)["threads"] == 128
+    assert ff.launch_config(32768) == {"threads": 1024, "smem_bytes": 151840, "ctas_per_sm": 1}
+    before = dict(ff.k1_ctas)
+    for channels in (4096, 4097, 32768, ff.max_channels() + 1):
+        ff.flag_dump(torch.zeros((2, channels, 2), device=cuda))
+    torch.cuda.synchronize()
+    assert {t: ff.k1_ctas[t] - before[t] for t in ff.K1_THREADS} == {
+        128: 1, 256: 1, 512: 0, 1024: 2}
+    with pytest.raises(RuntimeError, match="cudaError"):
+        ff._flag_at(torch.zeros((2, 8193, 2), device=cuda), 128)  # runs of 65 channels
+
+
 def test_k1_channel_limit_and_launch(cuda):
     """The run layout (K1's and K2's) holds more channels than the strided
     layout's launch, at one CTA of 1024 threads per SM on the dump."""
@@ -614,16 +672,18 @@ def test_k12_clusters_fit_the_card(cuda):
 
 
 def test_probes_launch_as_k1_does(cuda):
-    """K9, K11 and K13 launch as K1 does, on its run layout: 1024 threads and
-    K1's dynamic shared memory (151840 B at 32768 channels) at every size,
-    and at 32768 channels one CTA per SM (at 128 channels the registers
-    set the occupancy, and they differ by variant)."""
+    """K9, K11 and K13 launch as K1's 1024-thread instance does, on its run
+    layout: 1024 threads and K1's dynamic shared memory (151840 B at 32768
+    channels) at every size, and at 32768 channels one CTA per SM, K1's
+    own launch there (at 128 channels the registers set the occupancy, and
+    they differ by variant; K1 itself takes 128 threads there)."""
     fp = _probe()
     for channels in (128, 32768):
-        k1 = ff.launch_config(channels)
+        k1 = ff._launch_config_at(channels, 1024)
         assert k1["threads"] == 1024, k1
         if channels == 32768:
             assert k1["ctas_per_sm"] == 1 and k1["smem_bytes"] == 151840, k1
+            assert k1 == ff.launch_config(channels), k1
         for variant in fp.RUN_LAYOUT + fp.MEASUREMENT + ("amp_pairs",):
             cfg = fp.launch_config(variant, channels)
             if channels == 32768:
@@ -911,11 +971,12 @@ def test_skeleton_matches_plain(cuda, channels, kind):
 
 
 def test_skeleton_launches_as_k1(cuda):
-    """K10 launches as K1 does (1024 threads, K1's dynamic shared memory,
-    one CTA per SM at 32768 channels) and takes K1's channel limit."""
+    """K10 launches as K1's 1024-thread instance does (1024 threads, K1's
+    dynamic shared memory, one CTA per SM at 32768 channels, K1's own
+    launch there) and takes K1's channel limit."""
     _, rsk = _cost()
     for channels in (128, 32768, ff.max_channels()):
-        k1 = ff.launch_config(channels)
+        k1 = ff._launch_config_at(channels, 1024)
         cfg = rsk.launch_config(channels)
         assert cfg["threads"] == k1["threads"] and cfg["smem_bytes"] == k1["smem_bytes"], cfg
         if channels == 32768:

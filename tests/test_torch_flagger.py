@@ -255,11 +255,34 @@ def test_rows_above_the_card_limit_take_the_wide_path():
     assert ff._wide_path(65537, limit) and ff._wide_path(1024, limit, width=67)
     assert not ff._wide_path(1024, limit, width=ff.IN_PLACE_MAX_WIDTH)
     vt = _spiked_vis_t(2, 65537, seed=2)
-    before = dict(ff.launches), dict(ff.wide_launches)
+    before = dict(ff.launches), dict(ff.wide_launches), dict(ff.k1_ctas)
     got = ff.flag_transposed(torch.from_numpy(vt))
     assert got.shape == (2, 65537) and got.numpy()[:, 100].all()
     np.testing.assert_array_equal(got.numpy(), _host_flags(vt, 13))
-    assert (ff.launches, ff.wide_launches) == before  # no kernel ran on the CPU
+    assert (ff.launches, ff.wide_launches, ff.k1_ctas) == before  # no kernel ran on the CPU
+
+
+# K1's CTA size as a function of the row's length alone: the fewest threads
+# whose rank search holds the row in registers, 32 channels a thread, and
+# 1024 for rows past 32768 channels (the H100's run-layout limit is 52310).
+@pytest.mark.parametrize("channels, threads", [
+    (1, 128), (4096, 128), (4097, 256), (8192, 256), (8193, 512), (16384, 512),
+    (16385, 1024), (32768, 1024), (32769, 1024), (52310, 1024)])
+def test_k1_threads_at_the_rule_s_boundaries(channels, threads):
+    assert ff.k1_threads(channels) == threads
+
+
+@pytest.mark.parametrize("threads", ff.K1_THREADS)
+def test_k1_threads_gives_no_run_over_32_channels(threads):
+    """Each CTA size takes one unbroken range of rows up to 32768 channels,
+    every one of them in runs of at most 32 channels (ceil(C / threads)),
+    so SumThreshold's register path takes all four windows of 1-8 wherever
+    a run is 7 channels or more; a row fills its rank search's registers
+    only at the top of its range."""
+    rows = [c for c in range(1, 32769) if ff.k1_threads(c) == threads]
+    first = 1 if threads == ff.K1_THREADS[0] else ff.RANK_REGS * threads // 2 + 1
+    assert rows == list(range(first, ff.RANK_REGS * threads + 1))
+    assert max(-(-c // threads) for c in rows) == ff.RANK_REGS == 32
 
 
 def test_network_header_renders_the_port_networks():
