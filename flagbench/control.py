@@ -26,27 +26,25 @@ import torch
 if __package__ in (None, ""):
     sys.path[0] = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-from flagbench import harness, loops, reference, traces  # noqa: E402
+from flagbench import harness, loops, traces  # noqa: E402
 
 
 def readings(spec: dict, workload: str, seed: int, seconds: float, device,
              overrides=None) -> dict:
     """The program's and the control's flag mismatches on `seed`, and the reference's time."""
-    cell = harness.build_cell(spec, workload, seed, device, overrides)
-    loop = loops.LOOPS[cell.traffic["loop"]](cell)
+    cell, loop = harness.build_cell(spec, workload, seed, device, overrides)
     loop.warm()
     sample = loops.Sample(cell.traffic["sample"], seed)
     counters = loop.window(seconds, traces.Tracer(False, device), sample)
     t0 = time.perf_counter()
-    checks, _ = harness.check(cell, loop, sample, counters)
+    checks, _ = harness.check(loop, sample, counters)
     loops.sync(device)
     check_s = time.perf_counter() - t0
     control = 0
     slots = {slot for _, slot, _ in sample.items}
     for slot in slots:
-        vis = loop.dump_on_device(slot)
-        exact = reference.flag_dump(vis, cell.flagger, cell.channel_flags)
-        low = reference.flag_dump(vis, cell.flagger, cell.channel_flags, dtype=torch.bfloat16)
+        exact = loop.reference_flags(slot)
+        low = loop.reference_flags(slot, torch.bfloat16)
         per_dump = int((exact != low).sum())
         control += per_dump * sum(1 for _, s, _ in sample.items if s == slot)
     return {"workload": workload, "seed": seed, "dumps": counters["dumps"],

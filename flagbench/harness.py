@@ -2,8 +2,12 @@
 
 Everything that belongs to a cell is found by name: the cell in
 ``BENCHMARK.json``, its configuration in the file that entry names, its
-traffic mix in ``traffic/<mix>.json`` and each per-layer metric's reader in
-``metrics/<metric>.py``.  See ``README.md``.
+traffic mix in ``traffic/<mix>.json``, the loop the mix names in
+``loops/<loop>.py`` and each per-layer metric's reader in
+``metrics/<metric>.py``.  The loop owns what belongs to the shape it
+drives (set-up, inputs, visibilities a dump, reference flags, its own
+checks); this module names no flagger, kernel or reference.  See
+``README.md``.
 """
 
 import argparse
@@ -14,12 +18,11 @@ import sys
 import time
 from pathlib import Path
 from types import SimpleNamespace
-from typing import Optional
 
 import numpy as np
 import torch
 
-from . import data, loops, reference, traces
+from . import loops, traces
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -85,47 +88,25 @@ def end_to_end_metrics(spec: dict, workload: str) -> list:
     return [m for m in spec["end_to_end"] if workload in m.get("workloads", [workload])]
 
 
-def channel_mask(config: dict, ranges_mhz, device) -> Optional[torch.Tensor]:
-    """(channels,) uint8, 1 where a channel's centre frequency lies in a range; None if none.
-
-    Channel c of N over the band [lo, hi) is centred at lo + c * (hi - lo) / N.
-    """
-    if not ranges_mhz:
-        return None
-    lo, hi = config["band_mhz"]
-    freq = lo + np.arange(config["channels"]) * (hi - lo) / config["channels"]
-    mask = np.zeros(config["channels"], dtype=bool)
-    for a, b in ranges_mhz:
-        mask |= (freq >= a) & (freq <= b)
-    return torch.from_numpy(mask.astype(np.uint8)).to(device)
-
-
 def build_cell(spec: dict, workload: str, seed: int, device, overrides=None):
-    """The cell's configuration, mix and inputs: everything made from the seed."""
+    """The cell and its loop: the configuration, the mix and the inputs made from the seed."""
     entry = _by_name(spec["workloads"], workload, "workload")
     config = dict(load_config(spec, entry["config"]), **(overrides or {}))
     traffic = load_traffic(entry["traffic"])
-    if traffic["input_flags"] not in ("none", "channel"):
-        raise ValueError(f"unknown input_flags mode {traffic['input_flags']!r}")
-    mask = None
-    if traffic["input_flags"] == "channel":
-        mask = channel_mask(config, traffic["channel_ranges_mhz"], device)
-    ring = data.make_ring(seed, config["channels"], config["rows"], traffic["data"],
-                          traffic["ring"], device)
-    return SimpleNamespace(
-        config=config, traffic=traffic, device=device, flagger=dict(config["flagger"]),
-        channel_flags=mask, ring=ring,
-        n_vis=config["channels"] * config["rows"], counters={}, trace=None)
+    loop_class = loops.load(traffic["loop"])
+    cell = SimpleNamespace(config=config, traffic=traffic, device=device,
+                           n_vis=loop_class.n_vis(config), counters={}, trace=None)
+    loop_class.inputs(cell, seed)
+    return cell, loop_class(cell)
 
 
-def check(cell, loop, sample: loops.Sample, counters: dict) -> dict:
+def check(loop, sample: loops.Sample, counters: dict) -> dict:
     """Each number compared, with its limit; the reference is computed per ring slot."""
     refs = {}
     mismatches, failed = 0, 0
     for dump, slot, flags in sorted(sample.items, key=lambda item: item[0]):
         if slot not in refs:
-            refs[slot] = reference.flag_dump(loop.dump_on_device(slot), cell.flagger,
-                                             cell.channel_flags)
+            refs[slot] = loop.reference_flags(slot)
         bad = int((loop.flags_on_device(flags) != refs[slot]).sum())
         mismatches += bad
         failed += bad > 0
@@ -133,9 +114,7 @@ def check(cell, loop, sample: loops.Sample, counters: dict) -> dict:
         "flag_mismatches": {"value": mismatches, "limit": 0},
         "dumps_missing": {"value": counters["missing"], "limit": 0},
     }
-    if cell.device.type == "cuda":  # on the CPU the plain versions run, and launch nothing
-        checks["k1_launch_gap"] = {"value": abs(counters["k1_launches"] - counters["dumps"]),
-                                   "limit": 0}
+    checks.update(loop.checks(counters))
     return checks, failed
 
 
@@ -160,8 +139,7 @@ def run_cell(spec: dict, workload: str, seed: int, seconds: float, trace: bool, 
     then) of the set-up done before this call.
     """
     marks = list(marks or [])
-    cell = build_cell(spec, workload, seed, device, overrides)
-    loop = loops.LOOPS[cell.traffic["loop"]](cell)
+    cell, loop = build_cell(spec, workload, seed, device, overrides)
     loops.sync(device)
     marks.append(("inputs made", time.perf_counter() - started))
     loop.warm()
@@ -179,7 +157,7 @@ def run_cell(spec: dict, workload: str, seed: int, seconds: float, trace: bool, 
     if tracer.prof is not None:
         cell.trace = traces.summarize(tracer.prof)
         tracer.prof = None
-    checks, failed = check(cell, loop, sample, counters)
+    checks, failed = check(loop, sample, counters)
     failed += counters["missing"]
     correct = (all(c["value"] <= c["limit"] for c in checks.values())
                and counters["dumps"] > 0 and bool(sample.items))
@@ -253,21 +231,20 @@ def main(argv, started: float) -> int:
         print(f"flagbench: {PROGRAM} was loaded from {program}, outside this checkout",
               file=sys.stderr)
         return 2
-    from katsdpsigproc_tpu_torch.models.rfi import fused_flagger
-
     marks.append(("program imported", time.perf_counter() - started))
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     torch.empty(1, device=device)
     marks.append(("card ready", time.perf_counter() - started))
-    config = load_config(spec, entry["config"])
-    launch = fused_flagger.launch_config(config["channels"])  # builds or loads K1's library
-    marks.append(("K1 library loaded", time.perf_counter() - started))
+    loop_class = loops.load(load_traffic(entry["traffic"])["loop"])
+    prepared = loop_class.prepare(load_config(spec, entry["config"]))
+    if prepared is not None:
+        marks.append((prepared[0], time.perf_counter() - started))
     result = run_cell(spec, args.workload, args.seed, args.seconds, bool(args.trace), device,
                       started, marks=marks)
     print(f"flagbench: {args.workload} seed {args.seed} on {_card_line()}; torch "
-          f"{torch.__version__} CUDA {torch.version.cuda}; K1 launch at {config['channels']} "
-          f"channels {launch}", file=sys.stderr)
+          f"{torch.__version__} CUDA {torch.version.cuda}"
+          + (f"; {prepared[1]}" if prepared is not None else ""), file=sys.stderr)
     found = forbidden_modules()
     if found:
         print(f"flagbench: the run loaded {', '.join(found)}: no result", file=sys.stderr)

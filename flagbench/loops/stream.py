@@ -1,106 +1,13 @@
-"""The two ways a cell drives the program: the resident loop and the stream.
-
-Each loop warms up its own shapes (:meth:`warm`), then runs its window
-(:meth:`window`): dumps back to back for at least the window's seconds,
-each dump's latency, the program's counters, and a sample of the flags it
-produced, drawn from the seed, for the comparison after the window.  The
-program is reached through its module attributes at the time of each
-call, so a test can put a broken flagger in its place.
-"""
+"""The streaming ingest loop: the 1-D flagger's dumps from host memory, through ``stream``."""
 
 import asyncio
-import random
 import time
-from typing import List, Tuple
 
 import numpy as np
 import torch
 
-
-def sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-class Sample:
-    """A reservoir of `size` (dump, ring slot, flags) drawn uniformly from the seed."""
-
-    def __init__(self, size: int, seed: int) -> None:
-        self.size = size
-        self.rng = random.Random(seed)
-        self.items: List[Tuple[int, int, object]] = []
-        self.seen = 0
-
-    def offer(self, dump: int, slot: int, flags) -> None:
-        self.seen += 1
-        if len(self.items) < self.size:
-            self.items.append((dump, slot, flags))
-            return
-        j = self.rng.randrange(self.seen)
-        if j < self.size:
-            self.items[j] = (dump, slot, flags)
-
-
-class Resident:
-    """A closed loop with one dump in flight on a ring of dumps on the card.
-
-    Each dump is ``flag_dump(vis.transpose(0, 1))`` (K5 turns the
-    channel-major view, K1 flags it) and a synchronise; its latency runs on
-    the host's clock from the call to the synchronise's return.
-    """
-
-    def __init__(self, cell) -> None:
-        from katsdpsigproc_tpu_torch.models.rfi import fused_flagger
-
-        if cell.traffic["in_flight"] != 1:
-            raise ValueError("the resident loop keeps 1 dump in flight; the mix must say 1")
-        self.cell = cell
-        self.ff = fused_flagger
-        self.ring = cell.ring
-
-    def _call(self, i: int):
-        vis = self.ring[i % len(self.ring)]
-        return self.ff.flag_dump(vis.transpose(0, 1), channel_flags=self.cell.channel_flags,
-                                 **self.cell.flagger)
-
-    def warm(self) -> None:
-        # As many outputs alive at once as the window's sample holds, so
-        # that the caching allocator already has every block it will use.
-        held = [self._call(i) for i in range(self.cell.traffic["sample"] + 2)]
-        sync(self.cell.device)
-        del held
-
-    def window(self, seconds: float, tracer, sample: Sample) -> dict:
-        dev = self.cell.device
-        launches0 = self.ff.launches["flagger"]
-        latency, dispatch = [], []
-        i = 0
-        with tracer.window():
-            start = time.perf_counter()  # the profiler, when on, has started
-            while True:
-                t0 = time.perf_counter()
-                with tracer.span("flagbench.flag_dump"):
-                    flags = self._call(i)
-                t1 = time.perf_counter()
-                with tracer.span("flagbench.synchronize"):
-                    sync(dev)
-                t2 = time.perf_counter()
-                latency.append(t2 - t0)
-                dispatch.append(t1 - t0)
-                sample.offer(i, i % len(self.ring), flags)
-                del flags
-                i += 1
-                if t2 - start >= seconds:
-                    break
-        return {"dumps": i, "window_s": t2 - start, "latency_s": latency,
-                "dispatch_s": dispatch, "missing": 0,
-                "k1_launches": self.ff.launches["flagger"] - launches0}
-
-    def dump_on_device(self, slot: int) -> torch.Tensor:
-        return self.ring[slot]
-
-    def flags_on_device(self, flags) -> torch.Tensor:
-        return flags
+from . import Sample, sync
+from .resident import Resident
 
 
 class _RingSource:
@@ -126,7 +33,7 @@ class _RingSource:
         """The ring's buffers are never written: nothing waits for an upload."""
 
 
-class Stream:
+class Stream(Resident):
     """The streaming ingest: ``resource_pipeline.stream`` over a ring in pinned host memory.
 
     ``stream`` flags a fixed number of dumps a call (``dumps_per_call``)
@@ -135,7 +42,8 @@ class Stream:
     back.  A dump's latency runs from the moment ``get`` hands its buffer
     to the pipeline to the moment its flags are in host memory (the
     download's end, on the device's clock, placed on the host's by an event
-    recorded at a known host time before each call).
+    recorded at a known host time before each call).  The dumps, the
+    reference and the checks are the resident loop's.
     """
 
     def __init__(self, cell) -> None:
@@ -218,6 +126,3 @@ class Stream:
     def flags_on_device(self, flags: np.ndarray) -> torch.Tensor:
         # stream returns (channels, rows); the reference gives (rows, channels)
         return torch.from_numpy(flags).to(self.cell.device).transpose(0, 1)
-
-
-LOOPS = {"resident": Resident, "stream": Stream}

@@ -5,7 +5,8 @@ import re
 
 import pytest
 
-from flagbench import counts, harness
+from flagbench import counts, harness, loops
+from flagbench.loops import resident
 
 SPEC = harness.load_spec()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -48,7 +49,7 @@ def test_cell_resolves_and_reports(cell):
     assert cell["chips"] == 1
     assert len(cell["why"]) <= 200
     traffic = harness.load_traffic(cell["traffic"])
-    assert traffic["loop"] in ("resident", "stream")
+    assert issubclass(loops.load(traffic["loop"]), loops.Loop)
     harness.load_config(SPEC, cell["config"])
     e2e = {m["name"] for m in harness.end_to_end_metrics(SPEC, cell["name"])}
     assert "setup_s" in e2e and len(e2e) >= 2
@@ -93,7 +94,7 @@ def test_file_names_and_size():
 def test_channel_mask_covers_the_ranges():
     config = harness.load_config(SPEC, "meerkat-l-32k")
     ranges = harness.load_traffic("chanmask")["channel_ranges_mhz"]
-    mask = harness.channel_mask(config, ranges, "cpu").numpy().astype(bool)
+    mask = resident.channel_mask(config, ranges, "cpu").numpy().astype(bool)
     lo, hi = config["band_mhz"]
     freq = lo + (hi - lo) * (mask.nonzero()[0]) / config["channels"]
     for f in freq:  # every masked channel lies in a range
@@ -107,4 +108,4 @@ def test_channel_mask_covers_the_ranges():
         assert mask[first:first + len(inside)].all()
     share = mask.mean()
     assert 0.28 < share < 0.30, share
-    assert harness.channel_mask(config, [], "cpu") is None
+    assert resident.channel_mask(config, [], "cpu") is None

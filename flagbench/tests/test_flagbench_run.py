@@ -56,7 +56,9 @@ def test_sound_run_is_correct(workload, trace):
     result = run(workload, trace)
     assert result["correct"] is True
     assert result["attempted"] > 0 and result["failed"] == 0
-    assert list(result)[-1] == "checks"
+    assert list(result) == (["correct", "attempted", "failed", "metrics", "device"]
+                            + (["breakdown"] if trace else []) + ["checks"])
+    assert list(result["checks"]) == ["flag_mismatches", "dumps_missing"]  # k1_launch_gap: card
     assert result["checks"]["flag_mismatches"] == {"value": 0, "limit": 0}
     if not trace:
         names = {m["name"] for m in harness.end_to_end_metrics(SPEC, workload)}
