@@ -36,7 +36,28 @@ conventions):
   (:func:`_masked_median_axis0`);
 * constants the JAX module forms in Python doubles are rounded once to
   float32 on the host (:func:`_f32`);
-* complex amplitudes are XLA's (:func:`...utils.numerics.complex_abs`).
+* complex amplitudes are XLA's (:func:`...utils.numerics.complex_abs`);
+* a division by a constant is one IEEE division (:func:`_div`), on the
+  card too, where PyTorch would multiply by the constant's reciprocal.
+
+:meth:`SumThresholdFlagger.get_flags` takes a cube in host memory or a
+tensor.  A tensor gives a tensor of flags on the device the flagger ran
+on, written batch by batch with no round trip to the host, so a scan held
+on the card stays there and the call returns once its work is queued.
+On a CUDA device the baselines of a batch are as many as a fixed budget
+of the card's memory holds, or a share of its free memory where that is
+less (:func:`batch_baselines`); on the CPU 16.
+
+While a ``torch.profiler`` session records, the host's work is recorded
+as spans (:func:`...utils.profiling.annotate`): ``ksp.twod.get_flags``
+the whole call, ``ksp.twod.batch`` each batch (keyed by its first
+baseline), and inside a batch ``ksp.twod.average``, ``ksp.twod.spectrum``
+(time median, its background, SumThreshold in frequency),
+``ksp.twod.background`` (the 2-D background), ``ksp.twod.sum_threshold.time``,
+``ksp.twod.sum_threshold.freq`` and ``ksp.twod.finish`` (combine, dilate
+and un-average; then the NaN flags, a second span of that name).
+:data:`batches` counts the calls, batches and baselines of
+:meth:`~SumThresholdFlagger.get_flags`.
 """
 
 import functools
@@ -47,7 +68,37 @@ import numpy as np
 import torch
 
 from . import MAD_NORMAL
-from ...utils import numerics
+from ...utils import numerics, profiling
+
+# The calls of SumThresholdFlagger.get_flags since the counts were last
+# reset, and the batches and baselines they flagged.
+batches = {"calls": 0, "batches": 0, "baselines": 0}
+
+# The card's memory a batch takes at its peak, per baseline: the caching
+# allocator's peak over a batch less what it held before, on an H100 at 8
+# to 3000 dumps and 256 to 32768 channels.  Per channel it is the larger of
+# two stages' peaks: BATCH_BYTES_PER_SAMPLE a dump (82.0-83.1 measured),
+# and, where the dumps are few, the box filter along time, which holds
+# three float32 data-and-weight pairs padded by 8r, 10r and 8r dumps (r its
+# box radius) beside the rest of the batch: BATCH_BYTES_PER_DUMP a dump
+# and BATCH_BYTES_PER_RADIUS a unit of r (313.6 B a sample measured at 8
+# dumps and r = 10, 3.8 times the many dumps' figure).
+BATCH_BYTES_PER_SAMPLE = 84
+BATCH_BYTES_PER_DUMP = 53
+BATCH_BYTES_PER_RADIUS = 210
+# The card's memory a batch may take.  At a calibrator scan's 75 x 1024 x
+# 8064 that is 2016 baselines a batch, 4 batches a scan, 16,680 kernels and
+# 4.10-4.13 s a scan on an H100 (against 4.19-4.65 s at 1008, and
+# 4.08-4.09 s at 4032, which takes 37.8 GB at its peak).
+BATCH_BYTES = 15 << 30
+# The share of the card's free memory a batch may take where that is less,
+# which leaves the rest to what the caller holds beside the flagger.
+BATCH_MEMORY_SHARE = 0.5
+# A divisor of the baselines down to this share below the largest batch
+# that fits is taken in its place, so that every batch has one shape.
+BATCH_DIVISOR_SLACK = 0.25
+# The baselines of a batch on the CPU.
+CPU_BATCH = 16
 
 
 def _f32(value: float) -> float:
@@ -57,6 +108,17 @@ def _f32(value: float) -> float:
     float32 arithmetic with it rounds once, as XLA's does.
     """
     return float(np.float32(value))
+
+
+def _div(x, divisor: float):
+    """``x / divisor`` as one IEEE division on every device.
+
+    On a CUDA device PyTorch multiplies by the reciprocal where the
+    divisor is a host scalar (a Python number), which differs from the
+    division in the last bit of many quotients; a divisor on `x`'s device
+    is divided by.
+    """
+    return x / torch.full((), divisor, dtype=x.dtype, device=x.device)
 
 
 def _asbool(data):
@@ -252,7 +314,7 @@ def _box_gaussian_filter(data, sigma, passes: int = 4):
             for _ in range(passes):
                 out = _box_sum_axis(out, ra, axis)
             out = out.narrow(axis, ext, out.shape[axis] - 2 * ext)
-            out = out / _f32(float(2 * ra + 1) ** passes)
+            out = _div(out, _f32(float(2 * ra + 1) ** passes))
     return out
 
 
@@ -348,7 +410,7 @@ def _sum_threshold1d(data, flags, windows, outlier_nsigma, rho, chunks: np.ndarr
             if window > p:
                 continue
             tf = _f32(rho ** math.log2(window)) if window > 1 else 1.0
-            th = (threshold0 / tf)[:, None]  # (B, 1, M)
+            th = _div(threshold0, tf)[:, None]  # (B, 1, M)
             clamped = torch.where(fpos & (pdata > th), th, pdata)
             clamped = torch.where(fneg & (clamped < -th), -th, clamped)
             sums = clamped[:, :p - window + 1].clone()
@@ -419,7 +481,11 @@ def _unaverage_freq(flags, freq_extend: int, average_freq: int,
     whose products are formed in double.
     """
     n_time = flags.shape[1]
-    rep = torch.repeat_interleave(flags, average_freq, dim=2)[:, :, :orig_freq]
+    # Each flag repeated average_freq times along frequency, by a view (a
+    # repeat_interleave can wait for the card to size its output).
+    n_bl, a_freq = flags.shape[0], flags.shape[2]
+    rep = flags[..., None].expand(n_bl, n_time, a_freq, average_freq)
+    rep = rep.reshape(n_bl, n_time, a_freq * average_freq)[:, :, :orig_freq]
     dil = _dilate_centred(rep, int(freq_extend), axis=1)
     row_tot = torch.sum(dil, dim=2, dtype=torch.int32).to(torch.float32)
     col_tot = torch.sum(dil, dim=1, dtype=torch.int32).to(torch.float32)
@@ -436,36 +502,77 @@ def _get_baseline_flags(data, flags, *, outlier_nsigma, windows_time, windows_fr
     """Flag a batch of baselines, (bl, time, freq)
     (``katsdpsigproc_tpu/models/rfi/twodflag.py::_get_baseline_flags``)."""
     # 1. median spectrum -> background -> SumThreshold in frequency
-    spec_data, spec_flags = _time_median(data, flags)
-    spec_background = _get_background2d(
-        spec_data, spec_flags, background_iterations,
-        np.array((0.0, spike_width_freq)), background_reject, freq_chunk_ends,
-    )
-    spec_data = spec_data - spec_background
-    spec_flags = _sum_threshold(
-        spec_data, spec_flags, 1, windows_freq, outlier_nsigma, rho, freq_chunk_ends
-    )
-    flags = flags | spec_flags
+    with profiling.annotate("ksp.twod.spectrum"):
+        spec_data, spec_flags = _time_median(data, flags)
+        spec_background = _get_background2d(
+            spec_data, spec_flags, background_iterations,
+            np.array((0.0, spike_width_freq)), background_reject, freq_chunk_ends,
+        )
+        spec_data = spec_data - spec_background
+        spec_flags = _sum_threshold(
+            spec_data, spec_flags, 1, windows_freq, outlier_nsigma, rho, freq_chunk_ends
+        )
+        flags = flags | spec_flags
 
     # 2. 2-D background, subtract
-    background = _get_background2d(
-        data, flags, background_iterations,
-        np.array((spike_width_time, spike_width_freq)), background_reject, freq_chunk_ends,
-    )
-    data = data - background
+    with profiling.annotate("ksp.twod.background"):
+        background = _get_background2d(
+            data, flags, background_iterations,
+            np.array((spike_width_time, spike_width_freq)), background_reject, freq_chunk_ends,
+        )
+        data = data - background
 
     # 3. SumThreshold in time, then frequency (with time flags folded in)
-    time_flags = _sum_threshold(data, flags, 0, windows_time, outlier_nsigma, rho)
-    flags = flags | time_flags
-    freq_flags = _sum_threshold(
-        data, flags, 1, windows_freq, outlier_nsigma, rho, freq_chunk_ends
-    )
+    with profiling.annotate("ksp.twod.sum_threshold.time"):
+        time_flags = _sum_threshold(data, flags, 0, windows_time, outlier_nsigma, rho)
+        flags = flags | time_flags
+    with profiling.annotate("ksp.twod.sum_threshold.freq"):
+        freq_flags = _sum_threshold(
+            data, flags, 1, windows_freq, outlier_nsigma, rho, freq_chunk_ends
+        )
 
     # 4. combine + smear + un-average
-    combined = _combine_flags(spec_flags, time_flags, freq_flags, time_extend)
-    return _unaverage_freq(
-        combined, freq_extend, average_freq, flag_all_time_frac, flag_all_freq_frac, orig_freq
-    )
+    with profiling.annotate("ksp.twod.finish"):
+        combined = _combine_flags(spec_flags, time_flags, freq_flags, time_extend)
+        return _unaverage_freq(
+            combined, freq_extend, average_freq, flag_all_time_frac, flag_all_freq_frac,
+            orig_freq
+        )
+
+
+def batch_bytes(n_time: int, n_freq: int, time_radius: int) -> int:
+    """The card's memory a batch takes at its peak per baseline of `n_time` x `n_freq`.
+
+    `time_radius` is the box radius of the widest filter along time (see
+    :data:`BATCH_BYTES_PER_SAMPLE` for the measurement behind the model).
+    """
+    return n_freq * max(BATCH_BYTES_PER_SAMPLE * n_time,
+                        BATCH_BYTES_PER_DUMP * n_time + BATCH_BYTES_PER_RADIUS * time_radius)
+
+
+def batch_baselines(n_time: int, n_freq: int, n_bl: int, time_radius: int,
+                    free_bytes: int) -> int:
+    """The baselines of a batch on a CUDA device with `free_bytes` of memory free.
+
+    A batch takes :func:`batch_bytes` a baseline and may take
+    :data:`BATCH_BYTES`, or :data:`BATCH_MEMORY_SHARE` of `free_bytes`
+    where that is less; so many baselines fit, at least 1 and at most
+    `n_bl`.  Where a divisor of `n_bl` lies within
+    :data:`BATCH_DIVISOR_SLACK` below that, the largest such divisor is
+    taken, so that every batch has one shape.
+    """
+    budget = min(BATCH_BYTES, BATCH_MEMORY_SHARE * free_bytes)
+    fit = int(min(n_bl, max(1, budget // batch_bytes(n_time, n_freq, time_radius))))
+    for size in range(fit, max(1, math.ceil(fit * (1 - BATCH_DIVISOR_SLACK))) - 1, -1):
+        if n_bl % size == 0:
+            return size
+    return fit
+
+
+def _free_bytes(device: torch.device) -> int:
+    """The card's free memory: what CUDA reports free, and what PyTorch's allocator holds unused."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
 
 
 def _as_tensor(array, device: torch.device) -> torch.Tensor:
@@ -550,15 +657,17 @@ class SumThresholdFlagger:
         )
 
         def impl(in_data, in_flags):
-            avg_data, avg_flags = _average_freq(in_data, in_flags, self.average_freq)
+            with profiling.annotate("ksp.twod.average"):
+                avg_data, avg_flags = _average_freq(in_data, in_flags, self.average_freq)
             out = torch.movedim(per_baseline(avg_data, avg_flags), 0, -1)
-            # For complex input the reference flags isnan(re)|isnan(im)
-            # (twodflag.py:687); isnan(abs(x)) would miss e.g. inf+nan*j.
-            if in_data.is_complex():
-                nan_in = torch.isnan(in_data.real) | torch.isnan(in_data.imag)
-            else:
-                nan_in = torch.isnan(in_data)
-            return out | nan_in
+            with profiling.annotate("ksp.twod.finish"):
+                # For complex input the reference flags isnan(re)|isnan(im)
+                # (twodflag.py:687); isnan(abs(x)) would miss e.g. inf+nan*j.
+                if in_data.is_complex():
+                    nan_in = torch.isnan(in_data.real) | torch.isnan(in_data.imag)
+                else:
+                    nan_in = torch.isnan(in_data)
+                return out | nan_in
 
         self._impl_cache[shape] = impl
         return impl
@@ -607,32 +716,49 @@ class SumThresholdFlagger:
         Port of ``katsdpsigproc_tpu/models/rfi/twodflag.py::SumThresholdFlagger.get_flags``.
         `pool` and `is_multiprocess` are accepted for the reference's API
         and ignored: the baselines of a chunk are one batch on the device.
-        `chunk_size` bounds the baselines per batch (default 16).  `device`
-        is where the flagger runs: the card by default, ``"cpu"`` only when
-        asked for; without a card and without ``"cpu"`` it raises.
+        `chunk_size` bounds the baselines per batch: by default 16 on the
+        CPU, and on a CUDA device as many as :func:`batch_baselines` finds
+        room for.  `device` is where the flagger runs:
+        by default the device of `data` where it is a CUDA tensor, else
+        the card; ``"cpu"`` only when asked for; without a card and
+        without ``"cpu"`` it raises.
 
         Returns
         -------
-        (time, frequency, baseline) numpy bool flags.
+        (time, frequency, baseline) bool flags: a tensor on `device` where
+        `data` is a tensor, else a numpy array.  For a tensor the call
+        waits for nothing on the card: it returns once its work is queued.
         """
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError("no CUDA device: pass device='cpu' to run the 2-D flagger "
-                                   "on the CPU")
-            device = "cuda"
-        device = torch.device(device)
-        if data.shape != flags.shape:
-            raise ValueError("Shape mismatch")
-        if len(data.shape) != 3:
-            raise ValueError("data has wrong number of dimensions")
-        n_bl = data.shape[-1]
-        if not chunk_size:
-            chunk_size = min(n_bl, 16)
-        out = np.empty(tuple(data.shape), np.bool_)
-        for i in range(0, n_bl, chunk_size):
-            chunk = slice(i, min(i + chunk_size, n_bl))
-            block = _as_tensor(data[..., chunk], device)
-            block_flags = _as_tensor(flags[..., chunk], device)
-            impl = self._impl(tuple(block.shape))
-            out[..., chunk] = impl(block, block_flags).cpu().numpy()
-        return out
+        with profiling.annotate("ksp.twod.get_flags"):
+            if device is None:
+                if isinstance(data, torch.Tensor) and data.is_cuda:
+                    device = data.device
+                elif not torch.cuda.is_available():
+                    raise RuntimeError("no CUDA device: pass device='cpu' to run the 2-D flagger "
+                                       "on the CPU")
+                else:
+                    device = "cuda"
+            device = torch.device(device)
+            if data.shape != flags.shape:
+                raise ValueError("Shape mismatch")
+            if len(data.shape) != 3:
+                raise ValueError("data has wrong number of dimensions")
+            n_time, n_freq, n_bl = data.shape
+            if not chunk_size:
+                if device.type == "cuda":
+                    radius = int(_box_radii(self.background_iterations * self.spike_width_time, 4))
+                    chunk_size = batch_baselines(n_time, n_freq, n_bl, radius, _free_bytes(device))
+                else:
+                    chunk_size = min(n_bl, CPU_BATCH)
+            out = torch.empty(tuple(data.shape), dtype=torch.bool, device=device)
+            batches["calls"] += 1
+            for i in range(0, n_bl, chunk_size):
+                chunk = slice(i, min(i + chunk_size, n_bl))
+                with profiling.annotate("ksp.twod.batch", key=i):
+                    block = _as_tensor(data[..., chunk], device)
+                    block_flags = _as_tensor(flags[..., chunk], device)
+                    impl = self._impl(tuple(block.shape))
+                    out[..., chunk] = impl(block, block_flags)
+                batches["batches"] += 1
+                batches["baselines"] += chunk.stop - chunk.start
+        return out if isinstance(data, torch.Tensor) else out.cpu().numpy()
