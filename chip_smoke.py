@@ -115,12 +115,24 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
    with the upload, flag and pipeline times.  K10 and K8 at K1's launch
    are held to K1's launch (the run layout), K8's strided launch to the
    strided layout's;
-10. the 2-D and FFT paths, plain PyTorch as XLA computes them in JAX, and
-   ``FusedFlaggerTemplate``: the 2-D ``SumThresholdFlagger`` at
-   ``bench.py`` config 1 (3000 times x 1024 channels x 1 baseline, seed 1)
-   and on ``rfiflagtest``'s spiked data (3000 x 1024 x 16, one chunk of
-   ``get_flags``), each equal flag for flag to the port's run on the CPU
-   and, on one baseline, to the numpy oracle ``tests/rfi/twodflag_oracle.py``,
+10. the 2-D and FFT paths and ``FusedFlaggerTemplate``: the 2-D path is
+   plain PyTorch as XLA computes it in JAX, but for its masked Gaussian
+   filter, which on the card is the box-filter kernels
+   (``csrc/box_filter.cu``).  First those, ``masked_gaussian_filter`` on
+   card tensors at a calibrator scan's batch shapes, 2016 baselines x 75
+   dumps x 1024 channels, baselines innermost as the flagger's averaged
+   data lies (sigma (0, 12.5, 10): ``box_strided_kernel`` twice), and its
+   spectrum, (2016, 1, 1024) contiguous (sigma (0, 0, 10):
+   ``box_rows_kernel``), each with unflagged NaN and inf and 80 channels all
+   flagged, bit for bit the plain version (``masked_gaussian_filter_plain``)
+   on the same tensors, then both timed.  Then the 2-D
+   ``SumThresholdFlagger`` at ``bench.py`` config 1 (3000 times x 1024
+   channels x 1 baseline, seed 1) and on ``rfiflagtest``'s spiked data
+   (3000 x 1024 x 16, one chunk of ``get_flags``), each equal flag for
+   flag to the port's run on the CPU and, on one baseline, to the numpy
+   oracle ``tests/rfi/twodflag_oracle.py``, with ``twodflag.box_filters``
+   and ``twodflag.launches`` set to 0 just before the card's run and read
+   just after (every filter on the kernels, the launches its plan gives),
    timed; ``fftflagtest``'s pipeline at config 4 (256 x 32768 float32):
    the ``Fft`` r2c and c2r operations against the CPU run, each row's
    relative error within ``tests/test_fft.py``'s rtol, and the flags
@@ -196,6 +208,7 @@ SOURCES = {
     "multiply": "katsdpsigproc_tpu_torch/csrc/examples.cu",
     "prim_cost": "katsdpsigproc_tpu_torch/csrc/prim_cost.cu",
     "roofline_skeleton": "katsdpsigproc_tpu_torch/csrc/roofline_skeleton.cu",
+    "box_filter": "katsdpsigproc_tpu_torch/csrc/box_filter.cu",
 }
 ROUTES = {"triple": "triton"}  # the others are CUDA C++
 REPLACES = {
@@ -211,6 +224,8 @@ REPLACES = {
     "multiply": "doc/examples/triple.py:27",
     "prim_cost": "scripts/prim_cost.py:90",
     "roofline_skeleton": "scripts/roofline_skeleton.py:64",
+    # No Pallas kernel: XLA's reduce_window computes the filter in JAX.
+    "box_filter": "katsdpsigproc_tpu/models/rfi/twodflag.py:235",
 }
 # The H100 SXM's HBM3 rate, and its float32 instruction rate outside the
 # tensor cores.  The data sheet's 67 TFLOP/s (132 SMs x 128 lanes x 1.98
@@ -1593,9 +1608,103 @@ def rowwise_error(label: str, got: torch.Tensor, want: torch.Tensor, rtol: float
         raise AssertionError(f"{label}: a row's relative error {worst:.3g} exceeds {rtol}")
 
 
-def phase_twod_fft(ff, device, vis_np: np.ndarray, card: str) -> None:
-    """The 2-D flagger (configs 1 and rfiflagtest's 16 baselines), the FFT path
-    (config 4) and FusedFlaggerTemplate on the card."""
+def box_filter_work(shape, sigma, passes: int = 4) -> tuple:
+    """The bytes and ordered adds of one masked Gaussian filter of (B, T, F) `shape`.
+
+    Bytes: the data (4 B) and flags (1 B) read, the two planes written and
+    read back between the axes (16 B), the quotient written (4 B).  Adds:
+    2r an output of each pass, on the outputs the crop can reach (pass k
+    of the line's n + 2 (passes - k) r), for both planes.
+    """
+    from katsdpsigproc_tpu_torch.models.rfi import twodflag
+
+    steps = twodflag.box_filter_plan(shape, sigma, passes)
+    n = int(np.prod(shape))
+    nbytes = n * (5 + 16 * (len(steps) - 1) + 4)
+    adds = 0
+    for step in steps:
+        line, r = shape[step.axis], step.radius
+        outputs = sum(line + 2 * (passes - k) * r for k in range(1, passes + 1)) if r else 0
+        adds += 2 * (n // line) * 2 * r * outputs
+    return nbytes, adds
+
+
+def box_filter_calls(flagger) -> tuple:
+    """The masked Gaussian filters of one batch of `flagger`, and their kernel launches.
+
+    The spectrum's background, then the 2-D background: each filters at
+    every extend factor from ``background_iterations`` down to 1, then
+    once more at 1.
+    """
+    from katsdpsigproc_tpu_torch.models.rfi import twodflag
+
+    calls = launches = 0
+    for width_time in (0.0, flagger.spike_width_time):
+        for factor in list(range(flagger.background_iterations, 0, -1)) + [1]:
+            sigma = (0.0, factor * width_time, factor * flagger.spike_width_freq)
+            calls += 1
+            launches += len(twodflag.box_filter_plan((1, 1, 1), sigma))
+    return calls, launches
+
+
+def phase_box_filter(twodflag, dev, card: str, check: Check) -> tuple:
+    """The box-filter kernels at a calibrator scan's batch shapes, against their
+    plain version on the same card tensors, and timed.  Returns the batch call's
+    ms, its plain version's ms, bytes and adds."""
+    from katsdpsigproc_tpu_torch.utils.profiling import time_fn
+
+    n_bl, n_time, n_freq = BASELINES, 75, 1024
+    rs = np.random.RandomState(seed=2)
+    amp = np.abs(rs.standard_normal((n_time, n_freq, n_bl))).astype(np.float32)
+    flags = rs.random_sample(amp.shape) < 0.05
+    amp.reshape(-1)[rs.choice(amp.size, 8)] = np.nan  # unflagged NaN and inf
+    amp.reshape(-1)[rs.choice(amp.size, 8)] = np.inf
+    # 80 channels all flagged: NaN at their middle, which no weight reaches (4 passes of r 8)
+    flags[:, 400:480] = True
+    # (B, T, F) views of (T, F, B) cubes: baselines innermost, as the flagger's averaged data
+    data = torch.from_numpy(amp).to(dev).permute(2, 0, 1)
+    flags = torch.from_numpy(flags).to(dev).permute(2, 0, 1)
+    spectrum, spectrum_flags = data[:, :1].contiguous(), flags[:, :1].contiguous()
+    cases = {
+        f"batch {n_bl} x {n_time} x {n_freq}, baselines innermost, sigma (0, 12.5, 10)":
+            (data, flags, np.array((0.0, 12.5, 10.0))),
+        f"spectrum ({n_bl}, 1, {n_freq}), sigma (0, 0, 10)":
+            (spectrum, spectrum_flags, np.array((0.0, 0.0, 10.0))),
+    }
+    times = {}
+    for label, (d, f, sigma) in cases.items():
+        print(f"the masked Gaussian filter, {label}:")
+        before = dict(twodflag.launches)
+        got = twodflag.masked_gaussian_filter(d, f, sigma)
+        torch.cuda.synchronize()
+        ran = {k: twodflag.launches[k] - before[k] for k in before}
+        want_launches = len(twodflag.box_filter_plan(d.shape, sigma))
+        print(f"  launches {ran}")
+        if sum(ran.values()) != want_launches:
+            raise AssertionError(f"{label}: {ran} launches, the plan gives {want_launches}")
+        want = twodflag.masked_gaussian_filter_plain(d, f, sigma)
+        check.exact("box_filter", f"{label}: kernels vs plain version on the card", got, want)
+        if not (bool(torch.isnan(got).any()) and bool(torch.isfinite(got).any())):
+            raise AssertionError(f"{label}: no NaN or no finite value to compare")
+        del got, want
+        card_state(f"before the masked Gaussian filter's timings, {label}")
+        ms = time_fn(lambda: twodflag.masked_gaussian_filter(d, f, sigma), warmup=1, iters=5)
+        plain_ms = time_fn(lambda: twodflag.masked_gaussian_filter_plain(d, f, sigma),
+                           warmup=1, iters=3)
+        nbytes, adds = box_filter_work(tuple(d.shape), sigma)
+        bound = max(nbytes / HBM_BYTES_PER_S, adds / F32_OPS_PER_S) * 1e3
+        print(f"  kernels {ms:.3f} ms (CUDA events, 1 warm-up, median of 5), plain version "
+              f"{plain_ms:.3f} ms (median of 3); bound {bound:.3f} ms ({nbytes / 1e9:.2f} GB, "
+              f"{adds / 1e9:.2f} G ordered adds) [{card}]")
+        times[label] = (ms, plain_ms, nbytes, adds)
+    del data, flags, spectrum, spectrum_flags
+    torch.cuda.empty_cache()
+    return next(iter(times.values()))
+
+
+def phase_twod_fft(ff, device, vis_np: np.ndarray, card: str, check: Check) -> dict:
+    """The box-filter kernels, the 2-D flagger (configs 1 and rfiflagtest's 16
+    baselines), the FFT path (config 4) and FusedFlaggerTemplate on the card."""
     from katsdpsigproc_tpu_torch import MAD_NORMAL
     from katsdpsigproc_tpu_torch.models.rfi import twodflag
     from katsdpsigproc_tpu_torch.ops import fft, rank
@@ -1604,6 +1713,7 @@ def phase_twod_fft(ff, device, vis_np: np.ndarray, card: str) -> None:
     from katsdpsigproc_tpu_torch.utils.profiling import time_fn
 
     dev = torch.device("cuda", 0)
+    box_ms, box_plain_ms, box_bytes, box_adds = phase_box_filter(twodflag, dev, card, check)
     oracle = rfiflagtest.load_twodflag_oracle()
     times, channels = 3000, 1024
     rs = np.random.RandomState(seed=1)  # bench.py config 1
@@ -1611,13 +1721,29 @@ def phase_twod_fft(ff, device, vis_np: np.ndarray, card: str) -> None:
     config1 = np.abs(rs.standard_normal(shape) + 1j * rs.standard_normal(shape)).astype(np.float32)
     spiked = np.abs(rfiflagtest.generate_data(times, channels, 16))
     flagger = twodflag.SumThresholdFlagger()
+    calls_per_batch, launches_per_batch = box_filter_calls(flagger)
+    box_launches = 0
     for label, amp in (("config 1, 3000 x 1024 x 1 (seed 1)", config1),
                        ("rfiflagtest's spiked data, 3000 x 1024 x 16 (one chunk)", spiked)):
         print(f"the 2-D flagger (SumThresholdFlagger()), {label}:")
         zeros = np.zeros(amp.shape, bool)
+        for counts in (twodflag.box_filters, twodflag.launches):
+            counts.update(dict.fromkeys(counts, 0))
+        n_batches = twodflag.batches["batches"]
         t0 = time.perf_counter()
         on_card = flagger.get_flags(amp, zeros)
         t1 = time.perf_counter()
+        n_batches = twodflag.batches["batches"] - n_batches
+        filters, launched = dict(twodflag.box_filters), dict(twodflag.launches)
+        print(f"  {n_batches} batch(es): masked Gaussian filters by route {filters}, "
+              f"box-filter launches {launched}")
+        if filters != {"kernel": calls_per_batch * n_batches, "plain": 0}:
+            raise AssertionError(f"{label}: filters {filters}, want {calls_per_batch} a batch, "
+                                 f"all on the kernels")
+        if sum(launched.values()) != launches_per_batch * n_batches:
+            raise AssertionError(f"{label}: {launched} box-filter launches, want "
+                                 f"{launches_per_batch} a batch")
+        box_launches += sum(launched.values())
         on_cpu = flagger.get_flags(amp, zeros, device="cpu")
         t2 = time.perf_counter()
         expected = oracle.get_flags(amp[..., :1], zeros[..., :1])
@@ -1709,6 +1835,8 @@ def phase_twod_fft(ff, device, vis_np: np.ndarray, card: str) -> None:
           f"({int(want.count_nonzero())} flagged)")
     if bad:
         raise AssertionError(f"FusedFlaggerTemplate: {bad} flags differ from flag_transposed")
+    # The calibrator-scan batch's call; the launches, the flagger's counted runs'.
+    return {"box_filter": record(box_launches, box_ms, box_plain_ms, box_bytes, box_adds)}
 
 
 def phase_stream(ff, device, vis_np: np.ndarray, card: str, check: Check) -> None:
@@ -2027,7 +2155,7 @@ def main() -> None:
     results.update(phase_probes(fp, ff, device, vis_np, card, check))
     results.update(phase_examples(card, check))
     results.update(phase_cost_probes(ff, device, vis_np, card, check))
-    phase_twod_fft(ff, device, vis_np, card)
+    results.update(phase_twod_fft(ff, device, vis_np, card, check))
     phase_stream(ff, device, vis_np, card, check)
     phase_parallel(ff, device, vis_np, card, check)
     del vis_np

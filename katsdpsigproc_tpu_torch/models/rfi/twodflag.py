@@ -23,10 +23,15 @@ exception: as in JAX they take a sigma or an axis for every dimension, and
 the callers give the baseline axis sigma 0.
 
 No Pallas kernel lies on this path (XLA computes all of it in the JAX
-package), so it is plain PyTorch on the caller's device.  Its float32
-arithmetic is the JAX module's, operation for operation, on the CPU and
-on the card alike (``tests/rfi/twodflag_oracle.py:14-42`` lists the
-conventions):
+package).  It is PyTorch on the caller's device, but for the masked
+Gaussian filter: on a CUDA tensor :func:`masked_gaussian_filter` runs the
+two hand-written kernels of ``csrc/box_filter.cu`` (one sweep through
+shared memory an axis, :func:`masked_gaussian_filter_cuda`), and on the
+CPU their plain version, the eager box filters
+(:func:`masked_gaussian_filter_plain`), whose bits they equal.  Its
+float32 arithmetic is the JAX module's, operation for operation, on the
+CPU and on the card alike (``tests/rfi/twodflag_oracle.py:14-42`` lists
+the conventions):
 
 * window sums (the box filter's and SumThreshold's) and the frequency
   average are ordered float32 adds in ascending offset, never a library
@@ -57,12 +62,15 @@ baseline), and inside a batch ``ksp.twod.average``, ``ksp.twod.spectrum``
 ``ksp.twod.sum_threshold.freq`` and ``ksp.twod.finish`` (combine, dilate
 and un-average; then the NaN flags, a second span of that name).
 :data:`batches` counts the calls, batches and baselines of
-:meth:`~SumThresholdFlagger.get_flags`.
+:meth:`~SumThresholdFlagger.get_flags`; :data:`box_filters` the calls of
+:func:`masked_gaussian_filter` by route, :data:`launches` the box-filter
+kernels' launches.
 """
 
+import ctypes
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -73,6 +81,12 @@ from ...utils import numerics, profiling
 # The calls of SumThresholdFlagger.get_flags since the counts were last
 # reset, and the batches and baselines they flagged.
 batches = {"calls": 0, "batches": 0, "baselines": 0}
+# The calls of masked_gaussian_filter since the counts were last reset, by
+# route: "kernel" (a CUDA tensor, csrc/box_filter.cu) and "plain" (the CPU).
+box_filters = {"kernel": 0, "plain": 0}
+# Launches of each box-filter kernel since the counts were last reset; the
+# wrapper adds one where it launches, and nowhere else.
+launches = {"box_strided": 0, "box_rows": 0}
 
 # The card's memory a batch takes at its peak, per baseline: the caching
 # allocator's peak over a batch less what it held before, on an H100 at 8
@@ -323,8 +337,27 @@ def masked_gaussian_filter(data, flags, sigma, passes: int = 4):
 
     Port of ``katsdpsigproc_tpu/models/rfi/twodflag.py::masked_gaussian_filter``:
     positions whose Gaussian support holds no unflagged data become NaN.
+    `sigma` has one value per axis of `data`.  A CUDA tensor goes to the
+    box-filter kernels (:func:`masked_gaussian_filter_cuda`) or the call
+    raises; a tensor on the CPU takes their plain version
+    (:func:`masked_gaussian_filter_plain`).  The two give the same bits.
+    The kernels take less than the plain version: float32 data only, 1 to
+    3 axes, and a sigma that gives the third axis from the end (the
+    baselines) box radius 0.  The plain version, like the JAX function,
+    also takes float64, more axes and a radius on every axis; the card
+    route raises on those (the flagger's calls give none of them).
+    """
+    if data.device.type == "cuda":
+        return masked_gaussian_filter_cuda(data, flags, sigma, passes)
+    box_filters["plain"] += 1
+    return masked_gaussian_filter_plain(data, flags, sigma, passes)
+
+
+def masked_gaussian_filter_plain(data, flags, sigma, passes: int = 4):
+    """The plain PyTorch version of the box-filter kernels: eager box filters.
+
     The data and weight planes are filtered as one stacked array, the
-    stack axis with radius 0.  `sigma` has one value per axis of `data`.
+    stack axis with radius 0 (:func:`_box_gaussian_filter`).
     """
     weight = (~flags).to(data.dtype)
     filled = torch.where(flags, 0.0, data)
@@ -333,6 +366,170 @@ def masked_gaussian_filter(data, flags, sigma, passes: int = 4):
     fboth = _box_gaussian_filter(both, sigma_all, passes)
     fd, fw = fboth[0], fboth[1]
     return torch.where(fw == 0, torch.nan, fd / fw)
+
+
+class BoxStep(NamedTuple):
+    """One axis of the box-filter kernels on a (B, T, F) tensor (:func:`box_filter_plan`)."""
+
+    axis: int  # 1 time, 2 frequency
+    radius: int  # 0 runs no pass and divides by nothing
+    extended: int  # the line with the passes' support: n + 2 * passes * radius
+    divisor: float  # float32((2 * radius + 1) ** passes)
+    forms_weights: bool  # reads the data and flags (the first step), else the planes
+    writes_quotient: bool  # writes where(fw == 0, NaN, fd / fw) (the last step), else the planes
+    group: int  # consecutive outputs of a pass a thread computes
+
+
+def _box_group(radius: int) -> int:
+    """The outputs a kernel thread computes together: at most 2r + 1, and 8 from r = 4."""
+    return 8 if radius >= 4 else 4 if radius >= 2 else 2
+
+
+def box_filter_plan(shape, sigma, passes: int = 4) -> list:
+    """The kernels' steps for a (B, T, F) `shape` at `sigma` (one value per axis).
+
+    One :class:`BoxStep` per axis of non-zero radius, time before
+    frequency, as :func:`_box_gaussian_filter` takes them; the first forms
+    the weights, the last writes the quotient.  With both radii 0 one
+    frequency step of radius 0 does both.  Raises unless the baseline axis
+    has radius 0.
+    """
+    if len(shape) != 3 or len(sigma) != 3:
+        raise ValueError("the box-filter kernels take (B, T, F) and a sigma per axis")
+    radii = [int(r) for r in _box_radii(sigma, passes)]
+    if radii[0]:
+        raise ValueError("the box-filter kernels filter no baseline axis: sigma[0] must give r = 0")
+    axes = [axis for axis in (1, 2) if radii[axis]] or [2]
+    return [BoxStep(axis=axis, radius=radii[axis],
+                    extended=int(shape[axis]) + 2 * passes * radii[axis],
+                    divisor=_f32(float(2 * radii[axis] + 1) ** passes),
+                    forms_weights=i == 0, writes_quotient=i == len(axes) - 1,
+                    group=_box_group(radii[axis]))
+            for i, axis in enumerate(axes)]
+
+
+def box_kernel_axes(shape, strides, axis: int):
+    """The kernel for a step along `axis` of a (B, T, F) input, and its axis order.
+
+    A line along the contiguous axis goes to ``box_rows`` (axes (outer,
+    outer, line)); any other to ``box_strided``, whose CTA owns neighbouring
+    lines along the other axis of least stride (axes (outer, line, column)).
+    """
+    others = [a for a in (0, 1, 2) if a != axis]
+    if strides[axis] == 1 and shape[axis] > 1:
+        return "box_rows", (others[0], others[1], axis)
+    col = min(reversed(others), key=lambda a: (shape[a] == 1, abs(strides[a])))
+    return "box_strided", (others[0] + others[1] - col, axis, col)
+
+
+class _BoxArgs(ctypes.Structure):
+    """``BoxArgs`` of ``csrc/box_filter.cu``."""
+
+    _fields_ = [
+        ("data", ctypes.c_void_p), ("flags", ctypes.c_void_p),
+        ("planes_in", ctypes.c_void_p), ("out", ctypes.c_void_p),
+        ("sd", ctypes.c_longlong * 3), ("sg", ctypes.c_longlong * 3),
+        ("si", ctypes.c_longlong * 3), ("so", ctypes.c_longlong * 3),
+        ("plane_in", ctypes.c_longlong), ("plane_out", ctypes.c_longlong),
+        ("n", ctypes.c_int * 3), ("radius", ctypes.c_int), ("passes", ctypes.c_int),
+        ("group", ctypes.c_int), ("form", ctypes.c_int),
+        ("quotient", ctypes.c_int), ("divisor", ctypes.c_float),
+    ]
+
+
+@functools.lru_cache(maxsize=None)
+def _box_library() -> ctypes.CDLL:
+    from ...utils import kernels
+
+    lib = kernels.load("box_filter", ["box_filter.cu"], {})
+    lib.bf_error_string.argtypes = [ctypes.c_int]
+    lib.bf_error_string.restype = ctypes.c_char_p
+    for name in ("bf_box_strided", "bf_box_rows"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(_BoxArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _box_args(step: BoxStep, passes: int, data, flags, planes, out):
+    """The kernel and its :class:`_BoxArgs` for `step` of the filter of (B, T, F) `data`.
+
+    `planes` holds the two planes between the steps (None for one step),
+    `out` the quotient.
+    """
+    src = data if step.forms_weights else planes[0]
+    dst = out if step.writes_quotient else planes[0]
+    shape = tuple(out.shape)
+    kernel, order = box_kernel_axes(shape, src.stride(), step.axis)
+
+    def strides(t):
+        return (ctypes.c_longlong * 3)(*(t.stride(a) for a in order))
+
+    return kernel, _BoxArgs(
+        data=data.data_ptr(), flags=flags.data_ptr(),
+        planes_in=0 if step.forms_weights else planes.data_ptr(), out=dst.data_ptr(),
+        sd=strides(data), sg=strides(flags), si=strides(src), so=strides(dst),
+        plane_in=out.numel(), plane_out=out.numel(),
+        n=(ctypes.c_int * 3)(*(shape[a] for a in order)),
+        radius=step.radius, passes=passes, group=step.group, form=int(step.forms_weights), quotient=int(step.writes_quotient),
+        divisor=step.divisor,
+    )
+
+
+def masked_gaussian_filter_cuda(data, flags, sigma, passes: int = 4):
+    """:func:`masked_gaussian_filter` of a CUDA tensor by the box-filter kernels.
+
+    `data` float32 and `flags` bool or uint8 of its shape, on one card, of
+    1 to 3 axes, any strides; a third axis from the end (the baselines)
+    takes sigma 0.  One launch per axis of non-zero radius
+    (:func:`box_filter_plan`), by the data's layout
+    (:func:`box_kernel_axes`).  The planes between the axes take the
+    data's layout; the result is contiguous, as the plain version's is
+    (the flagger's later steps run faster on it: on an H100 a calibrator
+    scan's batch took 0.313 s against 0.341 s with the result in the
+    data's layout).
+    """
+    if not (isinstance(data, torch.Tensor) and isinstance(flags, torch.Tensor)):
+        raise TypeError("data and flags must be tensors")
+    if data.dtype != torch.float32 or flags.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"the box-filter kernels take float32 data and bool or uint8 flags; "
+                        f"got {data.dtype} and {flags.dtype}")
+    if data.device.type != "cuda" or flags.device != data.device:
+        raise ValueError(f"the box-filter kernels take data and flags on one card; got "
+                         f"{data.device} and {flags.device}")
+    if flags.shape != data.shape or not 1 <= data.ndim <= 3:
+        raise ValueError(f"data and flags must share a shape of 1 to 3 axes; got "
+                         f"{tuple(data.shape)} and {tuple(flags.shape)}")
+    sigma = np.asarray(sigma, np.float64)
+    if sigma.shape != (data.ndim,):
+        raise ValueError("sigma has wrong number of elements")
+    if passes < 1:
+        raise ValueError("the box-filter kernels run at least one pass")
+    if max(data.shape, default=0) >= 2 ** 31:
+        raise ValueError(f"the box-filter kernels take axes below 2**31; got {tuple(data.shape)}")
+    lead = (None,) * (3 - data.ndim)
+    data3, flags3 = data[lead], flags[lead]
+    steps = box_filter_plan(data3.shape, np.concatenate([np.zeros(len(lead)), sigma]), passes)
+    out = torch.empty(data3.shape, dtype=data.dtype, device=data.device)
+    box_filters["kernel"] += 1
+    if out.numel() == 0:
+        return out.reshape(data.shape)
+    planes = None
+    if len(steps) > 1:  # two planes in the data's layout (dense where the data is)
+        strides = torch.empty_like(data3).stride()
+        planes = torch.empty_strided((2,) + tuple(out.shape), (out.numel(),) + strides,
+                                     dtype=out.dtype, device=out.device)
+    with torch.cuda.device(data.device):
+        lib = _box_library()
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        for step in steps:
+            kernel, args = _box_args(step, passes, data3, flags3, planes, out)
+            err = getattr(lib, f"bf_{kernel}")(ctypes.byref(args), stream)
+            if err != 0:
+                raise RuntimeError(f"{kernel} launch failed: cudaError {err} "
+                                   f"({lib.bf_error_string(err).decode()})")
+            launches[kernel] += 1
+    return out.reshape(data.shape)
 
 
 def _get_background2d(data, flags, iterations: int, spike_width, reject_threshold,
