@@ -10,15 +10,14 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: builds the kernel libraries with one ``nvcc`` each, all
-   started together (with K1's measurement build of
-   ``scripts/k1_ab.py``), and prints the build time and nvcc's register
+   started together, and prints the build time and nvcc's register
    report; K1's ``flagger_kernel`` and its wide-row path
    (``flagger_wide_kernel``, with K2's ``madnz_threshold_wide_kernel``) at
    width 13 and at each of :data:`WIDE_WIDTHS`, K2's
    ``madnz_threshold_kernel``, every instance of K4's
    ``percentile5_radix_kernel``, every K9, K11, K13 and ``channel_major``
-   instance of ``flagger_probe.cu``'s ``probe_kernel``, each build of K12
-   (clusters of 1, 2, 4 and 8 rows, baseline-major, its earlier design),
+   instance of ``flagger_probe.cu``'s ``probe_kernel``, each instance of
+   K12 (clusters of 1, 2, 4 and 8 rows, baseline-major),
    K10's ``skeleton_kernel`` and every instance of K8 at K1's launch
    (``k1_prim_kernel``) must spill no bytes, and the SASS local loads and
    stores of each are counted (``cuobjdump -sass``), with the SASS
@@ -29,8 +28,7 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
    its channel limit), each with n_windows 4 and 6, flag_value 1 and 3,
    rows holding NaN; K2, which now has K1's layout, on the same
    deviations at every one of those shapes, and on deviations K1 never
-   makes (NaN, +-inf, -0, denormals, all-zero rows) at the same shapes,
-   also against K2's strided design where its layout holds the row; K1 in
+   makes (NaN, +-inf, -0, denormals, all-zero rows) at the same shapes; K1 in
    every flag mode and K2 on the wide-row path at the limit + 1, 65536,
    65537 and 131072 channels; K1 at the widths :data:`WIDE_WIDTHS`, on
    both sides of the switch from a network over registers to counted
@@ -42,79 +40,65 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
 5. the main path at full size: the MeerKAT 4-pol dump (32768 channels x
    2016 baselines x 4 pols = 8064 rows, channel-major planar float32)
    through ``flag_dump(vis.transpose(0, 1))``, the bench's call (K5's
-   corner turn, then K1), the plain version, K1 in the strided layout
-   (probe ``strided_full``), ``flag_transposed_dma`` on the view and on a
+   corner turn, then K1), the plain version, ``flag_transposed_dma`` on
+   the view and on a
    (2, rows, channels) copy (``layout="leading"``), and the hybrid engine
    (K2) on its general and its fast background (``background_fast=True``),
    which must agree flag for flag, with one K1 launch per call; then
-   CUDA-event timings, both hybrid paths among them, and ``scripts/k2_ab``: K2 against its
-   strided design on the dump's deviations, 5 interleaved rounds of 3
-   calls, with each one's median and spread;
+   CUDA-event timings, both hybrid paths among them;
 6. the ops path: K4 (percentile5) and K5 (transpose) against their plain
    versions, exact, at every size below, K4 also on rows of NaN, +-inf,
    -0, negatives, denormals and equal values, at rows below and above the
    SM count, at the edges of its register, shared-memory and
-   device-memory paths and on column-range views, with its measurement
-   builds and the original design held to the same plain version; the plain ops (Fill, MaskedSum,
+   device-memory paths and on column-range views; the plain ops (Fill, MaskedSum,
    HReduce) against numpy float64 at bench configs 2 and 3; a forced
    tuner search for each autotuned template; both Operation call styles;
    then configs 2 and 3 and the 4000 x 5000 percentile run through the
-   templates with the launch counts read, and CUDA-event timings; then
-   ``scripts/k4_ab``: K4 against its measurement builds, the original design and
-   ``torch.quantile`` at 4000 x 5000 and 64 x 4096, 5 interleaved rounds
-   of 3 calls, host-paced and device-paced, and K4's bound at both shapes;
+   templates with the launch counts read, and CUDA-event timings, K4's
+   beside ``torch.quantile`` at 4000 x 5000 and 64 x 4096, and K4's bound
+   at both shapes;
 7. ``FlaggerDevice`` (median background, transposed MAD noise,
    SumThreshold as an ``OperationSequence``) over the whole dump as
    complex64, whose flags must equal K1's on the same rows;
 8. K1's stage probes (``csrc/flagger_probe.cu``): each variant's launch
    configuration as the libraries report it, K9's, K11's and K13's equal
    to K1's (the run layout: 1024 threads, K1's shared memory, one CTA per
-   SM), and K12's too, with the clusters of each of its builds that fit
-   the card; ``strided_full``'s and K12's earlier design's equal to K2's
-   strided design's; every variant against its plain version, exact, at
+   SM), and K12's too, with the clusters of each of its instances that fit
+   the card; every variant against its plain version, exact, at
    several shapes and on 512 rows of the dump; on the whole dump,
    ``full``, ``rank_pair``, ``zeros_fold``, ``radix_select``,
    ``shfl_median``, ``window_median``, ``channel_major`` (reading the
-   channel-major dump in place) and ``strided_full`` against K1, every
-   ``stage_ablate`` variant against its plain version, and ``amp_pairs`` in
-   both layouts and every build, and its earlier design, against the plain
-   amplitude; then the profiling path, the four probe tools' ``run`` on the
-   whole dump with the launch counts read, which prints the stage costs,
-   each K9 variant less ``full`` against both spreads and, from
-   ``deinterleave_probe``, K12's builds, K5, K1, K5 + K1 and
+   channel-major dump in place) against K1, every ``stage_ablate`` variant
+   against its plain version, and ``amp_pairs`` in both layouts and at
+   every cluster against the plain amplitude; then the profiling path,
+   the four probe tools' ``run`` on the whole dump with the launch counts
+   read, which prints the stage costs, each K9 variant less ``full``
+   against both spreads and, from ``deinterleave_probe``, K12 at each
+   cluster, K5, K1, K5 + K1 and
    ``channel_major`` interleaved, with ``channel_major`` less K5 + K1
-   against both spreads; K1's measurement
-   build against its plain version and K1; ``scripts/k1_ab``: K1 against
-   ``strided_full``, the K5 + K1 call, the build and K11's ``full`` and
-   stand-ins, 5 interleaved rounds of 3 calls, with each one's median and
-   spread and the run layout's stage costs; and the plain versions' times;
+   against both spreads; and the plain versions' times;
 9. the examples and the cost probes: the tutorial kernels K6 (Triton) and
    K7 (``csrc/examples.cu``) against ``x * 3`` and ``data * scale``,
    exact, at the examples' sizes, at their tiles' edges and at 2**28
    float32; the examples' entry point (every example's ``main`` on the
-   card) with the launch counts read; ``scripts/examples_ab``: K7 and K6
-   against their other designs, PyTorch's calls and ``copy_``, 5
-   interleaved rounds at 2**28 and 5 at 2**24, host-paced (the record)
-   and device-paced; K8 (``csrc/prim_cost.cu``) at both of its launches
-   against its plain chains (the strided launch on (256, 1024); K1's
-   launch on (132, 32768), (137, 32768) and (7, 4160)), and K10
+   card) with the launch counts read; K7 and K6 against their plain
+   versions and PyTorch's calls, 5 interleaved rounds at 2**28,
+   host-paced; K8 (``csrc/prim_cost.cu``) at K1's launch against its
+   plain chains on (132, 32768), (137, 32768) and (7, 4160), and K10
    (``csrc/roofline_skeleton.cu``) against its plain version on its uint8
    output and its rank carry, at several shapes and on 512 rows and the
-   whole of the dump; the cost-probe path (K8's per-op tables at both
-   launches, then K10 and K11's ``full``, ``no_median``, ``no_rank``,
-   ``no_thresh`` and ``skeleton`` on the whole dump in the same rounds,
-   beside the model of ``models/rfi/roofline.py`` priced by the shipped
-   table, by K8 at K1's launch and by K8 at the strided launch, stage by
-   stage against K11's stage costs) with the launch counts read; K8's add
-   chain at K1's launch on (264, 32768) (the record) and at the strided
-   launch on (256, 1024), device-paced; the strided add chain on (264,
-   1024), two full waves of one CTA per SM, which gives the float32
-   instruction rate beside :data:`F32_OPS_PER_S`; then the
+   whole of the dump; the cost-probe path (K8's per-op table, then K10
+   and K11's ``full``, ``no_median``, ``no_rank``, ``no_thresh`` and
+   ``skeleton`` on the whole dump in the same rounds, beside the model of
+   ``models/rfi/roofline.py`` priced by the shipped table and by K8, stage
+   by stage against K11's stage costs) with the launch counts read; K8's
+   add chain on (264, 32768), two full waves of one CTA per SM,
+   device-paced (the record), which gives the float32 instruction rate
+   beside :data:`F32_OPS_PER_S`; then the
    streaming ingest example at the full dump (5 dumps through one device
    slot and K1), each dump's flags equal to ``flag_dump``'s on the card,
-   with the upload, flag and pipeline times.  K10 and K8 at K1's launch
-   are held to K1's launch (the run layout), K8's strided launch to the
-   strided layout's;
+   with the upload, flag and pipeline times.  K10 and K8 are held to K1's
+   launch (the run layout);
 10. the 2-D and FFT paths and ``FusedFlaggerTemplate``: the 2-D path is
    plain PyTorch as XLA computes it in JAX, but for its masked Gaussian
    filter, which on the card is the box-filter kernels
@@ -377,7 +361,7 @@ def ptxas_report(log: str) -> dict:
 
 def kernel_label(mangled: str) -> str:
     """K2's or K4's kernel name and template arguments from its mangled name in nvcc's report."""
-    m = re.search(r"(percentile5_[a-z0-9]+_kernel|madnz_threshold(?:_strided)?_kernel)"
+    m = re.search(r"(percentile5_radix_kernel|madnz_threshold_kernel)"
                   r"(?:I((?:L[ib]n?\d+E)+)E)?", mangled)
     if not m:
         return mangled
@@ -387,7 +371,7 @@ def kernel_label(mangled: str) -> str:
 
 def phase_build(ff, pct, tr, fp, kernels) -> None:
     from katsdpsigproc_tpu_torch.examples import triple, triple_pallas
-    from katsdpsigproc_tpu_torch.scripts import examples_ab, k1_ab, prim_cost, roofline_skeleton
+    from katsdpsigproc_tpu_torch.scripts import prim_cost, roofline_skeleton
 
     def triton_kernel():
         """Triton compiles K6 at its first launch (into build/, TRITON_CACHE_DIR)."""
@@ -403,8 +387,6 @@ def phase_build(ff, pct, tr, fp, kernels) -> None:
                   *(pool.submit(ff._library, w) for w in WIDE_WIDTHS),
                   pool.submit(triple._library), pool.submit(prim_cost._library),
                   pool.submit(roofline_skeleton._library, 13)]
-        builds += [pool.submit(k1_ab._library, name) for name in k1_ab.BUILDS]
-        builds += [pool.submit(examples_ab._library, name) for name in examples_ab.BUILDS]
         triton_s = pool.submit(triton_kernel)
         for b in builds:
             b.result()
@@ -459,9 +441,9 @@ def phase_build(ff, pct, tr, fp, kernels) -> None:
         raise AssertionError("the run layout's widest in-place median is not "
                              "ff.IN_PLACE_MAX_WIDTH")
     # K9, K11, K13 and `channel_major`, K1 with one stage replaced at K1's
-    # launch bounds, K10 on K1's run layout and K12 in each of its builds
-    # (clusters of 1, 2, 4 and 8 rows) and its earlier design: no spills,
-    # and their SASS's local loads and stores beside K1's.
+    # launch bounds, K10 on K1's run layout and K12 at each cluster (1, 2, 4
+    # and 8 rows): no spills, and their SASS's local loads and stores beside
+    # K1's.
     fp_key = kernels.build_key("flagger_probe", ["flagger_probe.cu"],
                                {"ff_network.h": ff._network_header(13)})
     rs_key = kernels.build_key("roofline_skeleton", ["roofline_skeleton.cu"],
@@ -478,9 +460,6 @@ def phase_build(ff, pct, tr, fp, kernels) -> None:
         m = re.search(r"amp_pairs_kernelILi(\d)ELb([01])E", mangled)
         if m:
             return f"amp_pairs<{m.group(1)}, {layout[m.group(2)]}>"
-        m = re.search(r"amp_pairs_strided_kernelILb([01])E", mangled)
-        if m:
-            return f"amp_pairs_strided<{layout[m.group(1)]}>"
         return "skeleton_kernel" if "skeleton_kernel" in mangled else None
 
     reports, local = {}, {}
@@ -496,11 +475,9 @@ def phase_build(ff, pct, tr, fp, kernels) -> None:
     probe_id = {v: kid for kid, probe in (("K11", "stage_ablate"), ("K13", "rankpair"),
                                           ("K9", "rollchain"), ("K12", "deinterleave"))
                 for v in fp.PROBES[probe]}
-    k12 = ([f"amp_pairs<{g}, channel-major>" for g in fp.CLUSTERS]
-           + ["amp_pairs<1, baseline-major>", "amp_pairs_strided<channel-major>",
-              "amp_pairs_strided<baseline-major>"])
+    k12 = [f"amp_pairs<{g}, channel-major>" for g in fp.CLUSTERS] + ["amp_pairs<1, baseline-major>"]
     inplace = tuple(f"{v}<{g}>" for v in fp.INPLACE for g in fp.CLUSTERS)
-    checked = (tuple(v for v in fp.RUN_LAYOUT if v not in fp.INPLACE) + inplace + fp.MEASUREMENT
+    checked = (tuple(v for v in fp.VARIANTS if v not in fp.INPLACE) + inplace
                + ("skeleton_kernel",) + tuple(k12))
     for v in checked:
         r = reports.get(v, {})
@@ -515,8 +492,7 @@ def phase_build(ff, pct, tr, fp, kernels) -> None:
             or any(reports[v]["spill_stores"] or reports[v]["spill_loads"] for v in checked)):
         raise AssertionError(f"a K9, K10, K11, K12 or K13 instance spills or is missing from "
                              f"the report: {reports}")
-    # K2 and K4 (and K2's strided design, K4's measurement builds and its
-    # original design, printed): no spills either.
+    # K2 and every instance of K4: no spills either.
     pct_key = kernels.build_key("percentile", ["percentile.cu"], {})
     report = {kernel_label(name): r for key in (k1_13, pct_key)
               for name, r in ptxas_report(kernels.build_info[key]["log"]).items()
@@ -536,7 +512,7 @@ def phase_build(ff, pct, tr, fp, kernels) -> None:
     # behind models/rfi/roofline.DEFAULT_PRIM_NS.
     pc_key = kernels.build_key("prim_cost", ["prim_cost.cu"],
                                {"ff_network.h": ff._network_header(13)})
-    k8_names = {spec[3]: name for name, spec in prim_cost.bodies("k1").items()}
+    k8_names = {spec[3]: name for name, spec in prim_cost.ALL_BODIES.items()}
     k8_names[0] = "empty"
 
     def k8_kernel(mangled: str):
@@ -572,19 +548,17 @@ def phase_build(ff, pct, tr, fp, kernels) -> None:
               + ", ".join(f"{op} {n:.2f}" for op, n in sorted(diff.items()) if abs(n) >= 0.01)
               + ")")
     print(f"  K1 and K2 take rows of up to {ff.max_channels()} channels on the run layout, "
-          f"longer ones on the wide-row path ({ff._library(13).ff_wide_ctas()} CTAs); the "
-          f"strided layout holds {ff._library(13).ff_strided_max_channels()}")
+          f"longer ones on the wide-row path ({ff._library(13).ff_wide_ctas()} CTAs)")
 
 
 def phase_kernels(ff, device, check: Check) -> None:
-    from katsdpsigproc_tpu_torch.scripts import k2_ab
+    from katsdpsigproc_tpu_torch.scripts import common
 
     print("kernels against their plain versions on the card:")
     # K1's run layout, which K2 now shares, gives each thread R = ceil(C /
     # 1024) channels: runs shorter than a window (C <= 4096), a last run
     # cut short (1025, 4097), runs of 32 (32768) and the channel limit.
     limit = ff.max_channels()
-    strided_limit = ff._library(13).ff_strided_max_channels()
     cases = [(1, 8), (13, 8), (99, 8), (128, 16), (257, 8), (300, 8), (384, 8), (1023, 8),
              (1024, 8), (1025, 8), (4097, 8), (32768, 64), (limit, 4)]
     for i, (channels, rows) in enumerate(cases):
@@ -609,16 +583,12 @@ def phase_kernels(ff, device, check: Check) -> None:
                 vis_t.transpose(0, 1), fl, 13, False, fmode).transpose(0, 1).contiguous()
             check.flags("madnz_threshold", label.replace("K1", "K2"),
                         ff.madnz_threshold(dev_t, **pkw), ff.madnz_threshold_plain(dev_t, **pkw))
-        # K2 on deviations K1 never makes, against the plain version and the
-        # strided design where its layout holds the row.
-        dev_t = torch.from_numpy(k2_ab.adversarial_deviations(8, channels, 400 + i)).cuda()
+        # K2 on deviations K1 never makes, against the plain version.
+        dev_t = torch.from_numpy(common.adversarial_deviations(8, channels, 400 + i)).cuda()
         for pkw in ({}, {"n_sigma": 5.0, "n_windows": 6, "flag_value": 3}):
             label = f"K2 C={channels} NaN, +-inf, -0, denormal, zero rows {pkw or ''}".rstrip()
-            got = ff.madnz_threshold(dev_t, **pkw)
-            check.flags("madnz_threshold", label, got, ff.madnz_threshold_plain(dev_t, **pkw))
-            if channels <= strided_limit:
-                check.flags("madnz_threshold", label + " vs the strided design", got,
-                            k2_ab.strided(dev_t, **pkw))
+            check.flags("madnz_threshold", label, ff.madnz_threshold(dev_t, **pkw),
+                        ff.madnz_threshold_plain(dev_t, **pkw))
     # NaN in a row: both the kernel and the plain fast path propagate it
     # through the selection network as jnp.minimum/maximum do.
     for channels in (300, 1025, 32768):
@@ -650,7 +620,7 @@ def phase_kernels(ff, device, check: Check) -> None:
         dev_t = device.background_median_filter(
             vis_t.transpose(0, 1), None, 13, False,
             device.BackgroundFlags.NONE).transpose(0, 1).contiguous()
-        adversarial = torch.from_numpy(k2_ab.adversarial_deviations(8, channels, 500)).cuda()
+        adversarial = torch.from_numpy(common.adversarial_deviations(8, channels, 500)).cuda()
         for label, d in (("deviations", dev_t), ("NaN, +-inf, -0, denormal, zero rows",
                                                  adversarial)):
             for pkw in ({}, {"n_sigma": 5.0, "n_windows": 6, "flag_value": 3}):
@@ -683,8 +653,7 @@ def phase_kernels(ff, device, check: Check) -> None:
 
 def phase_wide(ff, device, card: str, check: Check) -> dict:
     """K1 and K2 on the wide-row path over a dump of WIDE_CHANNELS x WIDE_ROWS."""
-    from katsdpsigproc_tpu_torch.scripts import k2_ab
-    from katsdpsigproc_tpu_torch.scripts.common import meerkat_dump
+    from katsdpsigproc_tpu_torch.scripts.common import deviations, meerkat_dump
     from katsdpsigproc_tpu_torch.utils.profiling import time_fn
 
     t0 = time.perf_counter()
@@ -692,7 +661,7 @@ def phase_wide(ff, device, card: str, check: Check) -> dict:
     print(f"the wide-row path on the seed-1 dump of {WIDE_CHANNELS} channels x {WIDE_ROWS} rows "
           f"({vis.numel() * 4 / 1e9:.2f} GB planar, made in {time.perf_counter() - t0:.1f} s):")
     vis_t = vis.transpose(0, 1).contiguous()
-    dev_t = k2_ab.deviations(vis, 504)
+    dev_t = deviations(vis, 504)
     del vis
     for name in ff.wide_launches:
         ff.wide_launches[name] = 0
@@ -753,8 +722,8 @@ def phase_oracle(ff, device, host, vis_np: np.ndarray, check: Check) -> None:
     check.flags("madnz_threshold", "hybrid (K2) vs host oracle", hybrid.cpu(), expected)
 
 
-def phase_main(ff, fp, tr, device, vis_np: np.ndarray, card: str, check: Check) -> dict:
-    from katsdpsigproc_tpu_torch.scripts import k2_ab
+def phase_main(ff, tr, device, vis_np: np.ndarray, card: str, check: Check) -> dict:
+    from katsdpsigproc_tpu_torch.scripts.common import deviations
     from katsdpsigproc_tpu_torch.utils.profiling import time_fn
 
     rows = vis_np.shape[1]
@@ -829,14 +798,11 @@ def phase_main(ff, fp, tr, device, vis_np: np.ndarray, card: str, check: Check) 
     del vis_4k_t, plain_4k, k1_4k
     check.flags("flagger", "full dump: K1 on the contiguous dump vs K5 + K1", ff.flag_dump(vis_t),
                 k1)
-    check.flags("flagger", "full dump: K1 vs probe strided_full (K1 in the strided layout)",
-                fp.probe(vis_t, "strided_full"), k1)
     check.flags("madnz_threshold", "full dump: hybrid (K2) vs K1", hybrid.T, k1)
     print(f"  flagged fraction {float(k1.float().mean()):.5f}")
 
-    # K2 against its plain version, K1 and its strided design on the full
-    # dump's deviations.
-    dev_t = k2_ab.deviations(vis, block)
+    # K2 against its plain version and K1 on the full dump's deviations.
+    dev_t = deviations(vis, block)
     k2 = ff.madnz_threshold(dev_t)
 
     def plain_k2():
@@ -847,8 +813,6 @@ def phase_main(ff, fp, tr, device, vis_np: np.ndarray, card: str, check: Check) 
 
     check.flags("madnz_threshold", "full dump: K2 vs plain", k2, plain_k2())
     check.flags("madnz_threshold", "full dump: K2 vs K1", k2, k1)
-    check.flags("madnz_threshold", "full dump: K2 vs its strided design", k2,
-                k2_ab.strided(dev_t))
     del plain, hybrid, k1, k2
 
     print(f"timings (CUDA events, 2 warm-ups, median of 10) on {card}:")
@@ -859,8 +823,6 @@ def phase_main(ff, fp, tr, device, vis_np: np.ndarray, card: str, check: Check) 
             lambda: ff.flag_dump(vis.transpose(0, 1))),
         "plain corner turn + K1 flag_dump": time_fn(
             lambda: ff.flag_dump(vis.transpose(0, 1).contiguous())),
-        "K1 in the strided layout (probe strided_full)": time_fn(
-            lambda: fp.probe(vis_t, "strided_full")),
         "K1 plain (flag_transposed_plain)": time_fn(plain_k1),
         "hybrid engine (plain background + K2)": time_fn(lambda: hybrid_fn(vis)),
         "hybrid engine, background_fast=True (fast plain background + K2)": time_fn(
@@ -873,13 +835,6 @@ def phase_main(ff, fp, tr, device, vis_np: np.ndarray, card: str, check: Check) 
     card_state("after them")
     for name, ms in times.items():
         print(f"  {name}: {ms:.3f} ms, {n_vis / ms / 1e6:.3f} Gvis/s [{card}]")
-    print(f"K2 (run layout) against its strided design, interleaved, 5 rounds of 3 calls, "
-          f"on {card}:")
-    k2_ab.launches["strided"] = 0
-    k2_ab.run(dev_t, iters=3, reps=5, card=card)
-    torch.cuda.synchronize()
-    if k2_ab.launches["strided"] < 1:
-        raise AssertionError("K2's strided design was not launched")
     # K1 reads 8 B and writes 1 B per visibility and does the op inventory's
     # work; K2 reads 4 B of deviations, writes 1 B and does its back half.
     return {
@@ -905,7 +860,7 @@ def plain_ops_check(label: str, got, want: np.ndarray, rtol: float, atol: float)
 def phase_ops(pct, tr, vis_np: np.ndarray, card: str, check: Check) -> dict:
     from katsdpsigproc_tpu_torch.models.rfi import device
     from katsdpsigproc_tpu_torch.ops import fill, maskedsum, reduce as hreduce, wgreduce
-    from katsdpsigproc_tpu_torch.scripts import k4_ab
+    from katsdpsigproc_tpu_torch.scripts import common
     from katsdpsigproc_tpu_torch.utils import backend, tune
     from katsdpsigproc_tpu_torch.utils.profiling import time_fn
 
@@ -915,8 +870,7 @@ def phase_ops(pct, tr, vis_np: np.ndarray, card: str, check: Check) -> dict:
     dev = ctx.device
     print(f"ops path on {ctx.device} ({ctx.device_kind}):")
 
-    # K4, its measurement builds and the original design against the plain
-    # version, bit for bit.
+    # K4 against its plain version, bit for bit.
     shared_cols = pct.max_shared_columns()
     print(f"  K4 holds rows of up to {shared_cols} columns' keys in shared memory")
     rs = np.random.RandomState(seed=1)
@@ -942,15 +896,13 @@ def phase_ops(pct, tr, vis_np: np.ndarray, card: str, check: Check) -> dict:
     for i, (rows, n) in enumerate([(20, 1), (20, 2), (20, 3), (20, 7), (20, 4096), (200, 5000),
                                    (200, 8192), (200, 8193), (20, 16384), (20, 16385),
                                    (4, shared_cols), (4, shared_cols + 1)]):
-        x = torch.from_numpy(k4_ab.adversarial_rows(rows, n, seed=500 + i)).to(dev)
+        x = torch.from_numpy(common.adversarial_rows(rows, n, seed=500 + i)).to(dev)
         cases.append((f"{rows}x{n} NaN, +-inf, -0, negative, denormal, equal rows", x))
     for label, x in cases:
         threads, per = pct.launch_shape(*x.shape)
         want = pct.percentile5_plain(x)
         check.exact("percentile5", f"K4 {label} ({threads} threads, {per} slots)",
                     pct.percentile5_cuda(x), want)
-        for name in k4_ab.BUILDS:
-            check.exact("percentile5", f"  build {name}", k4_ab.build(x, name), want)
     expected = np.r_[[big_np.min(axis=1), big_np.max(axis=1)],
                      np.percentile(big_np, [25, 75, 50], axis=1, method="lower")].astype(np.float32)
     got = pct.percentile5_cuda(big).cpu().numpy()
@@ -1097,10 +1049,10 @@ def phase_ops(pct, tr, vis_np: np.ndarray, card: str, check: Check) -> dict:
     library = {
         "percentile5": library_time(
             "torch.quantile(x, [0, .25, .5, .75, 1], dim=1, interpolation='lower') 4000x5000",
-            lambda: k4_ab.quantile(big)),
+            lambda: common.quantile(big)),
         "percentile5 64x4096": library_time(
             "torch.quantile(x, [0, .25, .5, .75, 1], dim=1, interpolation='lower') 64x4096",
-            lambda: k4_ab.quantile(cfg2)),
+            lambda: common.quantile(cfg2)),
         "transpose": library_time("corner.transpose(0, 1).contiguous() 32768x8064x2",
                                   lambda: corner.transpose(0, 1).contiguous()),
     }
@@ -1109,14 +1061,6 @@ def phase_ops(pct, tr, vis_np: np.ndarray, card: str, check: Check) -> dict:
     corner_bytes = 2 * corner.numel() * corner.element_size()
     print(f"  K5 corner turn: {corner_bytes / times['K5 transpose 32768x8064x2'] / 1e6:.1f} GB/s "
           f"of {corner_bytes / 1e9:.2f} GB moved [{card}]")
-    print(f"K4 against its measurement builds, the original design and torch.quantile, interleaved, "
-          f"5 rounds of 3 calls, on {card}:")
-    for name in k4_ab.launches:
-        k4_ab.launches[name] = 0
-    k4_ab.run([("4000x5000", big), ("64x4096", cfg2)], iters=3, reps=5, card=card)
-    torch.cuda.synchronize()
-    if min(k4_ab.launches.values()) < 1:
-        raise AssertionError(f"a design of K4's A/B was not launched: {k4_ab.launches}")
     # K4 reads each element once and writes 5 floats a row.  Its radix
     # select does 14 operations an element (min, max, the key's compare and
     # select, the first pass's count, a prefix compare per target in each
@@ -1173,37 +1117,26 @@ def phase_flagger_device(ff, vis_np: np.ndarray, card: str, check: Check) -> Non
 
 
 def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) -> dict:
-    from katsdpsigproc_tpu_torch.scripts import (deinterleave_probe, k1_ab, rankpair_ab,
-                                                 rollchain_ab, stage_ablate)
+    from katsdpsigproc_tpu_torch.scripts import (deinterleave_probe, rankpair_ab, rollchain_ab,
+                                                 stage_ablate)
     from katsdpsigproc_tpu_torch.utils.profiling import time_fn
 
     probe_of = {v: name for name, variants in fp.PROBES.items() for v in variants}
-    probe_of.update({v: "rankpair" for v in fp.MEASUREMENT})
-    # K1 in the strided layout, the old K11 `full`
-    probe_of.update({v: "stage_ablate" for v in fp.STRIDED})
     channels, rows = vis_np.shape
     print("K1's stage probes (csrc/flagger_probe.cu):")
 
     # K9, K11, K13, `channel_major` and K12 launch as K1 does (the run
-    # layout), strided_full and K12's earlier design as K2's strided design
-    # does, as the libraries report it: 1024 threads, the layout's dynamic
+    # layout), as the libraries report it: 1024 threads, K1's dynamic
     # shared memory, one CTA per SM.
     k1_cfg = ff.launch_config(channels)
-    k2_cfg = ff.strided_launch_config(channels)
-    layouts = [("K1 (run layout)", k1_cfg,
-                ("K1",) + fp.RUN_LAYOUT + fp.MEASUREMENT + ("amp_pairs",)),
-               ("K2's strided design (strided layout)", k2_cfg,
-                ("K2",) + fp.STRIDED + ("amp_pairs_strided",))]
-    for layout, want, variants in layouts:
-        for v in variants:
-            cfg = want if v in ("K1", "K2") else fp.launch_config(v, channels)
-            print(f"  launch {v} at {channels} channels: {cfg['threads']} threads, "
-                  f"{cfg['smem_bytes']} B dynamic shared memory, {cfg['ctas_per_sm']} CTA per SM")
-            if cfg != want:
-                raise AssertionError(f"{v} does not launch as {layout} does ({want}): {cfg}")
-    for label, cfg in (("K1", k1_cfg), ("K2", k2_cfg)):
-        if cfg["threads"] != 1024 or cfg["ctas_per_sm"] != 1:
-            raise AssertionError(f"{label} no longer launches 1024 threads, one CTA per SM: {cfg}")
+    for v in ("K1",) + fp.VARIANTS + ("amp_pairs",):
+        cfg = k1_cfg if v == "K1" else fp.launch_config(v, channels)
+        print(f"  launch {v} at {channels} channels: {cfg['threads']} threads, "
+              f"{cfg['smem_bytes']} B dynamic shared memory, {cfg['ctas_per_sm']} CTA per SM")
+        if cfg != k1_cfg:
+            raise AssertionError(f"{v} does not launch as K1 does ({k1_cfg}): {cfg}")
+    if k1_cfg["threads"] != 1024 or k1_cfg["ctas_per_sm"] != 1:
+        raise AssertionError(f"K1 no longer launches 1024 threads, one CTA per SM: {k1_cfg}")
     # K12's channel-major read in clusters of rows, at K1's CTA: the
     # clusters that fit the card at once (132 SMs in GPCs of up to 18).
     for g in fp.CLUSTERS:
@@ -1222,12 +1155,9 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
     cases.append(("seed-1 dump, 512 rows", device.to_planar(vis_np[:, :512].T)))
     for label, planar in cases:
         vis_t = torch.from_numpy(planar.copy()).cuda()  # (rows, C, 2)
-        for v in fp.VARIANTS + fp.MEASUREMENT:
+        for v in fp.VARIANTS:
             check.flags(probe_of[v], f"{v} vs plain, {label}", fp.probe(vis_t, v),
                         fp.probe_plain(vis_t, v))
-        for name in k1_ab.BUILDS:
-            check.flags("flagger", f"K1 build {name} vs plain, {label}", k1_ab.build(vis_t, name),
-                        k1_ab.build_plain(vis_t, name))
         vis_c = vis_t.transpose(0, 1).contiguous()
         want = fp.amp_pairs_plain(vis_t)
         check.exact("deinterleave", f"amp_pairs baseline-major vs plain, {label}",
@@ -1235,10 +1165,6 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
         for g in fp.CLUSTERS:
             check.exact("deinterleave", f"amp_pairs channel-major, clusters of {g}, vs plain, "
                         f"{label}", fp.amp_pairs(vis_c, channel_major=True, cluster=g), want)
-        check.exact("deinterleave", f"amp_pairs_strided, both layouts, vs plain, {label}",
-                    torch.stack([fp.amp_pairs_strided(vis_t),
-                                 fp.amp_pairs_strided(vis_c, channel_major=True)]),
-                    torch.stack([want, want]))
 
     # The whole dump: the bit-exact variants against K1, every stage_ablate
     # variant and radix_select against its plain version, K12 against the
@@ -1264,8 +1190,6 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
     for g in fp.CLUSTERS:  # reading the channel-major dump in place
         check.flags("deinterleave", f"full dump: channel_major, clusters of {g}, vs K1",
                     fp.probe(vis.transpose(0, 1), "channel_major", cluster=g), k1)
-    check.flags("flagger", "full dump: K1 build select_minmax vs K1",
-                k1_ab.build(vis_t, "select_minmax"), k1)
     del k1
     for v, plain_fn in plain_fns.items():
         check.flags(probe_of[v], f"full dump: {v} vs plain", fp.probe(vis_t, v), plain_fn())
@@ -1275,8 +1199,6 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
     for g in fp.CLUSTERS:
         check.exact("deinterleave", f"full dump: amp_pairs channel-major, clusters of {g}, vs "
                     f"plain", fp.amp_pairs(vis, channel_major=True, cluster=g), amp)
-    check.exact("deinterleave", "full dump: amp_pairs_strided channel-major vs plain",
-                fp.amp_pairs_strided(vis, channel_major=True), amp)
     del amp
     # The library's call for K12's function on the channel-major dump: two
     # calls, the norm over the pair and the turn to rows.
@@ -1295,16 +1217,8 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
     rank_ms, _ = rankpair_ab.run(vis_t, iters=3, reps=5, card=card)
     roll_ms = rollchain_ab.run(vis_t, iters=3, reps=5, card=card)
     dein_ms = deinterleave_probe.run(vis, iters=3, reps=5, card=card)
-    print(f"K1 (run layout) against K1 in the strided layout, its measurement build and K11, "
-          f"interleaved, 5 rounds of 3 calls, on {card}:")
-    for name in k1_ab.launches:
-        k1_ab.launches[name] = 0
-    k1_out, _ = k1_ab.run(vis_t, vis, iters=3, reps=5, card=card)
     torch.cuda.synchronize()
     card_state("after the probe tools")
-    print(f"  launches of K1's measurement builds: {dict(k1_ab.launches)}")
-    if min(k1_ab.launches.values()) < 1:
-        raise AssertionError("a measurement build of K1 was not launched")
     counts = {name: sum(fp.launches[v] for v in variants) for name, variants in fp.PROBES.items()}
     print(f"  launches during the profiling path: {dict(fp.launches)}; K12's channel-major "
           f"launches per cluster: {dict(fp.cluster_launches)}")
@@ -1320,7 +1234,7 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
     best = min(fp.CLUSTERS, key=lambda g: dein_ms[f"K12 g{g}"][0])
     inplace = min(fp.CLUSTERS, key=lambda g: dein_ms[f"channel_major g{g}"][0])
     kernel = {**stage_ms, **{v: rank_ms[v] for v in fp.RANK_SEARCHES},
-              **{v: roll_ms[v] for v in fp.MEDIANS}, "strided_full": k1_out["strided_full"][0],
+              **{v: roll_ms[v] for v in fp.MEDIANS},
               f"channel_major, clusters of {inplace}": dein_ms[f"channel_major g{inplace}"][0],
               "amp_pairs": dein_ms["K12 baseline-major"][0],
               "amp_pairs channel-major": dein_ms[f"K12 g{best}"][0]}
@@ -1331,7 +1245,7 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
     print(f"  stage costs (full less the stand-in): "
           + ", ".join(f"{k} {ms:.3f} ms" for k, ms in stages.items())
           + f"; skeleton {stage_ms['skeleton']:.3f} ms against the 0.71 ms traffic floor [{card}]")
-    for v in fp.RANK_SEARCHES + fp.MEASUREMENT:
+    for v in fp.RANK_SEARCHES:
         print(f"  {v} - full: {rank_ms[v] - rank_ms['binary']:+.3f} ms [{card}]")
     for v in fp.MEDIANS:
         print(f"  {v} - full: {roll_ms[v] - roll_ms['full']:+.3f} ms [{card}]")
@@ -1357,7 +1271,8 @@ def phase_probes(fp, ff, device, vis_np: np.ndarray, card: str, check: Check) ->
 def phase_examples(card: str, check: Check) -> dict:
     from katsdpsigproc_tpu_torch.examples import (fill_reduce, hello_device, triple, triple_fn,
                                                   triple_op, triple_pallas)
-    from katsdpsigproc_tpu_torch.scripts import examples_ab
+    from katsdpsigproc_tpu_torch.scripts.common import report
+    from katsdpsigproc_tpu_torch.utils.profiling import time_interleaved
 
     dev = torch.device("cuda", 0)
     print("the tutorial kernels K6 (Triton) and K7 (CUDA C++) against x * 3 and data * scale:")
@@ -1408,40 +1323,46 @@ def phase_examples(card: str, check: Check) -> dict:
         if count < 1:
             raise AssertionError(f"kernel {name} was not launched by the examples")
 
-    # K7 and K6 against their other designs, PyTorch's calls and copy_, timed
-    # host-paced as every other kernel here is (the record) and device-paced.
-    ab = examples_ab.run(big, iters=3, reps=5, card=card)["host-paced"]
+    # K7 and K6 against their plain versions and PyTorch's calls, at 2**28,
+    # host-paced as every other kernel here is timed.
+    fns = {"k7": lambda: triple.multiply(big, 0.1),
+           "k7 plain": lambda: triple.multiply_plain(big, 0.1),
+           "data * scale": lambda: big * 0.1,
+           "k6": lambda: triple_pallas.triple(big),
+           "k6 plain": lambda: triple_pallas.triple_plain(big),
+           "x * 3": lambda: big * 3}
     nbytes = 2 * n * 4
+    print(f"K7 and K6 at n = {n} float32 ({nbytes / 1e9:.2f} GB moved a call), 5 interleaved "
+          f"rounds of 3 calls, on {card}:")
+    med, samples = time_interleaved(fns, reps=5, iters=3)
+    for name in fns:
+        report(name, med[name], samples[name], card)
     return {
-        "triple": record(launches["triple"], ab["k6"][0], ab["k6 plain"][0], nbytes, n,
-                         ab["x * 3"][0]),
-        "multiply": record(launches["multiply"], ab["k7"][0], ab["k7 plain"][0], nbytes, n,
-                           ab["data * scale"][0]),
+        "triple": record(launches["triple"], med["k6"], med["k6 plain"], nbytes, n,
+                         med["x * 3"]),
+        "multiply": record(launches["multiply"], med["k7"], med["k7 plain"], nbytes, n,
+                           med["data * scale"]),
     }
 
 
-def instruction_rate(prim_cost, dev, card: str, steps: int = 512, unroll: int = 16) -> float:
+def instruction_rate(prim_cost, dev, card: str, block_ms: float, steps: int = 512,
+                     unroll: int = 16) -> float:
     """The float32 instruction rate the card reaches, behind every operation bound.
 
-    K8's add chain at the strided launch (``fminf`` and ``__fadd_rn``, two
-    instructions a rep) on 264 rows of 1024, enough for whole waves of CTAs,
-    device-paced: the rate the bounds have taken from it, so they do not
-    move silently.  Phase 9 prints the rate of the chain at K1's launch beside it.
+    K8's add chain at K1's launch (``fminf`` and ``__fadd_rn``, two
+    instructions a rep) on its default block of 264 rows of 32768, two
+    whole waves of one CTA per SM, device-paced in `block_ms`: the rate the
+    bounds are held to, so that they do not move silently.
     """
-    from katsdpsigproc_tpu_torch.utils.profiling import time_queued
-
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    cfg = prim_cost.launch_config("add", launch="strided")
-    wave = prim_cost.block(264, 1024, dev)
-    wave_ms = time_queued({"add": lambda: prim_cost.chain(wave, "add", steps, unroll,
-                                                          "strided")},
-                          reps=5, iters=3)[0]["add"]
-    rate = wave.numel() * 2 * steps * unroll / (wave_ms / 1e3)
-    waves = 264 / (sms * cfg["ctas_per_sm"])
-    print(f"float32 instruction rate: K8 add chain on (264, 1024), {waves:g} waves of "
-          f"{cfg['ctas_per_sm']} CTA per SM on {sms} SMs, device-paced: {wave_ms:.4f} ms, "
-          f"{rate:.4e} instructions/s against the bounds' {F32_OPS_PER_S:.4e} "
-          f"({rate / F32_OPS_PER_S:.3f}) [{card}]")
+    cfg = prim_cost.launch_config("add")
+    rows = prim_cost.K1_ROWS
+    rate = rows * prim_cost.K1_CHANNELS * 2 * steps * unroll / (block_ms / 1e3)
+    waves = rows / (sms * cfg["ctas_per_sm"])
+    print(f"float32 instruction rate: K8 add chain at K1's launch on ({rows}, "
+          f"{prim_cost.K1_CHANNELS}), {waves:g} waves of {cfg['ctas_per_sm']} CTA per SM on "
+          f"{sms} SMs, device-paced: {block_ms:.4f} ms, {rate:.4e} instructions/s against the "
+          f"bounds' {F32_OPS_PER_S:.4e} ({rate / F32_OPS_PER_S:.3f}) [{card}]")
     card_state("after the instruction-rate chain")
     return rate
 
@@ -1453,33 +1374,25 @@ def phase_cost_probes(ff, device, vis_np: np.ndarray, card: str, check: Check) -
 
     dev = torch.device("cuda", 0)
     channels, rows = vis_np.shape
-    # K8 at both launches: the strided one on (256, 1024), K1's on a full
-    # wave of 32768-channel rows, a row count that is not a multiple of the
-    # SMs', and a narrower row whose last warp is partly without a run.
+    # K8 at K1's launch on a full wave of 32768-channel rows, a row count
+    # that is not a multiple of the SMs', and a narrower row whose last warp
+    # is partly without a run.
     print("K8 (csrc/prim_cost.cu) against its plain chains, 2 steps x 4 reps:")
-    for launch, shape in (("strided", (256, 1024)), ("k1", (132, 32768)), ("k1", (137, 32768)),
-                          ("k1", (7, 4160))):
+    for shape in ((132, 32768), (137, 32768), (7, 4160)):
         x = prim_cost.block(*shape, dev)
-        for body in [None] + list(prim_cost.bodies(launch)):
-            got = prim_cost.chain(x, body, 2, 4, launch)
+        for body in [None] + list(prim_cost.ALL_BODIES):
+            got = prim_cost.chain(x, body, 2, 4)
             want = prim_cost.chain_plain(x, body, 2, 4)
-            label = f"K8 {launch} {shape[0]}x{shape[1]} {body or 'empty'}"
+            label = f"K8 {shape[0]}x{shape[1]} {body or 'empty'}"
             if body == "reduce":  # the kernel sums a row in another order
                 check.close("prim_cost", label, got, want, rtol=1e-6)
             else:
                 check.exact("prim_cost", label, got, want)
     del x, got, want
-    # K8 at K1's launch exactly as K1 launches (as K10), its strided launch
-    # at the strided layout's occupancy.
-    k2_cfg, k1_cfg = ff.strided_launch_config(channels), ff.launch_config(channels)
-    cfg = prim_cost.launch_config("rank_round", launch="strided")
-    print(f"  launch K8 strided rank_round: {cfg['threads']} threads, {cfg['smem_bytes']} B "
-          f"dynamic shared memory, {cfg['ctas_per_sm']} CTA per SM (the strided layout's K2: "
-          f"{k2_cfg})")
-    if cfg["ctas_per_sm"] != k2_cfg["ctas_per_sm"] or cfg["threads"] != k2_cfg["threads"]:
-        raise AssertionError(f"K8 does not run at the strided layout's occupancy: {cfg}")
-    for body in [None] + list(prim_cost.bodies("k1")):
-        cfg = prim_cost.launch_config(body, launch="k1")
+    # K8 and K10 exactly as K1 launches.
+    k1_cfg = ff.launch_config(channels)
+    for body in [None] + list(prim_cost.ALL_BODIES):
+        cfg = prim_cost.launch_config(body)
         if cfg != k1_cfg:
             raise AssertionError(f"K8 {body} does not launch as K1 does ({k1_cfg}): {cfg}")
     print(f"  launch K8 at K1's launch, every body: {cfg} (K1: {k1_cfg})")
@@ -1525,36 +1438,30 @@ def phase_cost_probes(ff, device, vis_np: np.ndarray, card: str, check: Check) -
         raise AssertionError("the skeleton's output is not 0")
     del out, rank, want_out, want_rank
 
-    # The cost-probe path: K8's tables at both launches, then K10 and K11 on
-    # the whole dump beside the model priced three ways, with the launch
-    # counts set to 0 just before and read just after.
-    print(f"the cost-probe tools (prim_cost at K1's launch on {prim_cost.K1_ROWS} x "
-          f"{prim_cost.K1_CHANNELS} and strided on 256 x 1024, 512 steps x 16 reps; the skeleton "
-          f"and K11 on the whole dump) on {card}:")
+    # The cost-probe path: K8's table, then K10 and K11 on the whole dump
+    # beside the model priced two ways, with the launch counts set to 0 just
+    # before and read just after.
+    print(f"the cost-probe tools (prim_cost on {prim_cost.K1_ROWS} x {prim_cost.K1_CHANNELS}, "
+          f"512 steps x 16 reps; the skeleton and K11 on the whole dump) on {card}:")
     prim_cost.reset_launches()
     rsk.launches["skeleton"] = 0
     result = rsk.run(vis_t, iters=3, reps=5, card=card)
     del vis_t
     torch.cuda.synchronize()
     card_state("after the cost-probe tools")
-    launches = {"prim_cost": sum(prim_cost.launches["k1"].values()),
-                "prim_cost strided": sum(prim_cost.launches["strided"].values()),
+    launches = {"prim_cost": sum(prim_cost.launches.values()),
                 "roofline_skeleton": rsk.launches["skeleton"]}
     print(f"  launches during the cost-probe path: {launches} "
-          f"(per body at K1's launch: {dict(prim_cost.launches['k1'])})")
+          f"(per body: {dict(prim_cost.launches)})")
     for name, count in launches.items():
         if count < 1:
             raise AssertionError(f"kernel {name} was not launched on the cost-probe path")
 
-    # The record: K8's add chain at K1's launch on its block; the strided
-    # launch's beside it (its earlier record).
+    # The record: K8's add chain at K1's launch on its block.
     steps, unroll = 512, 16
-    k1_block = prim_cost.default_block("k1", dev)
-    strided_block = prim_cost.default_block("strided", dev)
-    med = time_queued({
-        "k1": lambda: prim_cost.chain(k1_block, "add", steps, unroll, "k1"),
-        "strided": lambda: prim_cost.chain(strided_block, "add", steps, unroll, "strided")},
-        reps=5, iters=3)[0]
+    k1_block = prim_cost.default_block(dev)
+    med = time_queued({"k1": lambda: prim_cost.chain(k1_block, "add", steps, unroll)},
+                      reps=5, iters=3)[0]
     add_plain = time_fn(lambda: prim_cost.chain_plain(k1_block, "add", steps, unroll), warmup=1,
                         iters=2)
     skel_plain = time_fn(plain_whole(), warmup=1, iters=2)
@@ -1563,10 +1470,10 @@ def phase_cost_probes(ff, device, vis_np: np.ndarray, card: str, check: Check) -
     print(f"kernel vs plain on {card}: K8 add chain at K1's launch ({prim_cost.K1_ROWS} x "
           f"{prim_cost.K1_CHANNELS}) {med['k1']:.3f} ms vs {add_plain:.3f} ms, "
           f"{k1_rate:.4e} instructions/s ({k1_rate / F32_OPS_PER_S:.3f} of the bounds' rate); "
-          f"strided (256 x 1024) {med['strided']:.4f} ms; K10 whole dump "
+          f"K10 whole dump "
           f"{result['skeleton_ms']:.3f} ms vs {skel_plain:.3f} ms; K10 / K11 full "
           f"{result['skeleton_ms'] / result['full_ms']:.3f} in the same rounds")
-    instruction_rate(prim_cost, dev, card, steps, unroll)
+    instruction_rate(prim_cost, dev, card, med["k1"], steps, unroll)
     n_vis = rows * channels
     return {
         # The chain reads and writes the block once; y0, 2 operations a rep, x + y.
@@ -2147,7 +2054,7 @@ def main() -> None:
     vis_np = meerkat_dump(CHANNELS, BASELINES * POLS)
     print(f"dump generated on the host in {time.perf_counter() - t0:.1f} s")
     phase_oracle(ff, device, host, vis_np, check)
-    results = phase_main(ff, fp, tr, device, vis_np, card, check)
+    results = phase_main(ff, tr, device, vis_np, card, check)
     for name, wide in wide_rows.items():
         results[name]["wide_row"] = wide
     results.update(phase_ops(pct, tr, vis_np, card, check))

@@ -1,12 +1,11 @@
-// Device code of the fused 1-D flagger, shared by K1 and K2
-// (fused_flagger.cu) and by K1's stage probes (flagger_probe.cu).
-//
-// A row of C channels lives in one CTA of kThreads threads, in dynamic
-// shared memory laid out as smem_bytes(C) says.  The stages: amplitude,
-// the width-FF_WIDTH median background (replaced in place by deviations),
-// the MAD-of-non-zero noise by a 31-round bitwise rank search, and
-// SumThreshold.  The arithmetic rules that keep every stage bit for bit
-// equal to the JAX reference are in fused_flagger.cu's header.
+// Device code of the fused 1-D flagger shared by K1 and K2
+// (fused_flagger.cu) and by K1's stage probes (flagger_probe.cu): the
+// launch's parameters, the amplitude, the block reductions, the median's
+// edge fills and selection networks, the rank search's target and the
+// channel-strided stage arithmetic that the wide-row path runs on a row in
+// device memory.  The run layout of ff_runs.cuh builds K1's shared-memory
+// row on top of it.  The arithmetic rules that keep every stage bit for
+// bit equal to the JAX reference are in fused_flagger.cu's header.
 
 #pragma once
 
@@ -35,17 +34,6 @@ struct Params {
   float scales[kMaxWindows];
   int flag_value;
 };
-
-// Shared memory: deviations (C floats), flags (C bytes), then the
-// reduction partials (two banks of kWarps ints) and the median halo of
-// kHalf floats, room for 16 at least.
-__host__ __device__ inline size_t flags_offset(int c) { return (size_t)c * 4; }
-__host__ __device__ inline size_t scratch_offset(int c) {
-  return ((size_t)c * 5 + 15) & ~(size_t)15;
-}
-constexpr size_t kScratchBytes =
-    2 * kWarps * sizeof(int) + (kHalf > 16 ? kHalf : 16) * sizeof(float);
-__host__ inline size_t smem_bytes(int c) { return scratch_offset(c) + kScratchBytes; }
 
 __device__ __forceinline__ float nan_min(float a, float b) { return (a < b || a != a) ? a : b; }
 __device__ __forceinline__ float nan_max(float a, float b) { return (a > b || a != a) ? a : b; }
@@ -116,74 +104,6 @@ __device__ __forceinline__ float fast_median(const float* w, int c, int C) {
 }
 
 #ifndef FF_MEDIAN_COUNT
-// Median background over the row in `buf` (amplitudes, +inf where flagged),
-// replaced in place by the deviations.  kFast: no input flags and
-// C >= FF_WIDTH, so members are absent only at the edges and the +-inf
-// parity fills pin the median at sorted ranks kHalf and kHalf + 1
-// (pallas_flagger.py::_median_parity_fill).  Otherwise the masked path
-// (pallas_flagger.py::_masked_median_rows and _flagger_body:702-720).
-template <bool kFast, bool kUseFlags>
-__device__ void median_to_deviations(float* buf, float* halo, int C) {
-  for (int base = 0; base < C; base += kThreads) {
-    const int c = base + threadIdx.x;
-    float amp = 0.f;
-    float dev = 0.f;
-    if (c < C) {
-      float w[FF_WIDTH];
-#pragma unroll
-      for (int k = 0; k < FF_WIDTH; ++k) {
-        const int d = k - kHalf;
-        const int j = c + d;
-        float x;
-        if (j < 0 || j >= C) {
-          x = kFast ? edge_fill(c, d, C) : CUDART_INF_F;
-        } else if (j < base) {
-          x = halo[j - base + kHalf];  // previous tile, already deviations in buf
-        } else {
-          x = buf[j];
-        }
-        w[k] = x;
-      }
-      amp = w[kHalf];
-      if (kFast) {
-        FF_NET_FAST(w);
-        dev = __fsub_rn(amp, fast_median(w, c, C));
-      } else {
-        int n = 0;
-#pragma unroll
-        for (int k = 0; k < FF_WIDTH; ++k) {
-          if (kUseFlags) {
-            n += (w[k] != CUDART_INF_F);
-          } else {
-            const int j = c + k - kHalf;
-            n += (j >= 0 && j < C);
-          }
-        }
-        FF_NET_LOWER(w);
-        const int lo_rank = (n - 1) >> 1;  // floor division, as jnp's (n - 1) // 2
-        const int hi_rank = n >> 1;
-        float v_lo = 0.f;
-        float v_hi = 0.f;
-#pragma unroll
-        for (int k = 0; k <= kHalf; ++k) {
-          if (lo_rank == k) v_lo = w[k];
-          if (hi_rank == k) v_hi = w[k];
-        }
-        const float med = __fmul_rn(__fadd_rn(v_lo, v_hi), 0.5f);
-        // Flagged centres map to deviation 0 (the host's NaN -> 0 fill).
-        dev = amp == CUDART_INF_F ? 0.f : __fsub_rn(amp, med);
-      }
-    }
-    __syncthreads();  // every window of this tile has read its members
-    if (c < C) {
-      // The next tile's first windows reach back kHalf channels.
-      if (threadIdx.x >= kThreads - kHalf) halo[threadIdx.x - (kThreads - kHalf)] = amp;
-      buf[c] = dev;
-    }
-    __syncthreads();
-  }
-}
-
 // The deviation of channel c, its window's members read by get(j) for j in
 // [0, C) and filled past the row's edges: the arithmetic of the edge tiles
 // of ff_runs.cuh's median_to_deviations, for a row in device memory.
@@ -357,8 +277,9 @@ __device__ float noise_from_rank(const float* dev, int* red, int& bank, int C, u
   return __fmul_rn(1.4826f, med);
 }
 
-// MAD noise of the deviations of one row in shared memory, one bit per
-// dependent round (pallas_flagger.py::_madnz_band, radix 1).
+// MAD noise of the deviations of one row (the wide-row path's, in device
+// memory), one bit per dependent round (pallas_flagger.py::_madnz_band,
+// radix 1).
 __device__ float mad_noise(const float* dev, int* red, int& bank, int C) {
   const RankTarget t = rank_target(C, block_sum(count_zeros(dev, C), red, bank));
   unsigned cur = 0;
@@ -374,62 +295,8 @@ __device__ float mad_noise(const float* dev, int* red, int& bank, int C) {
   return noise_from_rank(dev, red, bank, C, cur, r_cur, t);
 }
 
-// SumThreshold on the deviations of one row in shared memory against
-// n_sigma * noise; writes the row's flags (pallas_flagger.py::
-// _threshold_sum_band).  flags[c] bit 0: flagged so far; bit 1: this
-// window's sum flag.  Each thread keeps its channels' bits in a register
-// mask between barriers, so no byte is written while others read it.
-__device__ void sum_threshold_row(const float* dev, uint8_t* flags, float noise, uint8_t* out,
-                                  const Params& p) {
-  const int C = p.channels;
-  const float base = __fmul_rn(p.n_sigma, noise);
-  for (int c = threadIdx.x; c < C; c += kThreads) flags[c] = 0;
-  __syncthreads();
-  for (int w = 0; w < p.n_windows; ++w) {
-    const int window = 1 << w;
-    const float thr = __fmul_rn(base, p.scales[w]);
-    const float thr_w = __fmul_rn(thr, (float)window);
-    const int last = C - window;  // full windows start at c <= last
-    unsigned long long mask = 0;
-    int k = 0;
-    for (int c = threadIdx.x; c < C; c += kThreads, ++k) {
-      if (c <= last && window_sum(dev, flags, c, w, thr) > thr_w) mask |= 1ull << k;
-    }
-    __syncthreads();
-    k = 0;
-    for (int c = threadIdx.x; c < C; c += kThreads, ++k) {
-      if ((mask >> k) & 1) flags[c] |= 2;
-    }
-    __syncthreads();
-    // Dilation: flag c if any window starting in [c - window + 1, c] hit.
-    mask = 0;
-    k = 0;
-    for (int c = threadIdx.x; c < C; c += kThreads, ++k) {
-      bool hit = false;
-      for (int j = max(c - window + 1, 0); j <= c; ++j) hit |= (flags[j] & 2) != 0;
-      if (hit) mask |= 1ull << k;
-    }
-    __syncthreads();
-    k = 0;
-    for (int c = threadIdx.x; c < C; c += kThreads, ++k) {
-      flags[c] = (flags[c] & 1) | ((mask >> k) & 1);
-    }
-    __syncthreads();
-  }
-  const uint8_t fv = (uint8_t)p.flag_value;
-  for (int c = threadIdx.x; c < C; c += kThreads) out[c] = (flags[c] & 1) ? fv : 0;
-}
-
-// MAD noise + SumThreshold on the deviations of one row in shared memory
-// (pallas_flagger.py::_madnz_band and ::_threshold_sum_band).
-__device__ void madnz_threshold_row(const float* dev, uint8_t* flags, int* red, uint8_t* out,
-                                    const Params& p) {
-  int bank = 0;
-  sum_threshold_row(dev, flags, mad_noise(dev, red, bank, p.channels), out, p);
-}
-
 // The launch's parameters; `any_length` lifts the limit of 64 channels a
-// thread that the register masks of the shared-memory layouts set.
+// thread that the run layout's register masks set.
 int make_params(Params* p, int channels, float n_sigma, const float* scales, int n_windows,
                 int flag_value, bool any_length = false) {
   if (channels < 1 || n_windows < 0 || n_windows > kMaxWindows ||
@@ -450,21 +317,6 @@ template <typename Kernel>
 int set_smem(Kernel kernel, size_t bytes) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)bytes);
-}
-
-// The largest channel count whose row fits one CTA's shared memory on the
-// current device (0 on error).
-int max_channels() {
-  int device = 0;
-  int optin = 0;
-  if (cudaGetDevice(&device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
-          cudaSuccess) {
-    return 0;
-  }
-  int c = (int)((optin - (int)kScratchBytes) / 5);
-  while (c > 0 && smem_bytes(c) > (size_t)optin) --c;
-  return c;
 }
 
 }  // namespace

@@ -7,12 +7,12 @@
 // pairs in, 1 B of flags out), 0.710 ms for the 32768 x 8064 dump at
 // 3.35 TB/s.  The row never leaves shared memory, so what it spends beyond
 // that is on-chip work.  On an H100 SXM at 700 W the channel-strided
-// design of ff_device.cuh spent it as SumThreshold 5.3 ms, median 4.0,
-// rank search 2.2, load + store 1.2 per dump.  That design stays in
-// ff_device.cuh for K2's strided design, the probe K12 beside
-// `strided_full` (K1 in it) and the cost probe K8.  K1's stage,
-// rank-search and median-member probes (K11, K13, K9) and the roofline
-// skeleton K10 run on this layout.
+// design this layout replaced (thread t owning channels t, t + 1024, ...
+// of a row held as C x 4 B of deviations and C x 1 B of flags; it is in
+// the repository's history) spent it as SumThreshold 5.3 ms, median 4.0,
+// rank search 2.2, load + store 1.2 per dump.  K1's stage, rank-search and
+// median-member probes (K11, K13, K9) and the roofline skeleton K10 run on
+// this layout.
 //
 // One CTA per row, as there, but of kT threads, the fewest of 128, 256,
 // 512 and 1024 whose rank search holds the row in registers (kRankRegs
@@ -77,10 +77,7 @@
 
 // The selection networks of ff_network.h, expanded below this point, run on
 // one-instruction NaN-propagating min/max.  The templates of ff_device.cuh
-// were expanded above with nan_min/nan_max.  FF_RUNS_SELECT_MINMAX keeps
-// nan_min/nan_max here too: a measurement build (scripts/k1_ab.py) that
-// times the run layout without this change.
-#ifndef FF_RUNS_SELECT_MINMAX
+// were expanded above with nan_min/nan_max.
 #undef FF_CE_BOTH
 #undef FF_CE_MIN
 #undef FF_CE_MAX
@@ -95,7 +92,6 @@
   { (w)[i] = runs::min_nan((w)[i], (w)[j]); }
 #define FF_CE_MAX(w, i, j) \
   { (w)[j] = runs::max_nan((w)[i], (w)[j]); }
-#endif
 
 namespace {
 namespace runs {

@@ -24,7 +24,7 @@
 // What bounds them: what bounds K1 (fused_flagger.cu's header).  A probe
 // measures only if its variants all run one machine, so each launches as
 // the kernel it varies: kThreads = 1024 threads, one CTA per SM at 32768
-// channels, and the dynamic shared memory of its layout:
+// channels, and K1's dynamic shared memory:
 //  * K9, K11 and K13 are K1 itself, on K1's run layout (ff_runs.cuh,
 //    runs::smem_bytes): `full` is K1's pipeline, and each other variant
 //    changes the one stage it names, so a difference of two times is that
@@ -39,15 +39,9 @@
 //    words by distributed shared memory; after the cluster's barrier each
 //    CTA writes (K12) or flags (`channel_major`) its own row.  The cluster
 //    sizes 1 (no cluster: one CTA per row, 8 pairs in flight a thread),
-//    2, 4 and 8 are template instances of both (measurement builds),
-//    chosen at the launch.  A cluster's CTAs must run at once on SMs of
-//    one GPC: on the H100's 132 SMs, 66 clusters of 2 fit, 30 of 4 and 15
-//    of 8 (120 SMs);
-//  * K12's earlier design (`amp_pairs_strided`: one CTA per row, one 8-B
-//    load a thread an iteration) stays on the strided layout
-//    (ff_device.cuh, smem_bytes), where K2's strided design keeps its
-//    launch, beside `strided_full`, K1 in that layout and the "before" of
-//    scripts/k1_ab.py.
+//    2, 4 and 8 are template instances of both, chosen at the launch.  A
+//    cluster's CTAs must run at once on SMs of one GPC: on the H100's 132
+//    SMs, 66 clusters of 2 fit, 30 of 4 and 15 of 8 (120 SMs).
 //
 // Variants, with the stand-ins' semantics of stage_ablate.py:61-80 (there
 // are no input flags, and C >= FF_WIDTH):
@@ -76,18 +70,13 @@
 //   window_median K1's median on tiles of 1024 x kWindowV channels, a
 //                 thread's kWindowV consecutive channels from one load of
 //                 their members as float4 words, 1.25 loads a channel
-//   radix_match_any  a measurement instance of radix_select, not a variant
-//                 (scripts/rankpair_ab.py): pass 0 adds each distinct
-//                 exponent digit of a warp once (__match_any_sync), as K4's
-//                 measurement build does
 //   channel_major K1 reading the channel-major dump (C, rows, 2) in place by
 //                 K12's cluster read, in place of its load stage
-//   strided_full  K1 in the strided layout (k1_ab's and phase 5's "before")
 
 #include <cooperative_groups.h>
 #include <stdint.h>
 
-#include "ff_device.cuh"
+#include "ff_runs.cuh"  // includes ff_device.cuh
 
 static_assert(kHalf <= 15, "the probes take odd widths 3..31");
 
@@ -105,65 +94,13 @@ enum Variant : int {
   kShflMedian = 8,
   kWindowMedian = 9,
   kChannelMajor = 10,
-  kRadixMatchAny = 11,  // radix_select's measurement instance
-  kStridedFull = 12,    // the one variant on the strided layout
 };
 
 // K12's kernels (fp_amp_pairs).
 enum AmpKernel : int {
-  kAmpBaseline = 0,         // baseline-major (rows, C, 2), run layout
-  kAmpChannelMajor = 1,     // channel-major (C, rows, 2), run layout, a cluster of rows
-  kAmpStrided = 2,          // baseline-major, strided layout (K12's earlier design)
-  kAmpStridedChannelMajor = 3,
+  kAmpBaseline = 0,      // baseline-major (rows, C, 2)
+  kAmpChannelMajor = 1,  // channel-major (C, rows, 2), a cluster of rows
 };
-
-__host__ __device__ constexpr bool run_layout(int variant) { return variant < kStridedFull; }
-
-// ---- The strided layout (ff_device.cuh): strided_full and K12 ----
-//
-// Defined before ff_runs.cuh is included below: that header redefines the
-// selection network's comparators as min.NaN/max.NaN, and strided_full's
-// network is expanded here with ff_device.cuh's nan_min/nan_max.
-
-// strided_full: K1's stages in the strided layout.
-__global__ void __launch_bounds__(kThreads, 1)
-    strided_full_kernel(const float2* __restrict__ vis, uint8_t* __restrict__ out, Params p,
-                        int /*rows*/) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int C = p.channels;
-  const size_t row = blockIdx.x;
-  const float2* v = vis + row * C;
-  float* buf = reinterpret_cast<float*>(smem);
-  int* red = reinterpret_cast<int*>(smem + scratch_offset(C));
-  float* halo = reinterpret_cast<float*>(red + 2 * kWarps);
-  for (int c = threadIdx.x; c < C; c += kThreads) buf[c] = amplitude(v[c]);
-  __syncthreads();
-  median_to_deviations<true, false>(buf, halo, C);
-  int bank = 0;
-  const float noise = mad_noise(buf, red, bank, C);
-  sum_threshold_row(buf, smem + flags_offset(C), noise, out + row * C, p);
-}
-
-// K12's earlier design.  One CTA per row writes the row's amplitudes;
-// reading channel-major input, a warp's 32 loads are `rows` pairs apart.
-template <bool kChannelMajor>
-__global__ void __launch_bounds__(kThreads, 1)
-    amp_pairs_strided_kernel(const float2* __restrict__ vis, float* __restrict__ out, int rows,
-                             int C) {
-  const size_t row = blockIdx.x;
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    const float2 x = kChannelMajor ? vis[(size_t)c * rows + row] : vis[row * C + c];
-    out[row * C + c] = amplitude(x);
-  }
-}
-
-}  // namespace
-
-// ---- K1's run layout (ff_runs.cuh): K9, K11, K13, K12 ----
-
-#include "ff_runs.cuh"
-
-namespace {
 
 // K12's in-place read: the amplitudes of the channel-major dump (C, rows,
 // 2) into the amplitude words [0, C) of each row's CTA, which then holds
@@ -522,10 +459,6 @@ __device__ __forceinline__ bool radix_pass(const float* dev, const unsigned (&k)
 }
 
 // `hist` holds kHistWords zeroed words, published by a barrier since.
-// kMatchAny: the measurement instance's pass 0, each distinct digit of a
-// warp's register slot added once (the channels past the registers, which
-// not every lane of a warp has, add one at a time as in radix_select).
-template <bool kMatchAny>
 __device__ float mad_noise_radix(const float* dev, unsigned* hist, int* red, int& bank, int C) {
   // Pass 0 rides the zeros count: the exponent digit of every counted key.
   unsigned k[kRankRegs];
@@ -535,15 +468,7 @@ __device__ float mad_noise_radix(const float* dev, unsigned* hist, int* red, int
     const int c = threadIdx.x + j * kThreads;
     k[j] = c < C ? abs_key(dev[phys(c)]) : kNanKey;
     zeros += k[j] == 0u;
-    if constexpr (kMatchAny) {
-      const unsigned d = k[j] >> 23;  // 511 for kNanKey
-      const unsigned peers = __match_any_sync(kFull32, d);
-      if (d < 256 && (threadIdx.x & 31) == (unsigned)(__ffs(peers) - 1)) {
-        atomicAdd(&hist[d], (unsigned)__popc(peers));
-      }
-    } else if (k[j] != kNanKey) {
-      atomicAdd(&hist[k[j] >> 23], 1u);
-    }
+    if (k[j] != kNanKey) atomicAdd(&hist[k[j] >> 23], 1u);
   }
   for (int c = threadIdx.x + kRankRegs * kThreads, p = phys(c); c < C; c += kThreads, p += kStride) {
     const unsigned key = abs_key(dev[p]);
@@ -733,7 +658,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     return;
   }
   unsigned* scratch = reinterpret_cast<unsigned*>(flag_masks);
-  if constexpr (kVariant == kRadixSelect || kVariant == kRadixMatchAny) {
+  if constexpr (kVariant == kRadixSelect) {
     if (threadIdx.x < runs::kHistWords) scratch[threadIdx.x] = 0;
   }
   if constexpr (kVariant == kChannelMajor) {
@@ -771,8 +696,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     noise = runs::mad_noise_pair(buf, reinterpret_cast<int*>(scratch), red, bank, C);
   } else if constexpr (kVariant == kZerosFold) {
     noise = runs::mad_noise_zeros_fold(buf, red, bank, C);
-  } else if constexpr (kVariant == kRadixSelect || kVariant == kRadixMatchAny) {
-    noise = runs::mad_noise_radix<kVariant == kRadixMatchAny>(buf, scratch, red, bank, C);
+  } else if constexpr (kVariant == kRadixSelect) {
+    noise = runs::mad_noise_radix(buf, scratch, red, bank, C);
   } else {
     noise = runs::mad_noise(buf, red, bank, C);
   }
@@ -798,8 +723,6 @@ int with_probe_kernel(int variant, F&& f) {
     case kShflMedian: return f(probe_kernel<kShflMedian>);
     case kWindowMedian: return f(probe_kernel<kWindowMedian>);
     case kChannelMajor: return f(probe_kernel<kChannelMajor>);
-    case kRadixMatchAny: return f(probe_kernel<kRadixMatchAny>);
-    case kStridedFull: return f(strided_full_kernel);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -817,7 +740,7 @@ int with_channel_major(int cluster, F&& f) {
 }
 
 // Calls f with K12's `kernel`, at a cluster of `cluster` rows where it
-// reads channel-major on the run layout.
+// reads channel-major.
 template <typename F>
 int with_amp_kernel(int kernel, int cluster, F&& f) {
   switch (kernel) {
@@ -830,13 +753,9 @@ int with_amp_kernel(int kernel, int cluster, F&& f) {
         case 8: return f(amp_pairs_kernel<8, true>);
         default: return (int)cudaErrorInvalidValue;
       }
-    case kAmpStrided: return f(amp_pairs_strided_kernel<false>);
-    case kAmpStridedChannelMajor: return f(amp_pairs_strided_kernel<true>);
     default: return (int)cudaErrorInvalidValue;
   }
 }
-
-__host__ __device__ constexpr bool amp_run_layout(int kernel) { return kernel < kAmpStrided; }
 
 // The launch of a kernel at K1's CTA: `grid` CTAs, in clusters of
 // `cluster` (1: none), each with `smem` bytes of dynamic shared memory.
@@ -859,21 +778,13 @@ cudaLaunchConfig_t cluster_config(int grid, int cluster, size_t smem, cudaStream
 // The grid of a read in clusters of `cluster` rows: padded to whole clusters.
 int cluster_grid(int rows, int cluster) { return (rows + cluster - 1) / cluster * cluster; }
 
-// The channel limit and dynamic shared memory of `variant`'s layout.
-int layout_limit(int variant) { return run_layout(variant) ? runs::max_channels() : max_channels(); }
-size_t layout_smem(int variant, int channels) {
-  return run_layout(variant) ? runs::smem_bytes(channels) : smem_bytes(channels);
-}
-
 }  // namespace
 
 extern "C" {
 
 // As in fused_flagger.cu, so the wrappers share their checks: the run
-// layout's channel limit (K9, K11, K13, `channel_major`, K12) and the
-// strided layout's (`strided_full`, K12's earlier design).
+// layout's channel limit, every probe's.
 int ff_max_channels(void) { return runs::max_channels(); }
-int ff_strided_max_channels(void) { return max_channels(); }
 
 const char* ff_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
@@ -881,8 +792,8 @@ const char* ff_error_string(int err) { return cudaGetErrorString((cudaError_t)er
 // dynamic shared memory, and the CTAs that fit one SM at once.
 int fp_launch_config(int variant, int channels, int* threads, long long* smem_bytes_out,
                      int* ctas_per_sm) {
-  if (channels < FF_WIDTH || channels > layout_limit(variant)) return (int)cudaErrorInvalidValue;
-  const size_t smem = layout_smem(variant, channels);
+  if (channels < FF_WIDTH || channels > runs::max_channels()) return (int)cudaErrorInvalidValue;
+  const size_t smem = runs::smem_bytes(channels);
   const int err = with_probe_kernel(variant, [&](auto kernel) {
     int e = set_smem(kernel, smem);
     if (e) return e;
@@ -904,10 +815,10 @@ int fp_probe(int variant, int cluster, const void* vis, void* out, int rows, int
   Params p;
   int err = make_params(&p, channels, n_sigma, scales, n_windows, flag_value);
   if (err) return err;
-  if (rows < 1 || channels < FF_WIDTH || channels > layout_limit(variant)) {
+  if (rows < 1 || channels < FF_WIDTH || channels > runs::max_channels()) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = layout_smem(variant, channels);
+  const size_t smem = runs::smem_bytes(channels);
   const float2* v = static_cast<const float2*>(vis);
   uint8_t* o = static_cast<uint8_t*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -931,19 +842,14 @@ int fp_probe(int variant, int cluster, const void* vis, void* out, int rows, int
   return err ? err : (int)cudaGetLastError();
 }
 
-// The channel limit of K12's `kernel` (AmpKernel): K1's on the run layout.
-int fp_amp_max_channels(int kernel) {
-  return amp_run_layout(kernel) ? runs::max_channels() : max_channels();
-}
-
 // K12's `kernel` launch configuration at `channels` (its cluster of
-// `cluster` rows where it reads channel-major on the run layout): the
+// `cluster` rows where it reads channel-major): the
 // clusters that fit the device at once (0 where the kernel takes no
 // cluster), threads per CTA, dynamic shared memory, CTAs that fit one SM.
 int fp_amp_launch_config(int kernel, int cluster, int channels, int* clusters, int* threads,
                          long long* smem_bytes_out, int* ctas_per_sm) {
-  if (channels < 1 || channels > fp_amp_max_channels(kernel)) return (int)cudaErrorInvalidValue;
-  const size_t smem = amp_run_layout(kernel) ? runs::smem_bytes(channels) : smem_bytes(channels);
+  if (channels < 1 || channels > runs::max_channels()) return (int)cudaErrorInvalidValue;
+  const size_t smem = runs::smem_bytes(channels);
   const int err = with_amp_kernel(kernel, cluster, [&](auto k) {
     int e = set_smem(k, smem);
     if (!e) e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, k, kThreads, smem);
@@ -961,15 +867,14 @@ int fp_amp_launch_config(int kernel, int cluster, int channels, int* clusters, i
 }
 
 // K12's `kernel` over (rows, channels) amplitudes; vis is (rows, channels,
-// 2), or (channels, rows, 2) for the channel-major kernels, which on the run
-// layout read in clusters of `cluster` rows (1, 2, 4 or 8).
+// 2), or (channels, rows, 2) for the channel-major kernel, which reads in
+// clusters of `cluster` rows (1, 2, 4 or 8).
 int fp_amp_pairs(int kernel, int cluster, const void* vis, void* out, int rows, int channels,
                  void* stream) {
-  if (rows < 1 || channels < 1 || channels > fp_amp_max_channels(kernel)) {
+  if (rows < 1 || channels < 1 || channels > runs::max_channels()) {
     return (int)cudaErrorInvalidValue;
   }
-  const bool run = amp_run_layout(kernel);
-  const size_t smem = run ? runs::smem_bytes(channels) : smem_bytes(channels);
+  const size_t smem = runs::smem_bytes(channels);
   const int g = kernel == kAmpChannelMajor ? cluster : 1;
   const float2* v = static_cast<const float2*>(vis);
   float* o = static_cast<float*>(out);

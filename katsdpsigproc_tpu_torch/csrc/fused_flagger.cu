@@ -18,25 +18,18 @@
 // channel, the window ladders, and 31 dependent block-wide count reductions
 // per row, each a pass over the row plus a barrier.
 //
-// Two layouts of the row, both one CTA per row that reads each visibility
-// once and writes each flag once (1024 threads, or for K1 in the run layout
-// the fewest of 128-1024 whose rank search holds the row in registers):
-//  * the run layout of K1 (ff_runs.cuh): deviations padded one word in 32,
-//    SumThreshold on per-thread runs of channels with bit-mask flags and
-//    window sums by doubling in registers, one-instruction min.NaN/max.NaN
-//    comparators in the median, the rank search's |dev| in registers.  Its
-//    header says what each does about the stage costs, and why the NaN
-//    payload and signed zero of min.NaN/max.NaN cannot reach the flags;
-//    K2 runs K1's rank search and SumThreshold on the same layout, its
-//    deviations loaded coalesced into the padded words;
-//  * the strided layout (ff_device.cuh): C x 4 B of deviations + C x 1 B of
-//    flags, thread t owning channels t, t + 1024, ...  K2's earlier design,
-//    madnz_threshold_strided_kernel, runs on it and defines the layout's
-//    launch; the probes still on it (flagger_probe.cu's K12 and
-//    `strided_full`, K1 in this layout) and the cost probe K8 are held to
-//    it.
+// The row's layout is the run layout (ff_runs.cuh), one CTA per row that
+// reads each visibility once and writes each flag once, of the fewest of
+// 128-1024 threads whose rank search holds the row in registers (K2: 1024):
+// deviations padded one word in 32, SumThreshold on per-thread runs of
+// channels with bit-mask flags and window sums by doubling in registers,
+// one-instruction min.NaN/max.NaN comparators in the median, the rank
+// search's |dev| in registers.  Its header says what each does about the
+// stage costs, and why the NaN payload and signed zero of min.NaN/max.NaN
+// cannot reach the flags.  K2 runs K1's rank search and SumThreshold on
+// the same layout, its deviations loaded coalesced into the padded words.
 //
-// Parity with the JAX reference, bit for bit, in both:
+// Parity with the JAX reference, bit for bit:
 //  * no FMA contraction anywhere (built with -fmad=false), and re*re+im*im
 //    is written with __fmul_rn/__fadd_rn; sqrt is the IEEE __fsqrt_rn;
 //  * averages are (a + b) * 0.5f in float32, in the JAX operand order;
@@ -55,9 +48,9 @@
 // The wide-row path: a row longer than the run layout holds
 // (runs::max_channels, 52310 channels on the H100), or a window wider than
 // the run layout's in-place median takes (runs::kMaxInPlaceWidth), runs
-// K1's and K2's stages in the strided layout's arithmetic on the CTA's
-// slice of a device scratch buffer instead of shared memory: amplitudes,
-// deviations, flags and hits, 10 B a channel.  The reduction partials stay
+// K1's and K2's stages in ff_device.cuh's channel-strided arithmetic on
+// the CTA's slice of a device scratch buffer instead of shared memory:
+// amplitudes, deviations, flags and hits, 10 B a channel.  The reduction partials stay
 // in static shared memory.  A grid of (SMs x CTAs per SM) CTAs loops over
 // the rows, so the scratch is that many rows, not the dump's.  Every pass
 // over the row (31 rank rounds, each window's sums) reads device memory or
@@ -124,22 +117,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   runs::sum_threshold(buf, flag_masks, hit_masks, noise, out + row * C, p);
 }
 
-// K2's design before the run layout, kept as the strided layout's
-// launch definition and as the "before" of scripts/k2_ab.py.
-__global__ void __launch_bounds__(kThreads, 1)
-    madnz_threshold_strided_kernel(const float* __restrict__ dev, uint8_t* __restrict__ out,
-                                   Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int C = p.channels;
-  float* buf = reinterpret_cast<float*>(smem);
-  uint8_t* flags = smem + flags_offset(C);
-  int* red = reinterpret_cast<int*>(smem + scratch_offset(C));
-  const size_t row = blockIdx.x;
-  for (int c = threadIdx.x; c < C; c += kThreads) buf[c] = dev[row * C + c];
-  __syncthreads();
-  madnz_threshold_row(buf, flags, red, out + row * C, p);
-}
-
 // ---- The wide-row path ----
 
 // A CTA's slice of the scratch: amplitudes, deviations, flags, hits.
@@ -178,9 +155,9 @@ __device__ void median_wide(const float* amp, float* dev, int C) {
   __syncthreads();
 }
 
-// ff_device.cuh's sum_threshold_row with a window's hits in their own
-// bytes instead of a thread's register mask, so that a thread may own any
-// number of channels: a window's sums read the flags and write the hits,
+// SumThreshold (pallas_flagger.py::_threshold_sum_band) with a window's
+// hits in their own bytes, so that a thread may own any number of
+// channels: a window's sums read the flags and write the hits,
 // its dilation reads the hits and writes the flags, each pass behind a
 // barrier.
 __device__ void sum_threshold_wide(const float* dev, uint8_t* flags, uint8_t* hits, float noise,
@@ -268,34 +245,6 @@ int wide_ctas(Kernel kernel) {
   return sms * per_sm;
 }
 
-template <typename Kernel>
-int launch_madnz(Kernel kernel, size_t smem, const void* dev, void* out, int rows, int channels,
-                 float n_sigma, const float* scales, int n_windows, int flag_value,
-                 void* stream) {
-  Params p;
-  int err = make_params(&p, channels, n_sigma, scales, n_windows, flag_value);
-  if (err) return err;
-  if (rows < 1) return (int)cudaErrorInvalidValue;
-  if ((err = set_smem(kernel, smem))) return err;
-  kernel<<<rows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(dev), static_cast<uint8_t*>(out), p);
-  return (int)cudaGetLastError();
-}
-
-// Threads per CTA, dynamic shared memory and the CTAs that fit one SM at
-// once for `kernel` at `smem` bytes and `block` threads.
-template <typename Kernel>
-int launch_config(Kernel kernel, size_t smem, int* threads, long long* smem_bytes_out,
-                  int* ctas_per_sm, int block = kThreads) {
-  int err = set_smem(kernel, smem);
-  if (!err) {
-    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kernel, block, smem);
-  }
-  *threads = block;
-  *smem_bytes_out = (long long)smem;
-  return err;
-}
-
 // K1's instance of kT threads at `channels`: its launch configuration, or
 // its launch over `rows` rows in flag mode `mode`.  A row's runs must fit a
 // u64 mask (ceil(C / kT) <= 64).
@@ -309,8 +258,15 @@ int k1_launch_config(int channels, int* threads, long long* smem_bytes_out, int*
   if (!k1_takes<kT>(channels) || channels > runs::max_channels()) {
     return (int)cudaErrorInvalidValue;
   }
-  return launch_config(flagger_kernel<0, kT>, runs::smem_bytes<kT>(channels), threads,
-                       smem_bytes_out, ctas_per_sm, kT);
+  const size_t smem = runs::smem_bytes<kT>(channels);
+  int err = set_smem(flagger_kernel<0, kT>, smem);
+  if (!err) {
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, flagger_kernel<0, kT>,
+                                                             kT, smem);
+  }
+  *threads = kT;
+  *smem_bytes_out = (long long)smem;
+  return err;
 }
 
 template <int kMode, int kT>
@@ -341,9 +297,6 @@ extern "C" {
 // one CTA's shared memory on the current device; 0 on error).
 int ff_max_channels(void) { return runs::max_channels(); }
 
-// The same for every kernel on the strided layout.
-int ff_strided_max_channels(void) { return max_channels(); }
-
 const char* ff_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // K1's launch configuration at `channels` in its instance of `block`
@@ -359,16 +312,6 @@ int ff_launch_config(int channels, int block, int* threads, long long* smem_byte
     case 1024: return k1_launch_config<1024>(channels, threads, smem_bytes_out, ctas_per_sm);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-// The strided layout's launch configuration at `channels`, that of K2's
-// strided design: the probes on that layout (K12, `strided_full`) and the
-// cost probe K8 are held to it.
-int ff_strided_launch_config(int channels, int* threads, long long* smem_bytes_out,
-                             int* ctas_per_sm) {
-  if (channels < 1 || channels > max_channels()) return (int)cudaErrorInvalidValue;
-  return launch_config(madnz_threshold_strided_kernel, smem_bytes(channels), threads,
-                       smem_bytes_out, ctas_per_sm);
 }
 
 // K1 over `rows` rows of planar (re, im) float32 pairs, (rows, channels, 2),
@@ -405,8 +348,15 @@ int ff_flagger(const void* vis, const void* in_flags, int mode, void* out, int r
 int ff_madnz_threshold(const void* dev, void* out, int rows, int channels, float n_sigma,
                        const float* scales, int n_windows, int flag_value, void* stream) {
   if (channels > runs::max_channels()) return (int)cudaErrorInvalidValue;
-  return launch_madnz(madnz_threshold_kernel, runs::smem_bytes(channels), dev, out, rows,
-                      channels, n_sigma, scales, n_windows, flag_value, stream);
+  Params p;
+  int err = make_params(&p, channels, n_sigma, scales, n_windows, flag_value);
+  if (err) return err;
+  if (rows < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = runs::smem_bytes(channels);
+  if ((err = set_smem(madnz_threshold_kernel, smem))) return err;
+  madnz_threshold_kernel<<<rows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dev), static_cast<uint8_t*>(out), p);
+  return (int)cudaGetLastError();
 }
 
 // The widest window ff_flagger takes.
@@ -460,14 +410,6 @@ int ff_madnz_threshold_wide(const void* dev, void* out, int rows, int channels, 
       static_cast<const float*>(dev), static_cast<uint8_t*>(out),
       static_cast<unsigned char*>(scratch), rows, p);
   return (int)cudaGetLastError();
-}
-
-// K2's strided design, the same function (scripts/k2_ab.py).
-int ff_madnz_threshold_strided(const void* dev, void* out, int rows, int channels, float n_sigma,
-                               const float* scales, int n_windows, int flag_value, void* stream) {
-  if (channels > max_channels()) return (int)cudaErrorInvalidValue;
-  return launch_madnz(madnz_threshold_strided_kernel, smem_bytes(channels), dev, out, rows,
-                      channels, n_sigma, scales, n_windows, flag_value, stream);
 }
 
 }  // extern "C"

@@ -10,11 +10,10 @@
 //
 // What bounds it on the card: bytes.  At 4000 x 5000 the input is 80 MB,
 // 24 us at 3.35 TB/s; the radix select below does about 13 operations an
-// element.  The original design (percentile5_original_kernel, kept as the "before")
-// spent 31 dependent rounds a row, each a pass over the row in shared
-// memory, three count chains and a barrier: 0.417 ms on an H100 at
-// 4000 x 5000, and at 64 x 4096 31 barrier round trips on 64 CTAs with 68
-// SMs idle.
+// element.  The design it replaced (in the repository's history) spent 31
+// dependent rounds a row, each a pass over the row in shared memory, three
+// count chains and a barrier: 0.417 ms on an H100 at 4000 x 5000, and at
+// 64 x 4096 31 barrier round trips on 64 CTAs with 68 SMs idle.
 //
 // What the design does about it:
 //  * Row in registers.  Each thread loads its share of the row once,
@@ -36,21 +35,13 @@
 //    exponent, counts all keys into one histogram for the three targets,
 //    one shared atomic a key.  The few exponents of real data put many
 //    lanes of a warp on one address, but aggregating equal digits first
-//    (__match_any_sync, a measurement build) measured slower on the H100.
+//    (__match_any_sync) measured slower on the H100.
 //  * The search's end state.  Once the search accepts +inf (0x7f800000),
 //    every later candidate is a NaN pattern, counts nothing and is
 //    accepted; so a target whose key is +inf, or whose rank lies beyond
 //    the non-NaN count, gives the pattern 0x7fffffff.
 //  * More threads per row when rows are few: below the SM count, one
 //    1024-thread CTA per row; otherwise 256-thread CTAs, several per SM.
-//
-// Measurement builds in the same library (scripts/k4_ab.py):
-// percentile5_search_kernel, the 31-round search with the row's keys in
-// the same registers and a one-barrier block reduction (each lane loads one
-// warp's partials, then a warp reduction), so an A/B separates what
-// registers buy from what the radix buys; the radix select with its first
-// pass aggregated by __match_any_sync; and the radix select with the keys
-// in shared memory at K4's CTA size (fewer registers, more CTAs an SM).
 //
 // Parity with the JAX kernel, bit for bit:
 //  * NaN is absent: it is skipped by min and max and counts below no
@@ -72,96 +63,7 @@ struct Targets {
   int t[3];  // p25, p75, p50 ranks
 };
 
-// ---- The original design: one 256-thread CTA per row, 31 rounds from shared memory ----
-
-constexpr int kOriginalThreads = 256;
-constexpr int kOriginalWarps = kOriginalThreads / 32;
-
-template <bool kShared>
-__global__ void __launch_bounds__(kOriginalThreads)
-    percentile5_original_kernel(const float* __restrict__ src, long long row_stride, int n, Targets tg,
-                           float* __restrict__ out, int rows) {
-  extern __shared__ __align__(16) float row_smem[];
-  __shared__ int partials[2][kOriginalWarps][3];
-  __shared__ float minmax[kOriginalWarps][2];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const float* g = src + (long long)blockIdx.x * row_stride;
-  const float* x = kShared ? row_smem : g;
-
-  float mn = CUDART_INF_F;
-  float mx = -CUDART_INF_F;
-  for (int i = threadIdx.x; i < n; i += kOriginalThreads) {
-    const float v = g[i];
-    if (kShared) row_smem[i] = v;
-    if (v < mn) mn = v;  // false for NaN
-    if (v > mx) mx = v;
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    const float omn = __shfl_xor_sync(0xffffffffu, mn, off);
-    const float omx = __shfl_xor_sync(0xffffffffu, mx, off);
-    if (omn < mn) mn = omn;
-    if (omx > mx) mx = omx;
-  }
-  if (lane == 0) {
-    minmax[warp][0] = mn;
-    minmax[warp][1] = mx;
-  }
-  __syncthreads();  // also publishes the row in shared memory
-
-  unsigned cur[3] = {0u, 0u, 0u};
-#pragma unroll 1
-  for (int round = 0; round < 31; ++round) {
-    const unsigned bit = 1u << (30 - round);
-    const float c0 = __uint_as_float(cur[0] | bit);
-    const float c1 = __uint_as_float(cur[1] | bit);
-    const float c2 = __uint_as_float(cur[2] | bit);
-    int n0 = 0, n1 = 0, n2 = 0;
-    for (int i = threadIdx.x; i < n; i += kOriginalThreads) {
-      const float v = x[i];
-      n0 += v < c0;
-      n1 += v < c1;
-      n2 += v < c2;
-    }
-    n0 = __reduce_add_sync(0xffffffffu, n0);
-    n1 = __reduce_add_sync(0xffffffffu, n1);
-    n2 = __reduce_add_sync(0xffffffffu, n2);
-    const int bank = round & 1;
-    if (lane == 0) {
-      partials[bank][warp][0] = n0;
-      partials[bank][warp][1] = n1;
-      partials[bank][warp][2] = n2;
-    }
-    __syncthreads();
-    int t0 = 0, t1 = 0, t2 = 0;
-#pragma unroll
-    for (int w = 0; w < kOriginalWarps; ++w) {
-      t0 += partials[bank][w][0];
-      t1 += partials[bank][w][1];
-      t2 += partials[bank][w][2];
-    }
-    if (t0 <= tg.t[0]) cur[0] |= bit;
-    if (t1 <= tg.t[1]) cur[1] |= bit;
-    if (t2 <= tg.t[2]) cur[2] |= bit;
-  }
-
-  if (threadIdx.x == 0) {
-    mn = minmax[0][0];
-    mx = minmax[0][1];
-    for (int w = 1; w < kOriginalWarps; ++w) {
-      if (minmax[w][0] < mn) mn = minmax[w][0];
-      if (minmax[w][1] > mx) mx = minmax[w][1];
-    }
-    const long long r = blockIdx.x;
-    out[r] = mn;
-    out[rows + r] = mx;
-    out[2LL * rows + r] = __uint_as_float(cur[0]);
-    out[3LL * rows + r] = __uint_as_float(cur[1]);
-    out[4LL * rows + r] = __uint_as_float(cur[2]);
-  }
-}
-
-// ---- K4 and its measurement build: the row's keys in registers ----
+// ---- K4: the row's keys in registers ----
 
 constexpr unsigned kNanKey = 0xffffffffu;  // never counted, matches no prefix
 constexpr unsigned kInfKey = 0x7f800000u;  // +inf, the largest counted key
@@ -264,11 +166,6 @@ __host__ __device__ constexpr int pass_shift(int p) {
   return p == 0 ? 23 : p == 1 ? 15 : p == 2 ? 7 : 0;
 }
 __host__ __device__ constexpr int pass_bits(int p) { return p == 3 ? 7 : 8; }
-
-// How pass 0 counts into its histogram, whose digit (the exponent) many
-// values of real data share: K4 adds each key alone; a measurement build
-// adds equal digits of a warp once (__match_any_sync).
-enum Pass0 { kAtomics = 0, kMatchAny = 1 };
 
 struct RadixShared {
   unsigned hist0[256];                 // pass 0, the three targets' one histogram
@@ -398,7 +295,7 @@ __device__ __forceinline__ void count_pass(const Keys& keys, RadixShared& sh) {
   });
 }
 
-template <int kThreads, int kPass0, class Keys>
+template <int kThreads, class Keys>
 __device__ __forceinline__ void radix_row(Keys& keys, RadixShared& sh, const float* row, int n,
                                           Targets tg, float* out, int rows) {
   unsigned* hist = &sh.hist0[0];  // hist0, then hist
@@ -412,14 +309,7 @@ __device__ __forceinline__ void radix_row(Keys& keys, RadixShared& sh, const flo
   const unsigned lane = threadIdx.x & 31;
   keys.each([&](unsigned k) {
     const unsigned d = k >> 23;  // 511 for kNanKey
-    if constexpr (kPass0 == kMatchAny) {
-      const unsigned peers = __match_any_sync(0xffffffffu, d);
-      if (d < 256 && lane == (unsigned)(__ffs(peers) - 1)) {
-        atomicAdd(&sh.hist0[d], (unsigned)__popc(peers));
-      }
-    } else if (d < 256) {
-      atomicAdd(&sh.hist0[d], 1u);
-    }
+    if (d < 256) atomicAdd(&sh.hist0[d], 1u);
   });
   warp_min_max(mn, mx, sh.minmax);
   __syncthreads();
@@ -439,10 +329,9 @@ __device__ __forceinline__ void radix_row(Keys& keys, RadixShared& sh, const flo
   resolve<3>(sh, tg, out, rows);
 }
 
-// K4 (kPass0 kAtomics) and its measurement build (kMatchAny).  kPer > 0:
-// the row in kPer registers a thread; 0: its keys in shared memory; -1:
-// read from device memory every pass.
-template <int kThreads, int kPer, int kPass0>
+// K4.  kPer > 0: the row in kPer registers a thread; 0: its keys in
+// shared memory; -1: read from device memory every pass.
+template <int kThreads, int kPer>
 __global__ void __launch_bounds__(kThreads)
     percentile5_radix_kernel(const float* __restrict__ src, long long row_stride, int n,
                              Targets tg, float* __restrict__ out, int rows) {
@@ -450,76 +339,11 @@ __global__ void __launch_bounds__(kThreads)
   const float* row = src + (long long)blockIdx.x * row_stride;
   if constexpr (kPer > 0) {
     RegisterKeys<kThreads, kPer> keys;
-    radix_row<kThreads, kPass0>(keys, sh, row, n, tg, out, rows);
+    radix_row<kThreads>(keys, sh, row, n, tg, out, rows);
   } else {
     extern __shared__ unsigned row_keys[];
     MemoryKeys<kThreads, kPer == 0> keys{row, row_keys, n};
-    radix_row<kThreads, kPass0>(keys, sh, row, n, tg, out, rows);
-  }
-}
-
-// The measurement build: the 31-round search on the same keys.  A round
-// counts keys below the three candidates, then one barrier: lane l of every
-// warp loads warp l's partials and a warp reduction sums them.  A
-// candidate that is a NaN pattern counts nothing (compared as 0).
-template <int kThreads, class Keys>
-__device__ __forceinline__ void search_row(Keys& keys, const float* row, int n, Targets tg,
-                                           float* out, int rows) {
-  constexpr int kWarps = kThreads / 32;
-  __shared__ int partials[2][kWarps][3];
-  __shared__ float minmax[kWarps][2];
-  const int lane = threadIdx.x & 31;
-  float mn = CUDART_INF_F;
-  float mx = -CUDART_INF_F;
-  keys.load(row, n, mn, mx);
-  warp_min_max(mn, mx, minmax);
-  __syncthreads();  // also publishes a shared row's keys
-  if ((threadIdx.x >> 5) == 3 && lane == 0) write_min_max(minmax, kWarps, out, rows);
-  unsigned cur[3] = {0u, 0u, 0u};
-#pragma unroll 1
-  for (int round = 0; round < 31; ++round) {
-    const unsigned bit = 1u << (30 - round);
-    unsigned c[3];
-    int cnt[3] = {0, 0, 0};
-#pragma unroll
-    for (int j = 0; j < 3; ++j) c[j] = (cur[j] | bit) > kInfKey ? 0u : (cur[j] | bit);
-    keys.each([&](unsigned k) {
-      cnt[0] += k < c[0];
-      cnt[1] += k < c[1];
-      cnt[2] += k < c[2];
-    });
-    const int bank = round & 1;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      cnt[j] = __reduce_add_sync(0xffffffffu, cnt[j]);
-      if (lane == 0) partials[bank][threadIdx.x >> 5][j] = cnt[j];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int total =
-          __reduce_add_sync(0xffffffffu, lane < kWarps ? partials[bank][lane][j] : 0);
-      if (total <= tg.t[j]) cur[j] |= bit;
-    }
-  }
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) out[(2LL + j) * rows + blockIdx.x] = __uint_as_float(cur[j]);
-  }
-}
-
-template <int kThreads, int kPer>
-__global__ void __launch_bounds__(kThreads)
-    percentile5_search_kernel(const float* __restrict__ src, long long row_stride, int n,
-                              Targets tg, float* __restrict__ out, int rows) {
-  const float* row = src + (long long)blockIdx.x * row_stride;
-  if constexpr (kPer > 0) {
-    RegisterKeys<kThreads, kPer> keys;
-    search_row<kThreads>(keys, row, n, tg, out, rows);
-  } else {
-    extern __shared__ unsigned row_keys[];
-    MemoryKeys<kThreads, kPer == 0> keys{row, row_keys, n};
-    search_row<kThreads>(keys, row, n, tg, out, rows);
+    radix_row<kThreads>(keys, sh, row, n, tg, out, rows);
   }
 }
 
@@ -547,11 +371,10 @@ int shared_budget(Kernel kernel, int* bytes) {
   return 0;
 }
 
-// The widest row K4's shared-memory path holds (the measurement build's
-// static shared memory is smaller, so the same rows fit it).
+// The widest row K4's shared-memory path holds.
 int max_shared_columns(int* cols) {
   int bytes = 0;
-  const int err = shared_budget(percentile5_radix_kernel<kManyThreads, 0, kAtomics>, &bytes);
+  const int err = shared_budget(percentile5_radix_kernel<kManyThreads, 0>, &bytes);
   if (!err) *cols = bytes / (int)sizeof(unsigned);
   return err;
 }
@@ -609,37 +432,16 @@ int launch(Kernel kernel, int threads, size_t smem, const float* s, long long st
   return (int)cudaGetLastError();
 }
 
-// The designs of run(): the radix select with each way of counting pass 0
-// (a Pass0), or the 31-round search.
-constexpr int kSearch = 2;
-
-template <int kDesign, int kThreads, int kPer>
-int launch_design(size_t smem, const float* s, long long stride, int rows, int n, Targets tg,
-                  float* o, cudaStream_t st) {
-  if constexpr (kDesign == kSearch) {
-    return launch(percentile5_search_kernel<kThreads, kPer>, kThreads, smem, s, stride, rows, n,
-                  tg, o, st);
-  } else {
-    return launch(percentile5_radix_kernel<kThreads, kPer, kDesign>, kThreads, smem, s, stride,
-                  rows, n, tg, o, st);
-  }
-}
-
-// A design of the radix select or the search at the shape launch_shape
-// picks, or, with `shared_keys`, with the keys in shared memory where they
-// would sit in registers.
-template <int kDesign>
-int run(const float* s, long long stride, int rows, int n, Targets tg, float* o, cudaStream_t st,
-        bool shared_keys = false) {
+// K4 at the shape launch_shape picks.
+int run(const float* s, long long stride, int rows, int n, Targets tg, float* o, cudaStream_t st) {
   int threads = 0;
   int per = 0;
   int err = launch_shape(rows, n, &threads, &per);
   if (err) return err;
-  if (shared_keys && per > 0) per = 0;
   const size_t smem = per == 0 ? (size_t)n * sizeof(unsigned) : 0;
 #define PC_CASE(T, P)          \
   if (threads == T && per == P) \
-    return launch_design<kDesign, T, P>(smem, s, stride, rows, n, tg, o, st);
+    return launch(percentile5_radix_kernel<T, P>, T, smem, s, stride, rows, n, tg, o, st);
   PC_CASE(256, 4)
   PC_CASE(256, 8)
   PC_CASE(256, 12)
@@ -705,36 +507,15 @@ int pc_launch_shape(int rows, int n, int* threads, int* per_thread) {
 // out (5, rows) float32 = [min, max, p25, p75, p50] of each row of src, a
 // (rows, n) float32 array on CUDA device `device` whose rows are
 // `row_stride` floats apart; the entry makes `device` current for the
-// launch.
-// design 0: K4 (radix select); its measurement builds 1 (the 31-round
-// search from registers), 3 (the radix select with pass 0 aggregated by
-// __match_any_sync) and 4 (K4 with the keys in shared memory); 2: the original
-// design (31 rounds from shared memory).
-// Returns a cudaError_t; 0 when the launch was accepted.
-int pc_percentile5(int design, int device, const void* src, long long row_stride, int rows, int n,
-                   void* out, void* stream) {
+// launch.  Returns a cudaError_t; 0 when the launch was accepted.
+int pc_percentile5(int device, const void* src, long long row_stride, int rows, int n, void* out,
+                   void* stream) {
   if (rows < 1 || n < 1 || row_stride < n) return (int)cudaErrorInvalidValue;
   const Targets tg = targets(n);
   const float* s = static_cast<const float*>(src);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return on_device(device, [&]() -> int {
-    if (design == 0) return run<kAtomics>(s, row_stride, rows, n, tg, o, st);
-    if (design == 1) return run<kSearch>(s, row_stride, rows, n, tg, o, st);
-    if (design == 3) return run<kMatchAny>(s, row_stride, rows, n, tg, o, st);
-    if (design == 4) return run<kAtomics>(s, row_stride, rows, n, tg, o, st, true);
-    if (design != 2) return (int)cudaErrorInvalidValue;
-    int budget = 0;
-    const int err = shared_budget(percentile5_original_kernel<true>, &budget);
-    if (err) return err;
-    const size_t smem = (size_t)n * sizeof(float);
-    if (smem <= (size_t)budget) {
-      return launch(percentile5_original_kernel<true>, kOriginalThreads, smem, s, row_stride, rows, n, tg,
-                    o, st);
-    }
-    return launch(percentile5_original_kernel<false>, kOriginalThreads, 0, s, row_stride, rows, n, tg, o,
-                  st);
-  });
+  return on_device(device, [&]() -> int { return run(s, row_stride, rows, n, tg, o, st); });
 }
 
 }  // extern "C"

@@ -17,20 +17,19 @@
 //   reduce     min(x, 3) + sum(y over the row)
 //   rank_round min(x, 3) + count(y < x[row, lane 0])
 //   sqrt       x + sqrt(y * y + 1)
-// and, at K1's launch only (no TPU body), shift_reg: y[lane + 1] + x with
-// the lane taken modulo kPart inside each piece of kPart channels.  The
-// min(., 3) barriers keep the compiler from folding a linear chain, as they
-// keep XLA from it (prim_cost.py:16-26).
+// and (no TPU body) shift_reg: y[lane + 1] + x with the lane taken modulo
+// kPart inside each piece of kPart channels.  The min(., 3) barriers keep
+// the compiler from folding a linear chain, as they keep XLA from it
+// (prim_cost.py:16-26).
 //
 // What bounds it: operations, by design: each rep is a few dependent
 // instructions per element, and the block is read and written once.  An
 // operation's cost depends on the machine it runs on, as the TPU's depended
-// on the block's layout, so the chains run at two launches:
-//
-// K1's launch (k1_prim_kernel, the record).  Exactly as K1's flagger_kernel
-// launches at 32768 channels: kThreads threads a CTA, one CTA per row, K1's
-// dynamic shared memory (runs::smem_bytes(32768), 151840 B: one CTA per
-// SM), __launch_bounds__(kThreads, 1) (at most 64 registers a thread).  The
+// on the block's layout, so the chains run at K1's launch (k1_prim_kernel),
+// exactly as K1's flagger_kernel launches at 32768 channels: kThreads
+// threads a CTA, one CTA per row, K1's dynamic shared memory
+// (runs::smem_bytes(32768), 151840 B: one CTA per SM),
+// __launch_bounds__(kThreads, 1) (at most 64 registers a thread).  The
 // row of C channels (a multiple of 64, up to 32768) is loaded coalesced into
 // shared memory in the run layout of ff_runs.cuh (channel c at word
 // runs::phys(c)) and stored back coalesced, as K1 loads and stores its row;
@@ -58,17 +57,6 @@
 //   shift_reg: the roll inside a piece in registers, as SumThreshold's
 //     doubling reads s[i + m] (runs::run_hits): no instruction beyond the
 //     add that takes it.
-//
-// The strided launch (prim_kernel, K8's earlier design).  One CTA per row,
-// one thread per lane (width <= 1024), so x and y live in registers and
-// every body but the neighbour and row-wide ones is one dependent chain per
-// thread.  A lane roll is a neighbour in shared memory behind a barrier;
-// `reduce` is a warp shuffle tree and one barrier over double-banked
-// partials; `rank_round` broadcasts lane 0's x through shared memory and
-// counts with __syncthreads_count.  The wrapper launches it with the
-// strided layout's dynamic shared memory (ff_device.cuh), one CTA per SM as
-// K2's strided design; its add chain gives the float32 instruction rate
-// behind the port's operation bounds.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,17 +77,13 @@ enum Body : int {
   kReduce = 8,
   kRankRound = 9,
   kSqrt = 10,
-  kShiftReg = 11,  // K1's launch only
+  kShiftReg = 11,  // no TPU body
 };
 
 constexpr float kC = 3.0f;
 constexpr float kC2 = 5.0f;
-constexpr int kMaxWidth = 1024;
 
 __device__ __forceinline__ float y0_of(float x) { return __fadd_rn(__fmul_rn(x, 0.5f), 0.125f); }
-
-// ---------------------------------------------------------------------------
-// K1's launch.
 
 constexpr int kRun = 32;                      // runs::run_length(32768)
 constexpr int kPart = 8;                      // channels an elementwise chain holds at once
@@ -344,155 +328,37 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int c = threadIdx.x; c < C; c += kThreads) dst[c] = row[runs::phys(c)];
 }
 
-// ---------------------------------------------------------------------------
-// The strided launch.
-
-// Shared memory: two banks of `width` floats for the lane rolls, two banks
-// of 32 partial sums, and lane 0's value for rank_round.
-__host__ __device__ inline size_t needed_smem(int width) {
-  return (2 * (size_t)width + 2 * 32 + 1) * sizeof(float);
-}
-
-__device__ __forceinline__ float strided_sum(float v, float* part, int& bank) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
-  float* b = part + bank * 32;
-  if ((threadIdx.x & 31) == 0) b[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.f;
-  const int warps = blockDim.x >> 5;
-  for (int i = 0; i < warps; ++i) s = __fadd_rn(s, b[i]);
-  bank ^= 1;
-  return s;
-}
-
-// y's value at lane `src` of this row, through bank `bank` of the roll buffer.
-__device__ __forceinline__ float neighbour(float y, int src, float* roll, int& bank) {
-  float* b = roll + bank * blockDim.x;
-  b[threadIdx.x] = y;
-  __syncthreads();
-  bank ^= 1;
-  return b[src];
-}
-
-struct Lanes {
-  bool mask;  // lane < width / 2
-  int left;   // lane - 1, wrapped
-  int right;  // lane + 1, wrapped
-};
-
-template <int kBody>
-__device__ __forceinline__ float rep(float x, float y, const Lanes& l, float* smem, int& bank) {
-  const int width = blockDim.x;
-  if constexpr (kBody == kAdd) {
-    return __fadd_rn(fminf(x, kC), y);
-  } else if constexpr (kBody == kMinMax) {
-    return __fadd_rn(fminf(x, kC), fmaxf(y, kC2));
-  } else if constexpr (kBody == kMul) {
-    return __fadd_rn(__fmul_rn(x, y), 1.0f);
-  } else if constexpr (kBody == kSelect) {
-    return __fadd_rn(l.mask ? y : x, y);
-  } else if constexpr (kBody == kCmpF32) {
-    return __fadd_rn(x, y < x ? 1.0f : 0.0f);
-  } else if constexpr (kBody == kRollLane) {
-    return __fadd_rn(fminf(neighbour(y, l.left, smem, bank), kC), x);
-  } else if constexpr (kBody == kShiftCh) {
-    return __fadd_rn(neighbour(y, l.right, smem, bank), x);
-  } else if constexpr (kBody == kReduce) {
-    return __fadd_rn(fminf(x, kC), strided_sum(y, smem + 2 * width, bank));
-  } else if constexpr (kBody == kRankRound) {
-    // One slot suffices: lane 0 rewrites it only after the count's barrier,
-    // which every thread reaches after reading it.
-    float* lane0 = smem + 2 * width + 64;
-    if (threadIdx.x == 0) *lane0 = x;
-    __syncthreads();
-    const int count = __syncthreads_count(y < *lane0);
-    return __fadd_rn(fminf(x, kC), (float)count);
-  } else {
-    static_assert(kBody == kSqrt, "unknown body");
-    return __fadd_rn(x, __fsqrt_rn(__fadd_rn(__fmul_rn(y, y), 1.0f)));
-  }
-}
-
-template <int kBody, int kUnroll>
-__global__ void __launch_bounds__(kMaxWidth, 1)
-    prim_kernel(const float* __restrict__ in, float* __restrict__ out, int steps) {
-  extern __shared__ __align__(16) float smem[];
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  float x = in[i];
-  float y = y0_of(x);
-  if constexpr (kBody != kEmpty) {
-    const int width = blockDim.x;
-    const Lanes l{(int)threadIdx.x < (width >> 1),
-                  threadIdx.x == 0 ? width - 1 : (int)threadIdx.x - 1,
-                  (int)threadIdx.x == width - 1 ? 0 : (int)threadIdx.x + 1};
-    int bank = 0;
-    for (int s = 0; s < steps; ++s) {
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const float next = rep<kBody>(x, y, l, smem, bank);
-        y = x;
-        x = next;
-      }
-    }
-  }
-  out[i] = __fadd_rn(x, y);
-}
-
-// ---------------------------------------------------------------------------
-// Dispatch.
-
-// Calls f with the kernel of `kBody` unrolled `unroll` times, at K1's
-// launch or the strided one.
-template <bool kK1, int kBody, int kUnroll, typename F>
-int call(F&& f) {
-  if constexpr (kK1) {
-    return f(k1_prim_kernel<kBody, kUnroll>);
-  } else {
-    return f(prim_kernel<kBody, kUnroll>);
-  }
-}
-
-template <bool kK1, int kBody, typename F>
+// Calls f with the kernel of `kBody` unrolled `unroll` times.
+template <int kBody, typename F>
 int with_unroll(int unroll, F&& f) {
   switch (unroll) {
-    case 1: return call<kK1, kBody, 1>(f);
-    case 2: return call<kK1, kBody, 2>(f);
-    case 4: return call<kK1, kBody, 4>(f);
-    case 8: return call<kK1, kBody, 8>(f);
-    case 16: return call<kK1, kBody, 16>(f);
+    case 1: return f(k1_prim_kernel<kBody, 1>);
+    case 2: return f(k1_prim_kernel<kBody, 2>);
+    case 4: return f(k1_prim_kernel<kBody, 4>);
+    case 8: return f(k1_prim_kernel<kBody, 8>);
+    case 16: return f(k1_prim_kernel<kBody, 16>);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// Calls f with the kernel of `body` unrolled `unroll` times; shift_reg only
-// at K1's launch.
-template <bool kK1, typename F>
+// Calls f with the kernel of `body` unrolled `unroll` times.
+template <typename F>
 int with_kernel(int body, int unroll, F&& f) {
   switch (body) {
-    case kEmpty: return with_unroll<kK1, kEmpty>(unroll, f);
-    case kAdd: return with_unroll<kK1, kAdd>(unroll, f);
-    case kMinMax: return with_unroll<kK1, kMinMax>(unroll, f);
-    case kMul: return with_unroll<kK1, kMul>(unroll, f);
-    case kSelect: return with_unroll<kK1, kSelect>(unroll, f);
-    case kCmpF32: return with_unroll<kK1, kCmpF32>(unroll, f);
-    case kRollLane: return with_unroll<kK1, kRollLane>(unroll, f);
-    case kShiftCh: return with_unroll<kK1, kShiftCh>(unroll, f);
-    case kReduce: return with_unroll<kK1, kReduce>(unroll, f);
-    case kRankRound: return with_unroll<kK1, kRankRound>(unroll, f);
-    case kSqrt: return with_unroll<kK1, kSqrt>(unroll, f);
-    case kShiftReg:
-      if constexpr (kK1) return with_unroll<kK1, kShiftReg>(unroll, f);
-      return (int)cudaErrorInvalidValue;
+    case kEmpty: return with_unroll<kEmpty>(unroll, f);
+    case kAdd: return with_unroll<kAdd>(unroll, f);
+    case kMinMax: return with_unroll<kMinMax>(unroll, f);
+    case kMul: return with_unroll<kMul>(unroll, f);
+    case kSelect: return with_unroll<kSelect>(unroll, f);
+    case kCmpF32: return with_unroll<kCmpF32>(unroll, f);
+    case kRollLane: return with_unroll<kRollLane>(unroll, f);
+    case kShiftCh: return with_unroll<kShiftCh>(unroll, f);
+    case kReduce: return with_unroll<kReduce>(unroll, f);
+    case kRankRound: return with_unroll<kRankRound>(unroll, f);
+    case kSqrt: return with_unroll<kSqrt>(unroll, f);
+    case kShiftReg: return with_unroll<kShiftReg>(unroll, f);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-int check_strided(int width, long long smem) {
-  if (width < 32 || width > kMaxWidth || width % 32 != 0 || smem < (long long)needed_smem(width)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  return 0;
 }
 
 int check_k1(int channels) {
@@ -524,51 +390,15 @@ extern "C" {
 // As in fused_flagger.cu, so the wrappers share their checks.
 const char* ff_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// The shared memory a strided launch at `width` needs at least.
-long long pc_needed_smem(int width) { return (long long)needed_smem(width); }
-
-// How `body` launches at the strided launch, `width` threads with `smem`
-// bytes of dynamic shared memory: threads per CTA, the shared memory, and
-// the CTAs that fit one SM at once.
-int pc_launch_config(int body, int unroll, int width, long long smem, int* threads,
-                     long long* smem_out, int* ctas_per_sm) {
-  *threads = width;
-  *smem_out = smem;
-  int err = check_strided(width, smem);
-  if (err) return err;
-  return with_kernel<false>(body, unroll, [&](auto kernel) {
-    return occupancy(kernel, width, (size_t)smem, threads, smem_out, ctas_per_sm);
-  });
-}
-
 // How `body` launches at K1's launch: kThreads threads, K1's dynamic shared
 // memory at 32768 channels, and the CTAs that fit one SM at once.
 int pc_k1_launch_config(int body, int unroll, int* threads, long long* smem_out,
                         int* ctas_per_sm) {
   *threads = kThreads;
   *smem_out = (long long)k1_smem();
-  return with_kernel<true>(body, unroll, [&](auto kernel) {
+  return with_kernel(body, unroll, [&](auto kernel) {
     return occupancy(kernel, kThreads, k1_smem(), threads, smem_out, ctas_per_sm);
   });
-}
-
-// The chain of `body` over (rows, width) float32 `in` to `out`, steps x
-// unroll reps, at the strided launch: one CTA of `width` threads per row
-// with `smem` bytes of dynamic shared memory.  Returns a cudaError_t; 0
-// when the launch was accepted.
-int pc_chain(int body, int unroll, const void* in, void* out, int rows, int width, int steps,
-             long long smem, void* stream) {
-  int err = check_strided(width, smem);
-  if (err) return err;
-  if (rows < 1 || steps < 0) return (int)cudaErrorInvalidValue;
-  err = with_kernel<false>(body, unroll, [&](auto kernel) {
-    int e = set_smem(kernel, (size_t)smem);
-    if (e) return e;
-    kernel<<<rows, width, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(in), static_cast<float*>(out), steps);
-    return 0;
-  });
-  return err ? err : (int)cudaGetLastError();
 }
 
 // The chain of `body` over (rows, channels) float32 `in` to `out`, steps x
@@ -580,7 +410,7 @@ int pc_k1_chain(int body, int unroll, const void* in, void* out, int rows, int c
   int err = check_k1(channels);
   if (err) return err;
   if (rows < 1 || steps < 0) return (int)cudaErrorInvalidValue;
-  err = with_kernel<true>(body, unroll, [&](auto kernel) {
+  err = with_kernel(body, unroll, [&](auto kernel) {
     int e = set_smem(kernel, k1_smem());
     if (e) return e;
     kernel<<<rows, kThreads, k1_smem(), static_cast<cudaStream_t>(stream)>>>(

@@ -24,22 +24,17 @@ from . import parse
 launches = {"multiply": 0}
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C entries of a build of ``csrc/examples.cu``."""
-    lib.ex_error_string.argtypes = [ctypes.c_int]
-    lib.ex_error_string.restype = ctypes.c_char_p
-    for entry in (lib.ex_multiply, lib.ex_multiply_grid_stride):
-        entry.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
-                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        entry.restype = ctypes.c_int
-    return lib
-
-
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     from ..utils import kernels
 
-    return _bind(kernels.load("examples", ["examples.cu"], {}))
+    lib = kernels.load("examples", ["examples.cu"], {})
+    lib.ex_error_string.argtypes = [ctypes.c_int]
+    lib.ex_error_string.restype = ctypes.c_char_p
+    lib.ex_multiply.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.ex_multiply.restype = ctypes.c_int
+    return lib
 
 
 def multiply_plain(data, scale):
@@ -60,25 +55,6 @@ def _check(data) -> bool:
     return False
 
 
-def _launch(lib: ctypes.CDLL, entry, data, scale, threads: int):
-    """A new tensor of ``data * scale`` by the C entry `entry` of `lib`, a build of examples.cu.
-
-    The entry sets the device itself, and the current stream is read as a
-    raw handle (as Triton's launcher reads it): ``torch.cuda.device`` and
-    ``torch.cuda.current_stream`` would cost the host more than the rest of
-    the call.  ctypes rounds `scale` to float32 to nearest, as
-    ``np.float32`` does.
-    """
-    out = torch.empty_like(data)
-    index = data.get_device()
-    err = entry(data.data_ptr(), out.data_ptr(), data.numel(), float(scale), threads, index,
-                torch._C._cuda_getCurrentRawStream(index))
-    if err != 0:
-        raise RuntimeError(
-            f"multiply launch failed: cudaError {err} ({lib.ex_error_string(err).decode()})")
-    return out
-
-
 def multiply(data, scale, *, threads: int = 1024):
     """``data * scale`` for float32 `data` (K7 on a CUDA tensor).
 
@@ -88,8 +64,19 @@ def multiply(data, scale, *, threads: int = 1024):
     """
     if _check(data):
         return multiply_plain(data, scale)
+    # The C entry sets the device itself, and the current stream is read as
+    # a raw handle (as Triton's launcher reads it): ``torch.cuda.device`` and
+    # ``torch.cuda.current_stream`` would cost the host more than the rest
+    # of the call.  ctypes rounds `scale` to float32 to nearest, as
+    # ``np.float32`` does.
     lib = _library()
-    out = _launch(lib, lib.ex_multiply, data, scale, threads)
+    out = torch.empty_like(data)
+    index = data.get_device()
+    err = lib.ex_multiply(data.data_ptr(), out.data_ptr(), data.numel(), float(scale), threads,
+                          index, torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(
+            f"multiply launch failed: cudaError {err} ({lib.ex_error_string(err).decode()})")
     launches["multiply"] += 1
     return out
 

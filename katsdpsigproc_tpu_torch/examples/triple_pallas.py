@@ -13,10 +13,9 @@ hints.  The program masks the ragged tail, which the TPU grid
 
 What bounds it: bytes.  Each element is read once and written once (8 B
 for one multiply), so 2**28 elements take at least 0.64 ms at 3.35 TB/s.
-The tile and warps are the fastest of the points of :data:`SWEEP` in
-``scripts/examples_ab.py`` on the H100, ahead of four vectors a thread
-with or without evict-first hints (PERF.md); ``BLOCK`` at 4 warps, the
-earlier design, is timed beside it.
+The tile and warps were the fastest of six (tile, warps) points on the
+H100, ahead of four vectors a thread with or without evict-first hints
+and of ``BLOCK`` at 4 warps, the earlier design (PERF.md).
 
 Triton is imported, and the kernel compiled, on the first launch (into
 ``TRITON_CACHE_DIR``, by default ``build/katsdpsigproc_tpu_torch/triton``
@@ -38,8 +37,6 @@ from . import parse
 BLOCK = 256  # doc/examples/triple_pallas.py:20, the elements of one grid step
 TILE = 4096  # the elements of one program
 NUM_WARPS = 32
-# (tile, warps) points of the A/B: one 128-bit vector a thread, and four.
-SWEEP = ((1024, 8), (2048, 16), (4096, 32), (2048, 4), (4096, 8), (8192, 16))
 
 # Kernel launches since the count was last reset.  The wrapper adds one
 # where it launches the kernel, and nowhere else.
@@ -60,16 +57,12 @@ def _kernel():
     import triton.language as tl
 
     @triton.jit
-    def triple_kernel(x_ptr, o_ptr, n, TILE: tl.constexpr, EVICT_FIRST: tl.constexpr):
+    def triple_kernel(x_ptr, o_ptr, n, TILE: tl.constexpr):
         offsets = tl.program_id(0).to(tl.int64) * TILE + tl.arange(0, TILE)
         offsets = tl.max_contiguous(tl.multiple_of(offsets, TILE), TILE)
         mask = offsets < n
-        if EVICT_FIRST:
-            x = tl.load(x_ptr + offsets, mask=mask, eviction_policy="evict_first")
-            tl.store(o_ptr + offsets, x * 3.0, mask=mask, cache_modifier=".cs")
-        else:
-            x = tl.load(x_ptr + offsets, mask=mask)
-            tl.store(o_ptr + offsets, x * 3.0, mask=mask)
+        x = tl.load(x_ptr + offsets, mask=mask)
+        tl.store(o_ptr + offsets, x * 3.0, mask=mask)
 
     return triple_kernel
 
@@ -92,24 +85,6 @@ def _check(x) -> bool:
     return False
 
 
-def _launch(x, tile: int, num_warps: int, evict_first: bool = False):
-    out = torch.empty_like(x)
-    n = x.numel()
-    if n:
-        launch = _kernel()[((n + tile - 1) // tile,)]
-        args = (x, out, n)
-        kwargs = dict(TILE=tile, EVICT_FIRST=evict_first, num_warps=num_warps)
-        # Triton launches on the current device; entering torch.cuda.device
-        # costs the host a few microseconds, so only where it is another.
-        index = x.get_device()
-        if index == torch.cuda.current_device():
-            launch(*args, **kwargs)
-        else:
-            with torch.cuda.device(index):
-                launch(*args, **kwargs)
-    return out
-
-
 def triple(x):
     """``3 * x`` for a 1-D float32 tensor (K6 on a CUDA tensor).
 
@@ -118,23 +93,20 @@ def triple(x):
     """
     if _check(x):
         return triple_plain(x)
-    out = _launch(x, TILE, NUM_WARPS)
-    if x.numel():
+    out = torch.empty_like(x)
+    n = x.numel()
+    if n:
+        launch = _kernel()[((n + TILE - 1) // TILE,)]
+        # Triton launches on the current device; entering torch.cuda.device
+        # costs the host a few microseconds, so only where it is another.
+        index = x.get_device()
+        if index == torch.cuda.current_device():
+            launch(x, out, n, TILE=TILE, num_warps=NUM_WARPS)
+        else:
+            with torch.cuda.device(index):
+                launch(x, out, n, TILE=TILE, num_warps=NUM_WARPS)
         launches["triple"] += 1
     return out
-
-
-def triple_config(x, tile: int, num_warps: int, *, evict_first: bool = False):
-    """``3 * x`` by K6 at `tile` elements a program and `num_warps` (a CUDA tensor).
-
-    For the A/B of ``scripts/examples_ab.py``: the points of :data:`SWEEP`,
-    the earlier design at ``BLOCK`` and 4 warps, and with `evict_first`
-    evict-first loads and streaming (``.cs``) stores.  Not counted in
-    :data:`launches`.
-    """
-    if _check(x):
-        raise ValueError("the K6 configurations run on a CUDA tensor only")
-    return _launch(x, tile, num_warps, evict_first)
 
 
 def main(argv=None) -> None:

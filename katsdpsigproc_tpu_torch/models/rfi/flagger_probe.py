@@ -22,19 +22,13 @@ variant launches as the kernel it varies (1024 threads, one CTA per SM at
   latter read in place by a thread-block cluster of rows (:data:`CLUSTERS`);
   and :data:`INPLACE`, ``channel_major``: K1 with its load stage replaced
   by that in-place read of the channel-major dump, flag for flag K1 on the
-  corner-turned dump.  K12's earlier design stays as
-  :func:`amp_pairs_strided`.
+  corner-turned dump.
 
-K9, K11, K13 and ``channel_major`` (:data:`RUN_LAYOUT`) are K1 on its run
+K9, K11, K13 and ``channel_major`` (:data:`VARIANTS`) are K1 on its run
 layout (``csrc/ff_runs.cuh``) and launch exactly as K1 does
 (:func:`.fused_flagger.launch_config`), up to K1's channel limit
 (:func:`.fused_flagger.max_channels`); so does K12 (:func:`amp_pairs`),
-whose row passes through K1's amplitude words.  ``strided_full``, K1 on
-the strided layout (``csrc/ff_device.cuh``: thread t owns channels t,
-t + 1024, ... of a row held at 5 B per channel), flag for flag the current
-one (:data:`STRIDED`), and :func:`amp_pairs_strided` launch as K2's
-strided design does (:func:`.fused_flagger.strided_launch_config`), up to
-that layout's limit.
+whose row passes through K1's amplitude words.
 
 The TPU probes' layout knobs (``bb``, ``fold``, ``interpret``) have no
 counterpart.  As in the TPU probes there are no input flags, a row holds
@@ -62,50 +56,34 @@ RANK_SEARCHES = ("rank_pair", "zeros_fold", "radix_select")
 MEDIANS = ("shfl_median", "window_median")
 # K1 reading the channel-major dump in place by K12's cluster read.
 INPLACE = ("channel_major",)
-# On K1's run layout, launched as K1 is (K11, K13, K9, K12's probe).
-RUN_LAYOUT = STAGE_ABLATE + RANK_SEARCHES + MEDIANS + INPLACE
-# On the strided layout, launched as K2's strided design is: K1 in that
-# layout, the "before" of ``scripts/k1_ab.py``.
-STRIDED = ("strided_full",)
-VARIANTS = RUN_LAYOUT + STRIDED
-# A measurement instance of `radix_select`, not a variant
-# (``scripts/rankpair_ab.py``): pass 0 adds each distinct exponent digit of
-# a warp once (``__match_any_sync``), as K4's measurement build does; on
-# the run layout.
-MEASUREMENT = ("radix_match_any",)
+# Every variant: on K1's run layout, launched as K1 is.
+VARIANTS = STAGE_ABLATE + RANK_SEARCHES + MEDIANS + INPLACE
 # Those whose flags must equal K1's, flag for flag.
-EXACT = ("full",) + RANK_SEARCHES + MEDIANS + INPLACE + MEASUREMENT + STRIDED
-# The TPU probe each variant ports, under the probe's name (``strided_full``
-# ports none).
+EXACT = ("full",) + RANK_SEARCHES + MEDIANS + INPLACE
+# The TPU probe each variant ports, under the probe's name.
 PROBES = {
     "stage_ablate": STAGE_ABLATE,
     "rankpair": RANK_SEARCHES,
     "rollchain": MEDIANS,
     "deinterleave": ("amp_pairs",) + INPLACE,
 }
-# K12's kernels: at K1's launch (the redesign) and its earlier design.
-AMP_KERNELS = ("amp_pairs", "amp_pairs_strided")
 # The cluster sizes of K12's channel-major read, template instances in the
-# library (its measurement builds) of K12 and of ``channel_major``; CLUSTER
+# library of K12 and of ``channel_major``; CLUSTER
 # is the one they take by default, ``channel_major``'s fastest on the H100:
 # 66 clusters of 2 fill its 132 SMs, where clusters of 4 or 8 fill 120.
 CLUSTERS = (1, 2, 4, 8)
 CLUSTER = 2
 # The probes' median variants hold a window's members in registers.
 MAX_WIDTH = 31
-_CODE = {name: i for i, name in enumerate(RUN_LAYOUT + MEASUREMENT + STRIDED)}
+_CODE = {name: i for i, name in enumerate(VARIANTS)}
 # The threshold's parameters, fixed as the TPU probes fix them.
 PARAMS = dict(n_sigma=11.0, n_windows=4, falloff=1.2, flag_value=1)
-# K12's kernels in the library (AmpKernel): run layout baseline- and
-# channel-major, strided layout baseline- and channel-major.
-_AMP_CODE = {("amp_pairs", False): 0, ("amp_pairs", True): 1,
-             ("amp_pairs_strided", False): 2, ("amp_pairs_strided", True): 3}
 
-# Kernel launches since the counts were last reset, per variant and K12
-# kernel, and the launches of K12's channel-major read on the run layout
-# (K12's and `channel_major`'s) per cluster.
+# Kernel launches since the counts were last reset, per variant and of K12
+# (``amp_pairs``), and the launches of K12's channel-major read (K12's and
+# `channel_major`'s) per cluster.
 # Each wrapper adds one where it launches its kernel, and nowhere else.
-launches = {name: 0 for name in VARIANTS + MEASUREMENT + AMP_KERNELS}
+launches = {name: 0 for name in VARIANTS + ("amp_pairs",)}
 cluster_launches = {g: 0 for g in CLUSTERS}
 
 
@@ -115,9 +93,8 @@ def _library(width: int) -> ctypes.CDLL:
 
     lib = kernels.load("flagger_probe", ["flagger_probe.cu"],
                        {"ff_network.h": ff._network_header(width)})
-    for limit in (lib.ff_max_channels, lib.ff_strided_max_channels):
-        limit.argtypes = []
-        limit.restype = ctypes.c_int
+    lib.ff_max_channels.argtypes = []
+    lib.ff_max_channels.restype = ctypes.c_int
     lib.ff_error_string.argtypes = [ctypes.c_int]
     lib.ff_error_string.restype = ctypes.c_char_p
     lib.fp_launch_config.argtypes = [ctypes.c_int, ctypes.c_int] + ff._LAUNCH_CONFIG_OUT
@@ -136,8 +113,6 @@ def _library(width: int) -> ctypes.CDLL:
     lib.fp_amp_launch_config.argtypes = ([ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
                                          + ff._LAUNCH_CONFIG_OUT)
     lib.fp_amp_launch_config.restype = ctypes.c_int
-    lib.fp_amp_max_channels.argtypes = [ctypes.c_int]
-    lib.fp_amp_max_channels.restype = ctypes.c_int
     return lib
 
 
@@ -153,14 +128,12 @@ def _check_vis(vis, name: str):
 def launch_config(variant: str, channels: int) -> dict:
     """How the kernel of `variant` launches at `channels`, from the library itself.
 
-    The keys of :func:`.fused_flagger.launch_config`.  A variant of
-    :data:`RUN_LAYOUT` or :data:`MEASUREMENT`, and ``amp_pairs``, must
-    launch as K1 does; ``strided_full`` and ``amp_pairs_strided`` as
-    :func:`.fused_flagger.strided_launch_config` says.  For K12's kernels
+    The keys of :func:`.fused_flagger.launch_config`.  Every variant of
+    :data:`VARIANTS`, and ``amp_pairs``, must launch as K1 does.  For K12
     see also :func:`amp_launch_config`.  Needs a CUDA device.
     """
-    if variant in AMP_KERNELS:
-        cfg = amp_launch_config(channels, strided=variant == "amp_pairs_strided")
+    if variant == "amp_pairs":
+        cfg = amp_launch_config(channels)
         del cfg["clusters"]
         return cfg
     code = _CODE.get(variant)
@@ -170,19 +143,18 @@ def launch_config(variant: str, channels: int) -> dict:
     return ff._query_launch_config(lib, lib.fp_launch_config, code, channels)
 
 
-def amp_launch_config(channels: int, *, channel_major: bool = False, cluster: int = CLUSTER,
-                      strided: bool = False) -> dict:
-    """How a K12 kernel launches at `channels`: :func:`launch_config`'s keys and ``clusters``.
+def amp_launch_config(channels: int, *, channel_major: bool = False,
+                      cluster: int = CLUSTER) -> dict:
+    """How K12 launches at `channels`: :func:`launch_config`'s keys and ``clusters``.
 
     ``clusters`` is how many clusters of `cluster` rows fit the device at
-    once for the channel-major read on the run layout
-    (``cudaOccupancyMaxActiveClusters``), 0 for a kernel without a cluster.
-    Needs a CUDA device.
+    once for the channel-major read (``cudaOccupancyMaxActiveClusters``),
+    0 for a launch without a cluster.  Needs a CUDA device.
     """
     if cluster not in CLUSTERS:
         raise ValueError(f"cluster must be one of {CLUSTERS}, got {cluster}")
     lib = _library(13)
-    code = _AMP_CODE["amp_pairs_strided" if strided else "amp_pairs", channel_major]
+    code = int(channel_major)  # the library's AmpKernel
     clusters = ctypes.c_int()
     cfg = ff._query_launch_config(lib, lib.fp_amp_launch_config, code, cluster, channels,
                                   ctypes.byref(clusters))
@@ -190,12 +162,13 @@ def amp_launch_config(channels: int, *, channel_major: bool = False, cluster: in
 
 
 def max_channels(variant: str) -> int:
-    """The most channels a row may hold in `variant` (or a K12 kernel); needs a CUDA device."""
+    """The most channels a row may hold in `variant` (or ``amp_pairs``): K1's limit.
+
+    Needs a CUDA device.
+    """
     if variant not in launches:
         raise ValueError(f"unknown variant {variant!r}")
-    lib = _library(13)
-    return (lib.ff_max_channels() if variant in RUN_LAYOUT + MEASUREMENT + ("amp_pairs",)
-            else lib.ff_strided_max_channels())
+    return _library(13).ff_max_channels()
 
 
 def madnz_radix_plain(dev_t):
@@ -253,11 +226,11 @@ def probe_plain(vis_t, variant: str, *, width: int = 13):
     """The plain PyTorch version of `variant`, composed of the :mod:`.device` stages.
 
     ``full`` and the bit-exact variants are K1's plain version
-    (:func:`.fused_flagger.flag_transposed_plain`), but ``radix_select``
-    and its measurement instance, whose noise is :func:`madnz_radix_plain`;
-    the stand-ins follow ``stage_ablate.py:61-80``.
+    (:func:`.fused_flagger.flag_transposed_plain`), but ``radix_select``,
+    whose noise is :func:`madnz_radix_plain`; the stand-ins follow
+    ``stage_ablate.py:61-80``.
     """
-    radix = variant in ("radix_select",) + MEASUREMENT
+    radix = variant == "radix_select"
     if variant in EXACT and not radix:
         return ff.flag_transposed_plain(vis_t, width=width, **PARAMS)
     if variant not in _CODE:
@@ -295,7 +268,7 @@ def probe(vis_t, variant: str, *, width: int = 13, cluster: int = CLUSTER):
         (the bench's ``vis.transpose(0, 1)``), else from a contiguous copy
         of it.
     variant
-        One of :data:`VARIANTS`, or :data:`MEASUREMENT`.
+        One of :data:`VARIANTS`.
     width
         The median's window, as K1's (:func:`.fused_flagger.flag_transposed`).
     cluster
@@ -307,7 +280,7 @@ def probe(vis_t, variant: str, *, width: int = 13, cluster: int = CLUSTER):
     (rows, channels) uint8 flags on the input's device.
     """
     if variant not in _CODE:
-        raise ValueError(f"unknown variant {variant!r}; expected one of {VARIANTS + MEASUREMENT}")
+        raise ValueError(f"unknown variant {variant!r}; expected one of {VARIANTS}")
     if width % 2 != 1 or not 3 <= width <= MAX_WIDTH:
         raise ValueError(f"width must be odd and in 3..{MAX_WIDTH}, got {width}")
     if cluster not in CLUSTERS:
@@ -358,19 +331,6 @@ def amp_pairs(vis, *, channel_major: bool = False, cluster: int = CLUSTER):
     """
     if cluster not in CLUSTERS:
         raise ValueError(f"cluster must be one of {CLUSTERS}, got {cluster}")
-    return _amp("amp_pairs", vis, channel_major, cluster)
-
-
-def amp_pairs_strided(vis, *, channel_major: bool = False):
-    """K12's earlier design: :func:`amp_pairs` with one CTA per row on the strided layout.
-
-    A thread loads one pair an iteration; channel-major, a warp's 32 loads
-    are `rows` pairs apart.  Launches as K2's strided design does.
-    """
-    return _amp("amp_pairs_strided", vis, channel_major, 1)
-
-
-def _amp(kernel: str, vis, channel_major: bool, cluster: int):
     _check_vis(vis, "vis")
     if channel_major:
         channels, rows = vis.shape[:2]
@@ -385,14 +345,13 @@ def _amp(kernel: str, vis, channel_major: bool, cluster: int):
         return out
     with torch.cuda.device(vis.device):
         lib = _library(13)  # the network header's width does not affect K12
-        code = _AMP_CODE[kernel, channel_major]
-        limit = lib.fp_amp_max_channels(code)
+        limit = lib.ff_max_channels()
         if channels > limit:
-            raise ValueError(f"{channels} channels exceed {kernel}'s limit of {limit} channels")
-        err = lib.fp_amp_pairs(code, cluster, vis.data_ptr(), out.data_ptr(), rows, channels,
-                               torch.cuda.current_stream(vis.device).cuda_stream)
-    ff._raise_on(lib, err, kernel)
-    launches[kernel] += 1
-    if kernel == "amp_pairs" and channel_major:
+            raise ValueError(f"{channels} channels exceed amp_pairs's limit of {limit} channels")
+        err = lib.fp_amp_pairs(int(channel_major), cluster, vis.data_ptr(), out.data_ptr(), rows,
+                               channels, torch.cuda.current_stream(vis.device).cuda_stream)
+    ff._raise_on(lib, err, "amp_pairs")
+    launches["amp_pairs"] += 1
+    if channel_major:
         cluster_launches[cluster] += 1
     return out

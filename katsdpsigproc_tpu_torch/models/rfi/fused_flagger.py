@@ -17,21 +17,18 @@ kernels live in ``csrc/fused_flagger.cu``:
   ``pallas_flagger.py::_madnz_threshold_block``: MAD noise + SumThreshold
   from deviations, for the hybrid engine, on K1's run layout up to K1's
   channel limit (:func:`max_channels`), and on the wide-row path beyond
-  it.  Its earlier design on the strided layout of ``csrc/ff_device.cuh``
-  stays in the library as that layout's launch
-  (:func:`strided_launch_config`), which the probes on that layout
-  (``strided_full``, K12's earlier design ``amp_pairs_strided``) and the
-  cost probe K8 are held to, and as the "before" of ``scripts/k2_ab.py``.
+  it.
 
 Both run as one launch over all rows, which takes the place of the TPU's
 in-kernel DMA block loop (``_dma_block_loop``): :func:`flag_transposed`,
 :func:`flag_transposed_dma` and :func:`flag_dump` are each one launch of
 K1, and :func:`madnz_threshold` one of K2.  A row longer than
 :func:`max_channels` does not fit one CTA's shared memory: it takes the
-*wide-row path*, the same stages in the strided layout's arithmetic on a
-slice of a device scratch buffer that the wrapper allocates, one slice for
-each CTA of a grid of about one CTA per SM that loops over the rows
-(:data:`wide_launches` counts these launches).  The wrappers take the
+*wide-row path*, the same stages in ``csrc/ff_device.cuh``'s
+channel-strided arithmetic on a slice of a device scratch buffer that the
+wrapper allocates, one slice for each CTA of a grid of about one CTA per
+SM that loops over the rows (:data:`wide_launches` counts these
+launches).  The wrappers take the
 JAX functions' parameters in their order.  The TPU layout knobs (``bb``,
 ``fold``, ``interpret``, ``nref``, ``pipeline``, ``rank_radix``,
 ``slab``) are accepted and ignored: a row is one CTA.  ``rank_radix`` is
@@ -144,25 +141,19 @@ _LAUNCH_CONFIG_OUT = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_long
 def _library(width: int) -> ctypes.CDLL:
     from ...utils import kernels
 
-    return _bind(kernels.load("fused_flagger", ["fused_flagger.cu"],
-                              {"ff_network.h": _network_header(width)}))
-
-
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface of a build of ``fused_flagger.cu``."""
+    lib = kernels.load("fused_flagger", ["fused_flagger.cu"],
+                       {"ff_network.h": _network_header(width)})
     lib.ff_max_channels.argtypes = []
     lib.ff_max_channels.restype = ctypes.c_int
     lib.ff_error_string.argtypes = [ctypes.c_int]
     lib.ff_error_string.restype = ctypes.c_char_p
-    for query in (lib.ff_strided_max_channels, lib.ff_max_in_place_width, lib.ff_wide_ctas):
+    for query in (lib.ff_max_in_place_width, lib.ff_wide_ctas):
         query.argtypes = []
         query.restype = ctypes.c_int
     lib.ff_wide_row_bytes.argtypes = [ctypes.c_int]
     lib.ff_wide_row_bytes.restype = ctypes.c_longlong
     lib.ff_launch_config.argtypes = [ctypes.c_int, ctypes.c_int] + _LAUNCH_CONFIG_OUT
-    lib.ff_strided_launch_config.argtypes = [ctypes.c_int] + _LAUNCH_CONFIG_OUT
-    for query in (lib.ff_launch_config, lib.ff_strided_launch_config):
-        query.restype = ctypes.c_int
+    lib.ff_launch_config.restype = ctypes.c_int
     k1_args = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -177,12 +168,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     lib.ff_madnz_threshold_wide.restype = ctypes.c_int
-    for madnz in (lib.ff_madnz_threshold, lib.ff_madnz_threshold_strided):
-        madnz.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        madnz.restype = ctypes.c_int
+    lib.ff_madnz_threshold.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.ff_madnz_threshold.restype = ctypes.c_int
     return lib
 
 
@@ -328,20 +318,6 @@ def _launch_config_at(channels: int, threads: int) -> dict:
     """:func:`launch_config` of K1's instance of `threads` threads a CTA at `channels`."""
     lib = _library(13)  # the network header's width does not change the launch
     return _query_launch_config(lib, lib.ff_launch_config, channels, threads)
-
-
-def strided_launch_config(channels: int) -> dict:
-    """How a kernel on the strided layout of ``csrc/ff_device.cuh`` launches.
-
-    The keys of :func:`launch_config`, for K2's strided design at
-    `channels`: thread t owns channels t, t + 1024, ... of a row held at
-    5 B per channel.  The probe ``strided_full``, K12's earlier design
-    ``amp_pairs_strided`` and the cost probe K8 are held to this
-    configuration.
-    Needs a CUDA device.
-    """
-    lib = _library(13)
-    return _query_launch_config(lib, lib.ff_strided_launch_config, channels)
 
 
 def max_channels() -> int:

@@ -51,8 +51,8 @@ def _library() -> ctypes.CDLL:
                                     ctypes.POINTER(ctypes.c_int)]
     lib.pc_launch_shape.restype = ctypes.c_int
     lib.pc_percentile5.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.pc_percentile5.restype = ctypes.c_int
     return lib
@@ -177,29 +177,6 @@ def percentile5_cuda(values: torch.Tensor) -> torch.Tensor:
     _check_2d(values)
     if values.device.type == "cpu":
         return percentile5_plain(values)
-    out = _launch(values, 0)
-    launches["percentile5"] += 1
-    return out
-
-
-def launch(values: torch.Tensor, design: int) -> torch.Tensor:
-    """Launch a design of ``csrc/percentile.cu`` on CUDA (rows, n) float32 `values`.
-
-    `design` 0 is K4.  The A/B tool ``scripts/k4_ab.py`` launches the
-    others: 1, the 31-round search from registers; 2, the original design (31
-    rounds from shared memory); 3, K4 with its first pass aggregated
-    within a warp (``__match_any_sync``); 4, K4 with the keys in shared
-    memory.  Counts nothing: the callers do.  The C entry makes the
-    tensor's device current itself, and the stream is read as a raw
-    handle: ``torch.cuda.device`` and ``torch.cuda.current_stream`` would
-    cost the host more than the 64 x 4096 call takes on the card.
-    """
-    _check_2d(values)
-    return _launch(values, design)
-
-
-def _launch(values: torch.Tensor, design: int) -> torch.Tensor:
-    """:func:`launch` on `values` that passed ``_check_2d``."""
     if values.device.type != "cuda":
         raise ValueError(f"unsupported device {values.device}")
     rows, n = values.shape
@@ -211,13 +188,18 @@ def _launch(values: torch.Tensor, design: int) -> torch.Tensor:
     out = torch.empty((5, rows), dtype=torch.float32, device=values.device)
     if rows == 0:
         return out
+    # The C entry makes the tensor's device current itself, and the stream
+    # is read as a raw handle: ``torch.cuda.device`` and
+    # ``torch.cuda.current_stream`` would cost the host more than the
+    # 64 x 4096 call takes on the card.
     lib = _library()
     index = values.get_device()
-    err = lib.pc_percentile5(design, index, values.data_ptr(), row_stride, rows, n,
-                             out.data_ptr(), torch._C._cuda_getCurrentRawStream(index))
+    err = lib.pc_percentile5(index, values.data_ptr(), row_stride, rows, n, out.data_ptr(),
+                             torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(
             f"percentile5 launch failed: cudaError {err} ({lib.pc_error_string(err).decode()})")
+    launches["percentile5"] += 1
     return out
 
 

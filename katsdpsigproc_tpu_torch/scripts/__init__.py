@@ -9,7 +9,7 @@ under the same names; they run on the card, or on the CPU with
 ``--device cpu``.  The probes need a CUDA device.  They port the TPU
 probes of ``scripts/`` under the same names, on the main path's dump by
 default: the stage probes of K1 and the cost probes ``prim_cost`` (K8)
-and ``roofline_skeleton`` (K10).  ``k1_ab`` has no TPU counterpart: it
-times K1 in its run layout against K1 in the strided layout (probe
-``full``).
+and ``roofline_skeleton`` (K10).  ``common`` holds what they share: the
+dump, the card's name, the test data of K2 and K4, and the timing
+report.
 """

@@ -1,4 +1,5 @@
-"""What the probe scripts and harnesses share: the card, the dump and the CLI."""
+"""What the probe scripts and harnesses share: the card, the dump, the CLI, and the
+adversarial test data and library yardstick of K2 and K4."""
 
 import argparse
 import subprocess
@@ -7,6 +8,8 @@ import time
 
 import numpy as np
 import torch
+
+from ..models.rfi import device
 
 # The main path's dump: 32768 channels x 2016 baselines x 4 pols.
 CHANNELS, ROWS = 32768, 2016 * 4
@@ -72,6 +75,83 @@ def dump_on_card(channels: int, rows: int) -> torch.Tensor:
     vis_np = meerkat_dump(channels, rows)
     planar = np.stack([vis_np.real, vis_np.imag], axis=-1)
     return torch.from_numpy(planar).cuda()
+
+
+def deviations(vis, block: int = 1008):
+    """(rows, channels) deviations of channel-major (channels, rows, 2) `vis`.
+
+    As the hybrid engine has them: the plain background's general path,
+    `block` rows at a time to bound its memory.
+    """
+    channels, rows = vis.shape[:2]
+    dev_t = torch.empty((rows, channels), dtype=torch.float32, device=vis.device)
+    for s in range(0, rows, block):
+        dev_t[s:s + block] = device.background_median_filter(
+            vis[:, s:s + block], None, 13, False, device.BackgroundFlags.NONE,
+            fast_path=False).T
+    return dev_t
+
+
+def adversarial_deviations(rows: int, channels: int, seed: int, *, denormals: bool = True):
+    """(rows, channels) float32 deviations K1 never hands its back half, from `seed`.
+
+    Noise with spikes, and rows 1-7: every seventh NaN, one +inf and one
+    -inf, all zero (a MAD of the non-zero values with none), every third
+    -0, denormals, all NaN, every fifth +inf.  With `denormals` False
+    row 5 has every other value 0 instead: XLA on the CPU flushes
+    denormals to zero.  Needs rows >= 8.
+    """
+    rs = np.random.RandomState(seed)
+    d = rs.standard_normal((rows, channels)).astype(np.float32)
+    d[:, rs.randint(0, channels, size=max(1, channels // 40))] += 30.0
+    d[1, ::7] = np.nan
+    d[2, rs.randint(0, channels, size=2)] = (np.inf, -np.inf)
+    d[3] = 0.0
+    d[4, ::3] = -0.0
+    if denormals:
+        d[5] *= 1e-39
+    else:
+        d[5, ::2] = 0.0
+    d[6] = np.nan
+    d[7, ::5] = np.inf
+    return d
+
+
+def adversarial_rows(rows: int, n: int, seed: int, *, xla_cpu: bool = False) -> np.ndarray:
+    """(rows, n) float32: |N(0, 1)| rows from `seed`, and by turns rows K4 never sees.
+
+    Row i has, by i % 10: 1, every third NaN; 2, all NaN (min +inf, max
+    -inf, every percentile 0x7fffffff); 3, negatives (key 0, percentiles
+    +0); 4, every other -0 with no +0 beside it; 5, every fourth +inf
+    (a p75 of +inf gives 0x7fffffff); 6, denormals; 7, every value equal;
+    8, every fifth -inf; 9, every other NaN.  With `xla_cpu` the rows read
+    alike on XLA's CPU backend, which flushes denormals to zero and returns
+    +0 for a min or max of -0: row 6 is scaled by 1e-30, and row 4's -0
+    lies between a -1 and a 2.
+    """
+    x = np.abs(np.random.RandomState(seed).standard_normal((rows, n))).astype(np.float32)
+    x[1::10, ::3] = np.nan
+    x[2::10] = np.nan
+    x[3::10] *= -1.0
+    x[4::10, ::2] = -0.0
+    if xla_cpu:
+        x[4::10, 0] = -1.0
+        x[4::10, -1] = 2.0
+    x[5::10, ::4] = np.inf
+    x[6::10] *= 1e-30 if xla_cpu else 1e-40
+    x[7::10] = 1.5
+    x[8::10, ::5] = -np.inf
+    x[9::10, 1::2] = np.nan
+    return x
+
+
+QUANTILES = (0.0, 0.25, 0.5, 0.75, 1.0)
+
+
+def quantile(values):
+    """K4's function by the library: torch.quantile of the five percentiles, lower element."""
+    q = torch.tensor(QUANTILES, dtype=values.dtype, device=values.device)
+    return torch.quantile(values, q, dim=1, interpolation="lower")
 
 
 def parser(doc: str) -> argparse.ArgumentParser:

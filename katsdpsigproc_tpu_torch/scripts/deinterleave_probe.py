@@ -11,8 +11,7 @@ amplitudes through K1's amplitude words at K1's launch, and
 interleaved in one process:
 
   K12 g1 .. g8        amp_pairs reading the channel-major dump in place, in
-                      clusters of 1, 2, 4 and 8 rows (its measurement builds)
-  K12 strided         amp_pairs_strided, K12's earlier design, channel-major
+                      clusters of 1, 2, 4 and 8 rows
   K12 baseline-major  amp_pairs on the corner-turned copy (what K1 reads)
   K5 + baseline-major the corner turn by K5, then amp_pairs: the unfused way
   K5 alone            the corner turn by itself
@@ -59,8 +58,6 @@ def run(vis, *, iters: int = 3, reps: int = 5, card: str = ""):
                lambda g=g: fp.amp_pairs(vis, channel_major=True, cluster=g) for g in fp.CLUSTERS}
     kernels.update({
         "amp_pairs baseline-major": lambda: fp.amp_pairs(vis_t),
-        "amp_pairs_strided channel-major": lambda: fp.amp_pairs_strided(vis, channel_major=True),
-        "amp_pairs_strided baseline-major": lambda: fp.amp_pairs_strided(vis_t),
     })
     for label, fn in kernels.items():
         got = fn()
@@ -71,8 +68,7 @@ def run(vis, *, iters: int = 3, reps: int = 5, card: str = ""):
             raise RuntimeError(f"MISMATCH: {label} differs in {bad} amplitudes")
         del got
     del want
-    print("parity: amp_pairs (every cluster, both layouts) and amp_pairs_strided "
-          "== plain amplitude (bit-exact)")
+    print("parity: amp_pairs (every cluster, both layouts) == plain amplitude (bit-exact)")
     k1 = ff.flag_dump(vis_t)
     for g in fp.CLUSTERS:
         bad = int((fp.probe(vis.transpose(0, 1), "channel_major", cluster=g) != k1).sum())
@@ -85,7 +81,6 @@ def run(vis, *, iters: int = 3, reps: int = 5, card: str = ""):
     fns = {_k12(g): lambda g=g: fp.amp_pairs(vis, channel_major=True, cluster=g)
            for g in fp.CLUSTERS}
     fns.update({
-        "K12 strided": lambda: fp.amp_pairs_strided(vis, channel_major=True),
         "K12 baseline-major": lambda: fp.amp_pairs(vis_t),
         "K5 + baseline-major": lambda: fp.amp_pairs(tr.transpose_cuda(vis)),
         "K5 alone": lambda: tr.transpose_cuda(vis),
@@ -101,8 +96,8 @@ def run(vis, *, iters: int = 3, reps: int = 5, card: str = ""):
         out[name] = (med[name], min(samples[name]), max(samples[name]))
     spread = {name: hi - lo for name, (_, lo, hi) in out.items()}
     best = min(fp.CLUSTERS, key=lambda g: med[_k12(g)])
-    print(f"K12 fastest build: clusters of {best} rows, {med[_k12(best)]:.3f} ms against "
-          f"amp_pairs_strided {med['K12 strided']:.3f} ms [{card}]")
+    print(f"K12 fastest cluster: {best} rows, {med[_k12(best)]:.3f} ms against "
+          f"baseline-major {med['K12 baseline-major']:.3f} ms [{card}]")
     name = _inplace(min(fp.CLUSTERS, key=lambda g: med[_inplace(g)]))
     for other in ("K5 + K1", "K1"):
         gap = med[name] - med[other]

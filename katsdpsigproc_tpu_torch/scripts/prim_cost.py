@@ -9,19 +9,15 @@ operation of a 262144-element block (``--norm-elems``, the convention of
 ``models/rfi/roofline.py``, which prices the op inventory from this table).
 
 An operation's cost depends on the machine it runs on, so the chains run at
-two launches (``launch=``):
-
-- ``"k1"``, the record: K1's launch (:func:`.fused_flagger.launch_config`
-  at 32768 channels: 1024 threads, K1's dynamic shared memory, one CTA per
-  SM), with the row in the run layout of ``csrc/ff_runs.cuh`` and each body
-  executed as K1 executes it (the neighbour read from the padded row, the
-  rank round of ``runs::mad_noise``, K1's block sum, its min.NaN/max.NaN).
-  Rows of up to 32768 channels, a multiple of 64; by default 264 rows of
-  32768, two waves on the H100's 132 SMs.  ``shift_reg`` (no TPU body)
-  prices SumThreshold's shifts in registers; it is printed beside the
-  table and never written into it.
-- ``"strided"``: one CTA per row of up to 1024 lanes, one thread per lane,
-  at the strided layout's occupancy (K8's earlier design), on (256, 1024).
+K1's launch (:func:`.fused_flagger.launch_config` at 32768 channels: 1024
+threads, K1's dynamic shared memory, one CTA per SM), with the row in the
+run layout of ``csrc/ff_runs.cuh`` and each body executed as K1 executes
+it (the neighbour read from the padded row, the rank round of
+``runs::mad_noise``, K1's block sum, its min.NaN/max.NaN).  Rows of up to
+32768 channels, a multiple of 64; by default 264 rows of 32768, two waves
+on the H100's 132 SMs.  ``shift_reg`` (no TPU body) prices SumThreshold's
+shifts in registers; it is printed beside the table and never written
+into it.
 
 Bodies, with (operations of interest, helper add-class operations) per
 rep, as ``prim_cost.py:133-162``::
@@ -36,7 +32,7 @@ rep, as ``prim_cost.py:133-162``::
   reduce     (x, y) -> (min(x, 3) + sum(y), x)            1, 2
   rank_round (x, y) -> (min(x, 3) + count(y < x[:, 0]), x) 1, 2
   sqrt       (x, y) -> (x + sqrt(y * y + 1), x)           1, 2  (less one mul)
-  shift_reg  (x, y) -> (roll(y, -1) in pieces of 8 + x, x) 1, 1  (K1's launch only)
+  shift_reg  (x, y) -> (roll(y, -1) in pieces of 8 + x, x) 1, 1  (no TPU body)
 
 ``roll_sub`` and ``band_mm`` act on the TPU's sublane axis and the band
 matrix of its multi-band fold, which the port's K1 does not have: they are
@@ -48,12 +44,12 @@ deductions of ``prim_cost.py:219-236``).  A row below :data:`FLOOR_NS`
 is printed as folded: the compiler collapsed the chain, or the noise
 swallowed it.  ``--emit-json`` writes the rows at or above it to
 ``models/rfi/prim_ns.json``, with the card (``__card__``) and the launch
-(``__launch__``).
+(``__launch__``, ``"k1"``).
 
 Usage::
 
-    python -m katsdpsigproc_tpu_torch.scripts.prim_cost [--launch k1|strided] [--rows R]
-        [--width W] [--steps 512] [--unroll 16] [--reps 5] [--emit-json]
+    python -m katsdpsigproc_tpu_torch.scripts.prim_cost [--rows R] [--width W]
+        [--steps 512] [--unroll 16] [--reps 5] [--emit-json]
 """
 
 import argparse
@@ -71,12 +67,11 @@ from . import common
 
 _C, _C2 = 3.0, 5.0
 
-# The card's floor for one operation of a 262144-element block, at either
-# launch (one place: the roofline's plausibility floor).  A chain measuring
-# less per operation did not run.
+# The card's floor for one operation of a 262144-element block (one place:
+# the roofline's plausibility floor).  A chain measuring less per operation
+# did not run.
 FLOOR_NS = roofline.MIN_PLAUSIBLE_NS
 NORM_ELEMS = 262144  # the table's unit: ns per op of a 262144-element block
-LAUNCHES = ("k1", "strided")
 K1_CHANNELS = 32768  # K1's row at its launch: thread t owns channels 32t .. 32t + 31
 K1_ROWS = 264        # two waves of one CTA per SM on the H100's 132 SMs
 _PIECE = 8           # csrc/prim_cost.cu's kPart
@@ -106,11 +101,13 @@ BODIES: Dict[str, tuple] = {
                    + (y < x[:, :1]).sum(1, keepdim=True, dtype=torch.float32), 1, 2, 9),
     "sqrt": (lambda x, y, m: x + numerics.sqrt_rn(y * y + 1.0), 1, 2, 10),
 }
-# Bodies of K1's launch only, printed beside the table and never in it:
-# SumThreshold's shifts in registers (no TPU body).
-K1_ONLY: Dict[str, tuple] = {
+# Bodies printed beside the table and never in it: SumThreshold's shifts
+# in registers (no TPU body).
+BESIDE_TABLE: Dict[str, tuple] = {
     "shift_reg": (lambda x, y, m: _roll_pieces(y) + x, 1, 1, 11),
 }
+# Every body the kernel runs.
+ALL_BODIES: Dict[str, tuple] = {**BODIES, **BESIDE_TABLE}
 # Helper operations beyond adds, netted out at the other body's cost.
 EXTRA_DEDUCT = {"sqrt": [("mul", 1)]}
 # The TPU bodies without a counterpart on the card.
@@ -118,29 +115,15 @@ NO_COUNTERPART = ("roll_sub", "band_mm")
 _UNROLLS = (1, 2, 4, 8, 16)
 
 
-def bodies(launch: str) -> Dict[str, tuple]:
-    """The bodies that run at `launch`."""
-    _check_launch(launch)
-    return {**BODIES, **K1_ONLY} if launch == "k1" else dict(BODIES)
-
-
-def _check_launch(launch: str) -> None:
-    if launch not in LAUNCHES:
-        raise ValueError(f"launch must be one of {LAUNCHES}, got {launch!r}")
-
-
-# Kernel launches since the counts were last reset, per launch and body
-# (None: the empty kernel).  The wrapper adds one where it launches, and
-# nowhere else.
-launches: Dict[str, Dict[Optional[str], int]] = {
-    launch: {None: 0, **{name: 0 for name in bodies(launch)}} for launch in LAUNCHES}
+# Kernel launches since the counts were last reset, per body (None: the
+# empty kernel).  The wrapper adds one where it launches, and nowhere else.
+launches: Dict[Optional[str], int] = {None: 0, **{name: 0 for name in ALL_BODIES}}
 
 
 def reset_launches() -> None:
     """Set every launch count to 0."""
-    for counts in launches.values():
-        for name in counts:
-            counts[name] = 0
+    for name in launches:
+        launches[name] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -151,93 +134,57 @@ def _library() -> ctypes.CDLL:
                        {"ff_network.h": fused_flagger._network_header(13)})
     lib.ff_error_string.argtypes = [ctypes.c_int]
     lib.ff_error_string.restype = ctypes.c_char_p
-    lib.pc_needed_smem.argtypes = [ctypes.c_int]
-    lib.pc_needed_smem.restype = ctypes.c_longlong
-    lib.pc_launch_config.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_longlong] + fused_flagger._LAUNCH_CONFIG_OUT
-    lib.pc_launch_config.restype = ctypes.c_int
     lib.pc_k1_launch_config.argtypes = [ctypes.c_int, ctypes.c_int] + \
         fused_flagger._LAUNCH_CONFIG_OUT
     lib.pc_k1_launch_config.restype = ctypes.c_int
-    lib.pc_chain.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                             ctypes.c_void_p]
-    lib.pc_chain.restype = ctypes.c_int
     lib.pc_k1_chain.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.pc_k1_chain.restype = ctypes.c_int
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def strided_smem_bytes(channels: int = common.CHANNELS) -> int:
-    """The strided layout's dynamic shared memory at `channels`, from K1's and K2's library."""
-    return fused_flagger.strided_launch_config(channels)["smem_bytes"]
-
-
-def _code(body: Optional[str], launch: str) -> int:
+def _code(body: Optional[str]) -> int:
     if body is None:
         return 0
-    known = bodies(launch)
-    if body not in known:
-        raise ValueError(f"unknown body {body!r} at launch {launch!r}; expected None or one "
-                         f"of {tuple(known)}")
-    return known[body][3]
+    if body not in ALL_BODIES:
+        raise ValueError(f"unknown body {body!r}; expected None or one of {tuple(ALL_BODIES)}")
+    return ALL_BODIES[body][3]
 
 
-def launch_config(body: Optional[str], width: int = 1024, unroll: int = 16,
-                  launch: str = "k1") -> dict:
+def launch_config(body: Optional[str], unroll: int = 16) -> dict:
     """How the chain of `body` launches: the keys of :func:`.fused_flagger.launch_config`.
 
-    At ``launch="k1"`` it must equal ``fused_flagger.launch_config(32768)``
-    (`width` plays no part); at ``"strided"`` the strided layout's
-    :func:`.fused_flagger.strided_launch_config` with `width` threads.
+    It must equal ``fused_flagger.launch_config(32768)``.
     """
-    code = _code(body, launch)
     lib = _library()
-    if launch == "k1":
-        return fused_flagger._query_launch_config(lib, lib.pc_k1_launch_config, code, unroll)
-    smem = max(strided_smem_bytes(), lib.pc_needed_smem(width))
-    return fused_flagger._query_launch_config(lib, lib.pc_launch_config, code, unroll, width,
-                                              smem)
+    return fused_flagger._query_launch_config(lib, lib.pc_k1_launch_config, _code(body), unroll)
 
 
 def chain_plain(x, body: Optional[str], steps: int, unroll: int):
-    """The plain PyTorch version of K8: the same chain in tensor operations (either launch)."""
-    _code(body, "k1")
+    """The plain PyTorch version of K8: the same chain in tensor operations."""
+    _code(body)
     y = x * 0.5 + 0.125
     if body is not None:
-        fn = bodies("k1")[body][0]
+        fn = ALL_BODIES[body][0]
         mask = torch.arange(x.shape[1], device=x.device) < x.shape[1] // 2
         for _ in range(steps * unroll):
             x, y = fn(x, y, mask), x
     return x + y
 
 
-def _check_width(width: int, launch: str) -> None:
-    if launch == "k1":
-        if width % 64 != 0 or not 64 <= width <= K1_CHANNELS:
-            raise ValueError(f"width must be a multiple of 64 in 64..{K1_CHANNELS} at K1's "
-                             f"launch, got {width}")
-    elif width % 32 != 0 or not 32 <= width <= 1024:
-        raise ValueError(f"width must be a multiple of 32 in 32..1024 at the strided launch, "
-                         f"got {width}")
-
-
-def chain(x, body: Optional[str], steps: int, unroll: int, launch: str = "k1"):
+def chain(x, body: Optional[str], steps: int, unroll: int):
     """The chain of `body` over (rows, width) float32 `x` (K8 on a CUDA tensor).
 
-    `body` is a name of :func:`bodies` at `launch`, or ``None`` (the empty
-    kernel); `unroll` one of 1, 2, 4, 8, 16.  At ``launch="k1"`` (K1's
-    launch) `width` is a multiple of 64 up to 32768; at ``"strided"`` a
-    multiple of 32 up to 1024.  Returns (rows, width) float32 on the
-    input's device.
+    `body` is a name of :data:`ALL_BODIES`, or ``None`` (the empty
+    kernel); `unroll` one of 1, 2, 4, 8, 16; `width` a multiple of 64 up
+    to 32768.  Returns (rows, width) float32 on the input's device.
     """
-    code = _code(body, launch)
+    code = _code(body)
     if not isinstance(x, torch.Tensor) or x.dtype != torch.float32 or x.ndim != 2:
         raise TypeError("x must be a 2-D torch.float32 tensor")
     rows, width = x.shape
-    _check_width(width, launch)
+    if width % 64 != 0 or not 64 <= width <= K1_CHANNELS:
+        raise ValueError(f"width must be a multiple of 64 in 64..{K1_CHANNELS}, got {width}")
     if unroll not in _UNROLLS:
         raise ValueError(f"unroll must be one of {_UNROLLS}, got {unroll}")
     if steps < 0:
@@ -254,15 +201,10 @@ def chain(x, body: Optional[str], steps: int, unroll: int, launch: str = "k1"):
     with torch.cuda.device(x.device):
         lib = _library()
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if launch == "k1":
-            err = lib.pc_k1_chain(code, unroll, x.data_ptr(), out.data_ptr(), rows, width, steps,
-                                  stream)
-        else:
-            smem = max(strided_smem_bytes(), lib.pc_needed_smem(width))
-            err = lib.pc_chain(code, unroll, x.data_ptr(), out.data_ptr(), rows, width, steps,
-                               smem, stream)
-    fused_flagger._raise_on(lib, err, f"prim_cost {body} ({launch})")
-    launches[launch][body] += 1
+        err = lib.pc_k1_chain(code, unroll, x.data_ptr(), out.data_ptr(), rows, width, steps,
+                              stream)
+    fused_flagger._raise_on(lib, err, f"prim_cost {body}")
+    launches[body] += 1
     return out
 
 
@@ -272,10 +214,9 @@ def block(rows: int, width: int, device) -> torch.Tensor:
     return torch.from_numpy(rs.uniform(0.25, 0.75, (rows, width)).astype(np.float32)).to(device)
 
 
-def default_block(launch: str, device) -> torch.Tensor:
-    """The tool's block at `launch`: 264 x 32768 at K1's, 256 x 1024 at the strided one."""
-    _check_launch(launch)
-    return block(K1_ROWS, K1_CHANNELS, device) if launch == "k1" else block(256, 1024, device)
+def default_block(device) -> torch.Tensor:
+    """The tool's block: 264 x 32768, two waves of K1's launch on the H100."""
+    return block(K1_ROWS, K1_CHANNELS, device)
 
 
 def net_ns(raw: Dict[str, float]) -> Dict[str, float]:
@@ -285,10 +226,9 @@ def net_ns(raw: Dict[str, float]) -> Dict[str, float]:
     their helper adds too.
     """
     add_ns = max(raw.get("add", 0.0), 0.0)
-    specs = {**BODIES, **K1_ONLY}
     results: Dict[str, float] = {}
-    for name in [n for n in specs if n in raw]:
-        _, n_ops, n_helper_adds, _ = specs[name]
+    for name in [n for n in ALL_BODIES if n in raw]:
+        _, n_ops, n_helper_adds, _ = ALL_BODIES[name]
         ns = raw[name] - add_ns * n_helper_adds / n_ops
         for other, count in EXTRA_DEDUCT.get(name, []):
             ns -= max(results.get(other, 0.0), 0.0) * count / n_ops
@@ -297,10 +237,10 @@ def net_ns(raw: Dict[str, float]) -> Dict[str, float]:
 
 
 def measure(x, *, steps: int = 512, unroll: int = 16, iters: int = 3, reps: int = 5,
-            card: str = "", timer: Optional[Callable] = None, launch: str = "k1",
+            card: str = "", timer: Optional[Callable] = None,
             norm_elems: int = NORM_ELEMS) -> Dict[str, float]:
-    """Time every body's chain on `x` at `launch` against the empty kernel; print and
-    return ns per op of a `norm_elems`-element block.
+    """Time every body's chain on `x` against the empty kernel; print and return ns
+    per op of a `norm_elems`-element block.
 
     The chains are timed in turns, `reps` rounds of `iters` calls, on the
     card by :func:`.utils.profiling.time_queued`: the empty kernel and the
@@ -312,17 +252,16 @@ def measure(x, *, steps: int = 512, unroll: int = 16, iters: int = 3, reps: int 
     """
     if timer is None:
         timer = profiling.time_queued if x.is_cuda else profiling.time_interleaved
-    run = bodies(launch)
-    fns = {name: functools.partial(chain, x, name, steps, unroll, launch) for name in run}
-    fns["empty"] = functools.partial(chain, x, None, steps, unroll, launch)
+    fns = {name: functools.partial(chain, x, name, steps, unroll) for name in ALL_BODIES}
+    fns["empty"] = functools.partial(chain, x, None, steps, unroll)
     med, _ = timer(fns, reps=reps, iters=iters)
     n_reps = steps * unroll
     scale = norm_elems / x.numel()
-    raw = {name: (med[name] - med["empty"]) * 1e6 / (n_reps * run[name][1]) * scale
-           for name in run}
+    raw = {name: (med[name] - med["empty"]) * 1e6 / (n_reps * spec[1]) * scale
+           for name, spec in ALL_BODIES.items()}
     netted = net_ns(raw)
     rows, width = x.shape
-    print(f"primitive costs at {launch} launch, {rows} x {width} float32 block, {n_reps} reps "
+    print(f"primitive costs at K1's launch, {rows} x {width} float32 block, {n_reps} reps "
           f"(empty kernel {med['empty']:.3f} ms), ns per op of a {norm_elems}-element block "
           f"[{card}]:")
     for name in BODIES:
@@ -331,7 +270,7 @@ def measure(x, *, steps: int = 512, unroll: int = 16, iters: int = 3, reps: int 
         print(f"  {name:10s} {ns:8.2f} ns/op  (raw chain {raw[name]:8.2f}){tag}")
     for name in NO_COUNTERPART:
         print(f"  {name:10s} no counterpart (band fold)")
-    for name in K1_ONLY:
+    for name in BESIDE_TABLE:
         if name in netted:
             print(f"  beside the table: {name} (a shift in registers, SumThreshold's doubling) "
                   f"{netted[name]:.2f} ns/op net of its add (raw chain {raw[name]:.2f}); "
@@ -343,15 +282,14 @@ def measure(x, *, steps: int = 512, unroll: int = 16, iters: int = 3, reps: int 
     return {name: netted[name] for name in BODIES}
 
 
-def emit_json(results: Dict[str, float], card: str, launch: str,
-              path: Optional[str] = None) -> dict:
+def emit_json(results: Dict[str, float], card: str, path: Optional[str] = None) -> dict:
     """Write the table to `path` (default ``models/rfi/prim_ns.json``) and return it.
 
     The table holds the rows of `results` at or above :data:`FLOOR_NS`,
-    the card (``__card__``) and the launch (``__launch__``).
+    the card (``__card__``) and the launch (``__launch__``, K1's).
     """
     out = {k: round(v, 3) for k, v in sorted(results.items()) if v >= FLOOR_NS}
-    out.update(__card__=card, __launch__=launch)
+    out.update(__card__=card, __launch__="k1")
     path = path or roofline.PRIM_JSON
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
@@ -367,11 +305,8 @@ def emit_json(results: Dict[str, float], card: str, launch: str,
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--launch", choices=LAUNCHES, default="k1")
-    ap.add_argument("--rows", type=int, default=None,
-                    help=f"default {K1_ROWS} at K1's launch, 256 at the strided one")
-    ap.add_argument("--width", type=int, default=None,
-                    help=f"default {K1_CHANNELS} at K1's launch, 1024 at the strided one")
+    ap.add_argument("--rows", type=int, default=K1_ROWS)
+    ap.add_argument("--width", type=int, default=K1_CHANNELS)
     ap.add_argument("--steps", type=int, default=512)
     ap.add_argument("--unroll", type=int, default=16)
     ap.add_argument("--iters", type=int, default=3)
@@ -384,14 +319,10 @@ def main(argv=None) -> None:
                          "(models.rfi.roofline.prim_ns reads it)")
     args = ap.parse_args(argv)
     card = common.require_card()
-    k1 = args.launch == "k1"
-    rows = args.rows or (K1_ROWS if k1 else 256)
-    width = args.width or (K1_CHANNELS if k1 else 1024)
-    results = measure(block(rows, width, "cuda"), steps=args.steps, unroll=args.unroll,
-                      iters=args.iters, reps=args.reps, card=card, launch=args.launch,
-                      norm_elems=args.norm_elems)
+    results = measure(block(args.rows, args.width, "cuda"), steps=args.steps, unroll=args.unroll,
+                      iters=args.iters, reps=args.reps, card=card, norm_elems=args.norm_elems)
     if args.emit_json:
-        emit_json(results, card, args.launch)
+        emit_json(results, card)
 
 
 if __name__ == "__main__":

@@ -10,8 +10,7 @@ rounds instead of 31, at three compares per element instead of one.
 ``zeros_fold`` counts bit 30's candidate in the zeros pass: 31 passes
 instead of 32.  ``radix_select`` is K4's radix select: four passes of
 8 + 8 + 8 + 7 bits, each a shared histogram of the keys still under the
-prefix behind one barrier; ``radix_match_any``, its measurement
-instance, adds pass 0's equal digits of a warp once.  The TPU probe's
+prefix behind one barrier.  The TPU probe's
 ``pair_i32`` and ``pair_f32`` pack two of the counts into one reduce; on
 the card one block reduction takes three ints, so both are
 ``rank_pair``.
@@ -32,7 +31,7 @@ from ..utils import profiling
 from . import common
 
 RUNS = {"binary": "full", "rank_pair": "rank_pair", "zeros_fold": "zeros_fold",
-        "radix_select": "radix_select", "radix_match_any": "radix_match_any"}
+        "radix_select": "radix_select"}
 
 
 def check_parity(vis_t, runs) -> None:

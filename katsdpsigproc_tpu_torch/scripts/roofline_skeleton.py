@@ -19,10 +19,10 @@ model:
 - skeleton ms << model ms: a chain folded or the inventory overcounts.
 
 The model (``models/rfi/roofline.py``, whose op inventory this tool
-imports) is priced three ways, printed beside K10 and K11's ``full`` timed
-in the same rounds: the shipped table (``prim_ns.json``), K8
-(:mod:`.prim_cost`) measured in the call at K1's launch, and K8 at the
-strided launch (K8's earlier design).  Each of the model's stages is
+imports) is priced two ways, printed beside K10 and K11's ``full`` timed
+in the same rounds: the shipped table (``prim_ns.json``) and K8
+(:mod:`.prim_cost`) measured in the call at K1's launch.  Each of the
+model's stages is
 printed beside K11's measured cost of it: ``full`` less ``no_median``,
 ``no_rank`` and ``no_thresh``, and K11's ``skeleton`` for load + store.
 
@@ -200,24 +200,23 @@ def run(vis_t, *, width: int = 13, iters: int = 3, reps: int = 5, card: str = ""
         prim_block: Optional[torch.Tensor] = None, prim_steps: int = 512,
         prim_unroll: int = 16) -> Dict[str, object]:
     """Time the skeleton on the amplitudes of (rows, channels, 2) `vis_t` and
-    set it against the model, priced three ways, and K11.
+    set it against the model, priced two ways, and K11.
 
     K8's primitive costs are measured first, in this call, at K1's launch
-    and at the strided one (:func:`.prim_cost.measure`, on `prim_block` at
-    both when given, else each launch's :func:`.prim_cost.default_block`).
-    K10 and K11's ``full``, ``no_median``, ``no_rank``, ``no_thresh`` and
-    ``skeleton`` (K1's code) on `vis_t` are timed in the same rounds.  The
-    model (:func:`..models.rfi.roofline.compute_roofline`) is priced by the
-    shipped table, by K8 at K1's launch and by K8 at the strided launch,
-    and each of its stages is printed beside K11's.  Returns the skeleton's
-    median ms, the model's ms at K1's launch and their ratio, K8's costs at
-    K1's launch, ``full``'s ms, and per pricing the model's ms and stages.
+    (:func:`.prim_cost.measure`, on `prim_block` when given, else on
+    :func:`.prim_cost.default_block`).  K10 and K11's ``full``,
+    ``no_median``, ``no_rank``, ``no_thresh`` and ``skeleton`` (K1's code)
+    on `vis_t` are timed in the same rounds.  The model
+    (:func:`..models.rfi.roofline.compute_roofline`) is priced by the
+    shipped table and by K8, and each of its stages is printed beside
+    K11's.  Returns the skeleton's median ms, the model's ms priced by K8
+    and their ratio, K8's costs, ``full``'s ms, and per pricing the
+    model's ms and stages.
     """
     amp = fp.amp_pairs(vis_t)
-    prim = {launch: prim_cost.measure(
-        prim_block if prim_block is not None else prim_cost.default_block(launch, amp.device),
-        steps=prim_steps, unroll=prim_unroll, iters=iters, reps=reps, card=card, launch=launch)
-        for launch in prim_cost.LAUNCHES}
+    prim = prim_cost.measure(
+        prim_block if prim_block is not None else prim_cost.default_block(amp.device),
+        steps=prim_steps, unroll=prim_unroll, iters=iters, reps=reps, card=card)
     fns = {"skeleton": functools.partial(skeleton, amp, width=width),
            **{v: functools.partial(fp.probe, vis_t, v, width=width)
               for v in ("full", "no_median", "no_rank", "no_thresh")},
@@ -230,8 +229,7 @@ def run(vis_t, *, width: int = 13, iters: int = 3, reps: int = 5, card: str = ""
     print(f"skeleton: {ms:.3f} ms over {rows} rows x {channels} channels, one launch at K1's; "
           f"K11 full (K1's code) {med['full']:.3f} ms, skeleton / full = "
           f"{ms / med['full']:.3f} [{card}]")
-    pricings = {"shipped table": roofline.prim_ns(), "K8 at K1's launch": plausible(prim["k1"]),
-                "K8 strided": plausible(prim["strided"])}
+    pricings = {"shipped table": roofline.prim_ns(), "K8 at K1's launch": plausible(prim)}
     models = {label: compute_roofline(rows, channels, table, width=width)
               for label, table in pricings.items()}
     k11 = {stage: med["full"] - med[v] for stage, v in _K11_STAGES}
@@ -240,7 +238,7 @@ def run(vis_t, *, width: int = 13, iters: int = 3, reps: int = 5, card: str = ""
     stages = {label: {k: v * per_ms for k, v in m["stage_ns"].items()}
               for label, m in models.items()}
     labels = list(models)
-    print("model ms a dump by stage, priced three ways, beside K11's measured stage costs "
+    print("model ms a dump by stage, priced two ways, beside K11's measured stage costs "
           f"[{card}]:")
     print(f"  {'stage':12s}" + "".join(f"{label:>20s}" for label in labels) + f"{'K11':>12s}")
     for stage in list(stages[labels[0]]) + ["load + store"]:
@@ -255,11 +253,10 @@ def run(vis_t, *, width: int = 13, iters: int = 3, reps: int = 5, card: str = ""
               + ", ".join(f"{k} {pricings[label][k]:.2f}" for k in roofline.DEFAULT_PRIM_NS))
     model_ms = models["K8 at K1's launch"]["seconds_per_dump"] * 1e3
     print(f"skeleton/model = {ms / model_ms:.3f} at K1's launch (~1: floor priced right; >>1: "
-          f"costs not additive; <<1: chain folded / inventory overcounts); strided "
-          f"{ms / (models['K8 strided']['seconds_per_dump'] * 1e3):.3f}, shipped table "
+          f"costs not additive; <<1: chain folded / inventory overcounts); shipped table "
           f"{ms / (models['shipped table']['seconds_per_dump'] * 1e3):.3f}")
     return {"skeleton_ms": ms, "model_ms": model_ms, "ratio": ms / model_ms,
-            "prim_ns": prim["k1"], "prim_ns_strided": prim["strided"], "full_ms": med["full"],
+            "prim_ns": prim, "full_ms": med["full"],
             "models_ms": {label: m["seconds_per_dump"] * 1e3 for label, m in models.items()},
             "stages_ms": stages, "k11_stages_ms": k11}
 

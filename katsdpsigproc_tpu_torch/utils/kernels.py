@@ -5,7 +5,7 @@ library with a plain C interface, then loaded with :mod:`ctypes` (no
 PyTorch headers are compiled, so a build takes seconds).  The build goes
 to ``build/katsdpsigproc_tpu_torch/<name>-<hash>/`` beside the package,
 keyed by a hash of the sources, the shared headers under ``csrc/``, the
-generated headers, the macro definitions and the flags (:func:`build_key`),
+generated headers and the flags (:func:`build_key`),
 so a changed source or header is rebuilt and an unchanged one is reused.
 The library is written under a temporary name and renamed into place,
 so processes that build the same key at once cannot see a partial file.
@@ -61,18 +61,17 @@ def _write_atomic(path: Path, data: bytes) -> None:
     os.replace(tmp, path)
 
 
-def build_key(name: str, sources: Sequence[str], headers: Dict[str, str],
-              defines: Sequence[str] = ()) -> str:
+def build_key(name: str, sources: Sequence[str], headers: Dict[str, str]) -> str:
     """The build directory's name: `name` and a hash of all the build reads.
 
-    The hash covers the flags and `defines`, the listed sources, every
-    ``*.cuh`` and ``*.h`` under ``csrc/`` (any source may include any of
-    them) and the generated headers.
+    The hash covers the flags, the listed sources, every ``*.cuh`` and
+    ``*.h`` under ``csrc/`` (any source may include any of them) and the
+    generated headers.
     """
     shared = sorted(p.relative_to(CSRC_DIR).as_posix() for p in CSRC_DIR.rglob("*")
                     if p.suffix in (".cuh", ".h") and p.is_file())
     digest = hashlib.sha256()
-    for part in (name, *NVCC_FLAGS, *(f"-D{d}" for d in defines)):
+    for part in (name, *NVCC_FLAGS):
         digest.update(part.encode() + b"\0")
     for src in (*sources, *shared):
         digest.update(src.encode() + b"\0" + (CSRC_DIR / src).read_bytes() + b"\0")
@@ -81,17 +80,15 @@ def build_key(name: str, sources: Sequence[str], headers: Dict[str, str],
     return f"{name}-{digest.hexdigest()[:16]}"
 
 
-def load(name: str, sources: Sequence[str], headers: Dict[str, str],
-         defines: Sequence[str] = ()) -> ctypes.CDLL:
+def load(name: str, sources: Sequence[str], headers: Dict[str, str]) -> ctypes.CDLL:
     """Build (if needed) and load ``lib<name>.so`` from ``csrc/`` sources.
 
     `sources` are file names under ``csrc/``; `headers` maps generated
     header names to their text, written beside the library and found
-    first on the include path; `defines` are macro definitions
-    (``NAME`` or ``NAME=value``) passed to nvcc as ``-D``.  Raises
-    ``RuntimeError`` with nvcc's output if the build fails.
+    first on the include path.  Raises ``RuntimeError`` with nvcc's
+    output if the build fails.
     """
-    key = build_key(name, sources, headers, defines)
+    key = build_key(name, sources, headers)
     with _lock:
         key_lock = _key_locks.setdefault(key, threading.Lock())
     with key_lock:
@@ -107,8 +104,7 @@ def load(name: str, sources: Sequence[str], headers: Dict[str, str],
             for hname, text in headers.items():
                 _write_atomic(out_dir / hname, text.encode())
             tmp = out_dir / f"lib{name}.so.tmp{os.getpid()}"
-            cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines),
-                   "-I", str(out_dir), "-I", str(CSRC_DIR),
+            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(out_dir), "-I", str(CSRC_DIR),
                    "-o", str(tmp), *(str(CSRC_DIR / s) for s in sources)]
             t0 = time.perf_counter()
             proc = subprocess.run(cmd, capture_output=True, text=True)

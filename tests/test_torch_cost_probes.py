@@ -94,7 +94,7 @@ def test_k8_net_ns_is_the_scripts_arithmetic(jax_prim_cost):
 
 
 def test_k8_measure_runs_on_cpu_tensors(capsys):
-    before = {launch: dict(counts) for launch, counts in prim_cost.launches.items()}
+    before = dict(prim_cost.launches)
     results = prim_cost.measure(torch.from_numpy(_block(4, 64)), steps=1, unroll=1, iters=1,
                                 reps=1, card="cpu")
     assert set(results) == set(prim_cost.BODIES)

@@ -8,8 +8,7 @@ the JAX package's test configuration must not be loaded:
 
 Tolerance: exact on every uint8 mask and float32 result (the kernels
 round each operation as the plain versions do), except K8's ``reduce``
-chain at either launch, whose row sums are taken in another order (rtol
-1e-6).
+chain, whose row sums are taken in another order (rtol 1e-6).
 """
 
 import asyncio
@@ -21,8 +20,7 @@ import torch
 from katsdpsigproc_tpu_torch.examples import triple, triple_pallas
 from katsdpsigproc_tpu_torch.models.rfi import device, fused_flagger as ff
 from katsdpsigproc_tpu_torch.ops import percentile as pct, transpose as tr
-from katsdpsigproc_tpu_torch.scripts import (examples_ab, k2_ab, k4_ab, percentiletest,
-                                             transposetest)
+from katsdpsigproc_tpu_torch.scripts import common, percentiletest, transposetest
 from katsdpsigproc_tpu_torch.test import test_accel
 from katsdpsigproc_tpu_torch.utils import regions
 
@@ -201,19 +199,15 @@ def test_k1_at_run_layout_edges_matches_plain_and_full(cuda, channels, mode):
         want = ff.flag_transposed_plain(vis_t, **kw, n_windows=n_windows, flag_value=flag_value)
         assert torch.equal(got, want), (n_windows, int((got != want).sum()))
     if mode == "none" and channels >= 13:
-        # K11's `full` runs K1's code; `strided_full` is K1 in the strided
-        # layout, flag for flag, where that layout holds the row
+        # K11's `full` runs K1's code
         assert torch.equal(fp.probe(vis_t, "full"), ff.flag_transposed(vis_t))
-        if channels <= fp.max_channels("strided_full"):
-            assert torch.equal(fp.probe(vis_t, "strided_full"), ff.flag_transposed(vis_t))
 
 
 @pytest.mark.parametrize("channels", _EDGE_CHANNELS)
 @pytest.mark.parametrize("kind", ["dump", "adversarial"])
-def test_k2_at_run_layout_edges_matches_plain_and_strided(cuda, channels, kind):
+def test_k2_at_run_layout_edges_matches_plain(cuda, channels, kind):
     """K2 in K1's run layout at K1's edge shapes, on the deviations of a
-    dump and on deviations K1 never makes, against its plain version and,
-    where the strided layout holds the row, its strided design."""
+    dump and on deviations K1 never makes, against its plain version."""
     if channels == "limit":
         channels = ff.max_channels()
     if kind == "dump":
@@ -222,12 +216,10 @@ def test_k2_at_run_layout_edges_matches_plain_and_strided(cuda, channels, kind):
             vis_t.to(cuda).transpose(0, 1), None, 13, False,
             device.BackgroundFlags.NONE).T.contiguous()
     else:
-        dev_t = torch.from_numpy(k2_ab.adversarial_deviations(8, channels, channels)).to(cuda)
+        dev_t = torch.from_numpy(common.adversarial_deviations(8, channels, channels)).to(cuda)
     for kw in ({}, {"n_sigma": 5.0, "n_windows": 6, "flag_value": 3}):
         got = ff.madnz_threshold(dev_t, **kw)
         assert torch.equal(got, ff.madnz_threshold_plain(dev_t, **kw)), kw
-        if channels <= ff._library(13).ff_strided_max_channels():
-            assert torch.equal(got, k2_ab.strided(dev_t, **kw)), kw
 
 
 # Rows longer than the run layout holds take the wide-row path: just past
@@ -273,7 +265,7 @@ def test_k2_wide_rows_match_plain(cuda, channels, kind):
             vis_t.to(cuda).transpose(0, 1), None, 13, False,
             device.BackgroundFlags.NONE).T.contiguous()
     else:
-        dev_t = torch.from_numpy(k2_ab.adversarial_deviations(8, channels, 7)).to(cuda)
+        dev_t = torch.from_numpy(common.adversarial_deviations(8, channels, 7)).to(cuda)
     before = ff.wide_launches["madnz_threshold"]
     for kw in ({}, {"n_sigma": 5.0, "n_windows": 6, "flag_value": 3}):
         got = ff.madnz_threshold(dev_t, **kw)
@@ -361,13 +353,13 @@ def test_k1_cta_size_follows_the_row(cuda):
 
 
 def test_k1_channel_limit_and_launch(cuda):
-    """The run layout (K1's and K2's) holds more channels than the strided
-    layout's launch, at one CTA of 1024 threads per SM on the dump."""
-    k1, strided = ff.launch_config(32768), ff.strided_launch_config(32768)
+    """The run layout (K1's and K2's) holds at least 46425 channels (the
+    strided layout it replaced held 46425 on the H100), at one CTA of 1024
+    threads per SM on the dump."""
+    k1 = ff.launch_config(32768)
     assert ff.max_channels() >= 46425
-    assert k1["threads"] == strided["threads"] == 1024
-    assert k1["ctas_per_sm"] == strided["ctas_per_sm"] == 1
-    assert k1["smem_bytes"] < strided["smem_bytes"]
+    assert k1["threads"] == 1024 and k1["ctas_per_sm"] == 1
+    assert k1["smem_bytes"] == 151840
 
 
 def test_resource_waits_for_a_tensor_from_a_side_stream(cuda):
@@ -396,14 +388,10 @@ def test_resource_waits_for_a_tensor_from_a_side_stream(cuda):
 # K4 (percentile5) and K5 (transpose): exact against their plain versions.
 
 
-def _k4_designs_equal_plain(x):
-    """K4, its measurement builds and the original design against the plain version, bit for bit."""
-    from katsdpsigproc_tpu_torch.ops import percentile as pct
-
+def _k4_equals_plain(x):
+    """K4 against the plain version, bit for bit."""
     want = pct.percentile5_plain(x).view(torch.int32)
     assert torch.equal(pct.percentile5_cuda(x).view(torch.int32), want)
-    for name in k4_ab.BUILDS:
-        assert torch.equal(k4_ab.build(x, name).view(torch.int32), want), name
 
 
 @pytest.mark.parametrize("rows,cols", [(37, 7), (37, 241), (37, 500), (64, 4096), (3, 60000)])
@@ -412,7 +400,7 @@ def test_percentile5_matches_plain(cuda, rows, cols):
     x = rs.uniform(0.01, 100.0, (rows, cols)).astype(np.float32)
     x[1, ::5] = np.nan
     x[2] = np.nan
-    _k4_designs_equal_plain(torch.from_numpy(x).to(cuda))
+    _k4_equals_plain(torch.from_numpy(x).to(cuda))
 
 
 # K4's paths: rows below and above the SM count (1024- and 256-thread CTAs),
@@ -426,8 +414,8 @@ def test_percentile5_adversarial_rows_at_path_edges(cuda, rows, cols):
 
     if cols in ("shared", "shared+1"):
         cols = pct.max_shared_columns() + (cols == "shared+1")
-    x = torch.from_numpy(k4_ab.adversarial_rows(rows, cols, rows + cols)).to(cuda)
-    _k4_designs_equal_plain(x)
+    x = torch.from_numpy(common.adversarial_rows(rows, cols, rows + cols)).to(cuda)
+    _k4_equals_plain(x)
 
 
 def test_percentile5_launch_shapes(cuda):
@@ -450,9 +438,9 @@ def test_percentile5_launch_shapes(cuda):
 def test_percentile5_column_range_view_with_row_stride(cuda, lo, hi):
     """A view of columns [lo, hi) of 5000-column rows: the row stride exceeds
     the row, and the rows start on and off 16-byte boundaries."""
-    x = torch.from_numpy(k4_ab.adversarial_rows(300, 5000, seed=lo)).to(cuda)
-    _k4_designs_equal_plain(x[:, lo:hi])
-    _k4_designs_equal_plain(x[:40, lo:hi])
+    x = torch.from_numpy(common.adversarial_rows(300, 5000, seed=lo)).to(cuda)
+    _k4_equals_plain(x[:, lo:hi])
+    _k4_equals_plain(x[:40, lo:hi])
 
 
 def test_percentile5_column_range_view_and_count(cuda):
@@ -544,8 +532,7 @@ def _probe():
 @pytest.mark.parametrize("channels,rows", [(99, 8), (300, 8), (2048, 6), (32768, 2)])
 @pytest.mark.parametrize("variant", ["full", "no_median", "no_rank", "no_thresh", "skeleton",
                                      "rank_pair", "zeros_fold", "shfl_median", "radix_select",
-                                     "strided_full", "radix_match_any", "window_median",
-                                     "channel_major"])
+                                     "window_median", "channel_major"])
 def test_probe_matches_plain(cuda, variant, channels, rows):
     fp = _probe()
     vis_t, _ = _dump(channels, rows, seed=channels + rows)
@@ -590,7 +577,7 @@ def test_run_layout_probes_at_k1s_edges(cuda, channels):
     vis_t = vis_t.to(cuda)
     for width in (w for w in (5, 13, 31) if w <= channels):
         k1 = ff.flag_transposed(vis_t, width=width)
-        for variant in fp.RUN_LAYOUT + fp.MEASUREMENT:
+        for variant in fp.VARIANTS:
             got = fp.probe(vis_t, variant, width=width)
             want = fp.probe_plain(vis_t, variant, width=width)
             assert torch.equal(got, want), (variant, width, int((got != want).sum()))
@@ -633,10 +620,6 @@ def test_k12_builds_match_plain_bit_for_bit(cuda, rows, channels):
         assert torch.equal(got.view(torch.int32), want), g
     assert all(fp.cluster_launches[g] == before[g] + 1 for g in fp.CLUSTERS)
     assert torch.equal(fp.amp_pairs(vis_t).view(torch.int32), want)
-    if channels <= fp.max_channels("amp_pairs_strided"):
-        assert torch.equal(fp.amp_pairs_strided(vis_c, channel_major=True).view(torch.int32),
-                           want)
-        assert torch.equal(fp.amp_pairs_strided(vis_t).view(torch.int32), want)
 
 
 @pytest.mark.parametrize("rows,channels", [(r, c) for r, c in _K12_SHAPES if c != 1])
@@ -684,31 +667,13 @@ def test_probes_launch_as_k1_does(cuda):
         if channels == 32768:
             assert k1["ctas_per_sm"] == 1 and k1["smem_bytes"] == 151840, k1
             assert k1 == ff.launch_config(channels), k1
-        for variant in fp.RUN_LAYOUT + fp.MEASUREMENT + ("amp_pairs",):
+        for variant in fp.VARIANTS + ("amp_pairs",):
             cfg = fp.launch_config(variant, channels)
             if channels == 32768:
                 assert cfg == k1, (variant, cfg, k1)
             else:
                 assert cfg["threads"] == k1["threads"], (variant, cfg, k1)
                 assert cfg["smem_bytes"] == k1["smem_bytes"], (variant, cfg, k1)
-
-
-def test_strided_probes_launch_as_k2s_strided_design_does(cuda):
-    """`strided_full` and K12's earlier design launch as K2's strided design
-    does (the strided layout), one CTA per SM at 32768 channels."""
-    fp = _probe()
-    for channels in (128, 32768):
-        strided = ff.strided_launch_config(channels)
-        assert strided["threads"] == 1024, strided
-        if channels == 32768:
-            assert strided["ctas_per_sm"] == 1, strided
-        for variant in fp.STRIDED + ("amp_pairs_strided",):
-            cfg = fp.launch_config(variant, channels)
-            if channels == 32768:
-                assert cfg == strided, (variant, cfg, strided)
-            else:
-                assert cfg["threads"] == strided["threads"], (variant, cfg, strided)
-                assert cfg["smem_bytes"] == strided["smem_bytes"], (variant, cfg, strided)
 
 
 def test_probe_launch_counts_and_errors(cuda):
@@ -727,21 +692,14 @@ def test_probe_launch_counts_and_errors(cuda):
         fp.probe(torch.zeros((64, 4, 2), device=cuda).transpose(0, 1), "full")
     with pytest.raises(ValueError, match="contiguous"):
         fp.amp_pairs(torch.zeros((64, 4, 2), device=cuda).transpose(0, 1))
-    # Each layout's own limit: K9, K11, K13 and K12 take K1's, `strided_full`
-    # and K12's earlier design the strided one.
-    run_limit, strided_limit = ff.max_channels(), fp.max_channels("strided_full")
-    assert fp.max_channels("skeleton") == run_limit > 50000 > strided_limit
+    # K1's limit: K9, K11, K13 and K12 all take it.
+    run_limit = ff.max_channels()
+    assert fp.max_channels("skeleton") == run_limit > 50000
     assert fp.max_channels("shfl_median") == fp.max_channels("window_median") == run_limit
     assert fp.max_channels("amp_pairs") == fp.max_channels("channel_major") == run_limit
-    assert fp.max_channels("amp_pairs_strided") == strided_limit
     for variant in ("skeleton", "radix_select") + fp.MEDIANS:
         with pytest.raises(ValueError, match="limit"):
             fp.probe(torch.zeros((1, run_limit + 1, 2), device=cuda), variant)
-    for variant in fp.STRIDED:
-        with pytest.raises(ValueError, match="limit"):
-            fp.probe(torch.zeros((1, strided_limit + 1, 2), device=cuda), variant)
-    with pytest.raises(ValueError, match="limit"):
-        fp.amp_pairs_strided(torch.zeros((1, strided_limit + 1, 2), device=cuda))
     with pytest.raises(ValueError, match="limit"):
         fp.amp_pairs(torch.zeros((1, run_limit + 1, 2), device=cuda))
 
@@ -799,16 +757,11 @@ def test_triple_kernel_matches_plain(cuda, n):
     assert triple_pallas.launches["triple"] == before + 1
     want = triple_pallas.triple_plain(x)
     assert got.device == cuda and torch.equal(got, want)
-    # The A/B's designs: the earlier one at BLOCK and 4 warps, four vectors a
-    # thread with evict-first hints.
-    assert torch.equal(triple_pallas.triple_config(x, triple_pallas.BLOCK, 4), want)
-    assert torch.equal(triple_pallas.triple_config(x, 4096, 8, evict_first=True), want)
-    assert triple_pallas.launches["triple"] == before + 1
 
 
 # K7's sizes at its tile edges: (elements a thread in a tile, tiles, extra
-# elements).  multiply's tile is `threads` float4s; the A/B's build of 4
-# loads a thread `threads` x 4; its bulk-copy builds take 32 KiB chunks.
+# elements).  multiply's tile is `threads` float4s; the sizes at four
+# float4s a thread and at 32 KiB chunks are edges of designs it beat.
 K7_EDGES = {"tile-1": (4, 1, -1), "tile": (4, 1, 0), "tile+1": (4, 1, 1), "3tiles+5": (4, 3, 5),
             "tile4-1": (16, 1, -1), "tile4+1": (16, 1, 1)}
 
@@ -831,11 +784,6 @@ def test_multiply_kernel_matches_plain(cuda, shape, offset, threads):
     assert triple.launches["multiply"] == before + 1
     want = triple.multiply_plain(data, 0.1)
     assert torch.equal(got, want)
-    # The A/B's designs: K7's measurement builds, the grid-stride kernel.
-    for build in examples_ab.BUILDS:
-        assert torch.equal(examples_ab.k7_build(data, build, 0.1, threads), want)
-    assert torch.equal(examples_ab.k7_grid_stride(data, 0.1, threads), want)
-    assert triple.launches["multiply"] == before + 1
     with pytest.raises(ValueError, match="contiguous"):
         triple.multiply(torch.zeros((4, 4), device=cuda).T, 3.0)
 
@@ -880,25 +828,23 @@ def _cost():
 
 _K8_BODIES = [None, "add", "minmax", "mul", "select", "cmp_f32", "roll_lane", "shift_ch",
               "reduce", "rank_round", "sqrt"]
-# K8's launches and shapes: the strided launch's rows of up to 1024 lanes;
-# at K1's launch a full wave of 32768-channel rows, a row count that is not
-# a multiple of the SMs', and a narrower row (a partly idle last warp).
-_K8_CASES = [(launch, rows, width, body)
-             for launch, rows, width in (("strided", 256, 1024), ("strided", 5, 96),
-                                         ("k1", 132, 32768), ("k1", 137, 32768), ("k1", 7, 4160))
-             for body in _K8_BODIES + (["shift_reg"] if launch == "k1" else [])]
+# K8's shapes at K1's launch: a full wave of 32768-channel rows, a row
+# count that is not a multiple of the SMs', and a narrower row (a partly
+# idle last warp).
+_K8_CASES = [(rows, width, body) for rows, width in ((132, 32768), (137, 32768), (7, 4160))
+             for body in _K8_BODIES + ["shift_reg"]]
 
 
-@pytest.mark.parametrize("launch,rows,width,body", _K8_CASES)
-def test_prim_cost_chain_matches_plain(cuda, launch, rows, width, body):
+@pytest.mark.parametrize("rows,width,body", _K8_CASES)
+def test_prim_cost_chain_matches_plain(cuda, rows, width, body):
     """Exact, but `reduce`: the kernel sums a row by warp shuffles, so rtol 1e-6."""
     prim_cost, _ = _cost()
     x = prim_cost.block(rows, width, cuda)
-    before = prim_cost.launches[launch][body]
-    got = prim_cost.chain(x, body, 2, 4, launch)
+    before = prim_cost.launches[body]
+    got = prim_cost.chain(x, body, 2, 4)
     want = prim_cost.chain_plain(x, body, 2, 4)
     torch.cuda.synchronize()
-    assert prim_cost.launches[launch][body] == before + 1
+    assert prim_cost.launches[body] == before + 1
     if body == "reduce":
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-6, atol=0)
     else:
@@ -907,29 +853,24 @@ def test_prim_cost_chain_matches_plain(cuda, launch, rows, width, body):
 
 @pytest.mark.parametrize("unroll", [1, 2, 4, 8, 16])
 def test_prim_cost_unrolls_and_launches_as_k1(cuda, unroll):
-    """Every unroll at both launches, no reps at K1's; K8 at K1's launch as K1
-    at 32768 channels, the strided launch as the strided layout's K2."""
+    """Every unroll, and no reps; K8 launches as K1 at 32768 channels."""
     prim_cost, _ = _cost()
     x = prim_cost.block(8, 256, cuda)
-    for launch in prim_cost.LAUNCHES:
-        assert torch.equal(prim_cost.chain(x, "roll_lane", 3, unroll, launch),
-                           prim_cost.chain_plain(x, "roll_lane", 3, unroll)), launch
+    assert torch.equal(prim_cost.chain(x, "roll_lane", 3, unroll),
+                       prim_cost.chain_plain(x, "roll_lane", 3, unroll))
     for body in ("shift_ch", "reduce", "rank_round"):
-        assert torch.equal(prim_cost.chain(x, body, 0, unroll, "k1"), x + (x * 0.5 + 0.125))
-    cfg = prim_cost.launch_config("rank_round", unroll=unroll, launch="k1")
+        assert torch.equal(prim_cost.chain(x, body, 0, unroll), x + (x * 0.5 + 0.125))
+    cfg = prim_cost.launch_config("rank_round", unroll=unroll)
     assert cfg == ff.launch_config(32768) and cfg["ctas_per_sm"] == 1, cfg
-    cfg = prim_cost.launch_config("rank_round", 1024, unroll, launch="strided")
-    assert cfg == dict(ff.strided_launch_config(32768), threads=1024), cfg
-    assert cfg["ctas_per_sm"] == 1
 
 
 @pytest.mark.parametrize("body", _K8_BODIES + ["shift_reg"])
 def test_prim_cost_k1_launch_is_k1s(cuda, body):
     """Threads, dynamic shared memory and CTAs per SM of K1 at 32768 channels."""
     prim_cost, _ = _cost()
-    assert prim_cost.launch_config(body, launch="k1") == ff.launch_config(32768)
+    assert prim_cost.launch_config(body) == ff.launch_config(32768)
     with pytest.raises(ValueError, match="width"):
-        prim_cost.chain(torch.zeros((2, 32768 + 64), device=cuda), body, 1, 1, "k1")
+        prim_cost.chain(torch.zeros((2, 32768 + 64), device=cuda), body, 1, 1)
 
 
 def _amplitudes(kind, rows, channels, seed):

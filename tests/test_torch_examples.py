@@ -125,52 +125,21 @@ def test_tutorial_wrappers_take_the_plain_versions_on_the_cpu():
         triple_pallas.triple(x.reshape(10, 100))
 
 
-def test_ab_designs_refuse_cpu_tensors():
-    """The A/B's designs of K7 and K6 launch kernels only: no plain version on the CPU."""
-    from katsdpsigproc_tpu_torch.scripts import examples_ab
-
-    x = torch.ones(64)
-    for build in examples_ab.BUILDS:
-        with pytest.raises(ValueError, match="CUDA tensor only"):
-            examples_ab.k7_build(x, build)
-    with pytest.raises(ValueError, match="unknown build"):
-        examples_ab.k7_build(x, "k7 persistent")
-    with pytest.raises(ValueError, match="CUDA tensor only"):
-        examples_ab.k7_grid_stride(x)
-    with pytest.raises(TypeError, match="float32"):
-        examples_ab.k7_grid_stride(x.double())
-    with pytest.raises(ValueError, match="CUDA tensor only"):
-        triple_pallas.triple_config(x, triple_pallas.BLOCK, 4)
-    with pytest.raises(ValueError, match="CUDA tensor only"):
-        triple_pallas.triple_config(x, 4096, 8, evict_first=True)
-
-
-def test_k6_tile_is_a_point_of_its_sweep():
-    """At most six points, each whole 128-bit vectors a thread (32 threads a
-    warp) and whole grid steps of the reference's BLOCK; the kernel's
-    constants are one of them."""
-    sweep = triple_pallas.SWEEP
-    assert len(sweep) <= 6 and (triple_pallas.TILE, triple_pallas.NUM_WARPS) in sweep
-    for tile, warps in sweep:
-        assert tile % triple_pallas.BLOCK == 0 and warps <= 32
-        assert tile // (32 * warps) in (4, 8, 16)
-
-
 def test_ab_tool_and_examples_import_without_triton_or_nvcc(tmp_path):
-    """Where `import triton` fails and no nvcc is found, the A/B tool and both
-    tutorial modules import, their CPU paths run, and the tool exits asking
-    for a card."""
+    """Where `import triton` fails and no nvcc is found, an A/B tool (K9's)
+    and both tutorial modules import, their CPU paths run, and the tool
+    exits asking for a card."""
     code = (
         "import sys; sys.modules['triton'] = None\n"
         "import torch\n"
         "from katsdpsigproc_tpu_torch.examples import triple, triple_pallas\n"
-        "from katsdpsigproc_tpu_torch.scripts import examples_ab\n"
+        "from katsdpsigproc_tpu_torch.scripts import rollchain_ab\n"
         "x = torch.arange(5000, dtype=torch.float32)\n"
         "assert torch.equal(triple_pallas.triple(x), x * 3)\n"
         "assert torch.equal(triple.multiply(x, 0.5), x * 0.5)\n"
         "torch.cuda.is_available = lambda: False\n"
         "try:\n"
-        "    examples_ab.main([])\n"
+        "    rollchain_ab.main([])\n"
         "except SystemExit as e:\n"
         "    assert 'no CUDA device' in str(e), e\n"
         "else:\n"

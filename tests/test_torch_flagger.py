@@ -23,7 +23,7 @@ import torch
 from katsdpsigproc_tpu.models.rfi import device as jdev, host as jhost, pallas_flagger as jpf
 from katsdpsigproc_tpu_torch.models.rfi import device as tdev, fused_flagger as ff, host as thost
 from katsdpsigproc_tpu_torch.pytest_plugin import patch_autotune  # noqa: F401
-from katsdpsigproc_tpu_torch.scripts import k2_ab
+from katsdpsigproc_tpu_torch.scripts import common
 from katsdpsigproc_tpu_torch.utils import tune
 
 from .helpers import rfi_test_data
@@ -110,7 +110,7 @@ def test_madnz_threshold_plain_matches_pallas_on_adversarial_deviations(channels
     """Deviations K1 never makes (NaN, +-inf, -0, all-zero and all-NaN rows;
     no denormals, which XLA on the CPU flushes to zero), at one channel,
     fewer channels than a window and around K2's 1024-thread CTA."""
-    dev_t = k2_ab.adversarial_deviations(8, channels, channels, denormals=False)
+    dev_t = common.adversarial_deviations(8, channels, channels, denormals=False)
     for kw in (dict(n_sigma=11.0, n_windows=4, falloff=1.2, flag_value=1),
                dict(n_sigma=5.0, n_windows=6, falloff=1.2, flag_value=3)):
         got = ff.madnz_threshold_plain(torch.from_numpy(dev_t), **kw)
@@ -214,7 +214,7 @@ def test_rank_radix_1_to_4_is_accepted_and_ignored(rank_radix):
     vt = torch.from_numpy(_vis_t(vis))
     np.testing.assert_array_equal(ff.flag_transposed(vt, rank_radix=rank_radix).numpy(),
                                   ff.flag_transposed(vt).numpy())
-    dev_t = torch.from_numpy(k2_ab.adversarial_deviations(8, 128, 10, denormals=False))
+    dev_t = torch.from_numpy(common.adversarial_deviations(8, 128, 10, denormals=False))
     np.testing.assert_array_equal(ff.madnz_threshold(dev_t, rank_radix=rank_radix).numpy(),
                                   ff.madnz_threshold(dev_t).numpy())
 

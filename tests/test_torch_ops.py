@@ -44,7 +44,7 @@ from katsdpsigproc_tpu.ops import (
 from katsdpsigproc_tpu_torch.ops import fill, maskedsum, percentile, reduce as hreduce, transpose
 from katsdpsigproc_tpu_torch.ops import wgreduce
 from katsdpsigproc_tpu_torch.pytest_plugin import patch_autotune  # noqa: F401
-from katsdpsigproc_tpu_torch.scripts import k4_ab
+from katsdpsigproc_tpu_torch.scripts import common
 from katsdpsigproc_tpu_torch.utils import tune
 
 from .helpers import complex_normal
@@ -344,10 +344,10 @@ class TestPercentile5:
 
     @pytest.mark.parametrize("n", [1, 2, 3, 7, 4096, 5000])
     def test_radix_plain_matches_plain_and_pallas(self, n):
-        x = k4_ab.adversarial_rows(10, n, seed=n)
+        x = common.adversarial_rows(10, n, seed=n)
         radix = percentile.percentile5_radix_plain(_t(x)).numpy()
         _bits_equal(radix, percentile.percentile5_plain(_t(x)).numpy())
-        x = k4_ab.adversarial_rows(10, n, seed=n, xla_cpu=True)
+        x = common.adversarial_rows(10, n, seed=n, xla_cpu=True)
         radix = percentile.percentile5_radix_plain(_t(x)).numpy()
         _bits_equal(radix, percentile.percentile5_plain(_t(x)).numpy())
         _bits_equal(radix, jpct.percentile5(jnp.asarray(x), engine="pallas", interpret=True))

@@ -4,8 +4,8 @@ TPU probes of ``scripts/`` run in interpret mode.
 
 The JAX scripts are loaded by path, unedited.  K11 (``stage_ablate``), K13
 (``rankpair_ab``) and K9 (``rollchain_ab``: its "direct" median against
-``full`` and ``strided_full``, its "chained" one against ``shfl_median``
-and ``window_median``) run their Pallas kernels with ``interpret=True`` at
+``full``, its "chained" one against ``shfl_median`` and
+``window_median``) run their Pallas kernels with ``interpret=True`` at
 8 rows of 256 and 257 channels (257 flips the right edge's fill parity);
 K12 (``deinterleave_probe``) hard-codes the TPU's
 compiler parameters and has no interpret path, so the port is held to
@@ -37,7 +37,7 @@ import torch
 
 from katsdpsigproc_tpu.models.rfi import device as jdev, pallas_flagger as jpf
 from katsdpsigproc_tpu_torch.models.rfi import flagger_probe as fp, fused_flagger as ff
-from katsdpsigproc_tpu_torch.scripts import (common, deinterleave_probe, k1_ab, rankpair_ab,
+from katsdpsigproc_tpu_torch.scripts import (common, deinterleave_probe, rankpair_ab,
                                              rollchain_ab, stage_ablate)
 from katsdpsigproc_tpu_torch.utils import kernels
 
@@ -113,8 +113,7 @@ def test_rankpair_matches_the_tpu_probe(scripts, variant, kw, channels):
 
 
 @pytest.mark.parametrize("channels", [256, 257])
-@pytest.mark.parametrize("variant,median", [("full", "direct"), ("strided_full", "direct"),
-                                           ("shfl_median", "chained"),
+@pytest.mark.parametrize("variant,median", [("full", "direct"), ("shfl_median", "chained"),
                                            ("window_median", "chained")])
 def test_rollchain_matches_the_tpu_probe(scripts, variant, median, channels):
     module = scripts["rollchain_ab"]
@@ -159,17 +158,16 @@ def test_channel_major_matches_jax_on_the_swapped_dump(channels, rows):
         got.numpy(), fp.probe_plain(torch.from_numpy(v).transpose(0, 1), "full").numpy())
 
 
-def test_amp_pairs_clusters_and_strided_design_on_cpu():
-    """On the CPU every K12 build and its earlier design give the plain
-    amplitude; a cluster outside 1, 2, 4, 8 is refused."""
+def test_amp_pairs_clusters_on_cpu():
+    """On the CPU K12 at every cluster gives the plain amplitude; a cluster
+    outside 1, 2, 4, 8 is refused."""
     vis = torch.from_numpy(np.random.RandomState(4).standard_normal((40, 6, 2)).astype(
         np.float32))  # (channels, rows, 2)
     want = fp.amp_pairs_plain(vis, channel_major=True)
     before = (dict(fp.launches), dict(fp.cluster_launches))
     for g in fp.CLUSTERS:
         assert torch.equal(fp.amp_pairs(vis, channel_major=True, cluster=g), want)
-    assert torch.equal(fp.amp_pairs_strided(vis, channel_major=True), want)
-    assert torch.equal(fp.amp_pairs_strided(vis.transpose(0, 1).contiguous()), want)
+    assert torch.equal(fp.amp_pairs(vis.transpose(0, 1).contiguous()), want)
     assert (fp.launches, fp.cluster_launches) == before  # no kernel on the CPU
     with pytest.raises(ValueError, match="cluster"):
         fp.amp_pairs(vis, channel_major=True, cluster=3)
@@ -182,7 +180,7 @@ def test_exact_variants_equal_k1_and_cpu_takes_the_plain_versions(width):
     vt = torch.from_numpy(_vis_t(300, seed=8))
     before = dict(fp.launches)
     k1 = ff.flag_transposed(vt, width=width, **fp.PARAMS)
-    for variant in fp.VARIANTS + fp.MEASUREMENT:
+    for variant in fp.VARIANTS:
         got = fp.probe(vt, variant, width=width)
         assert torch.equal(got, fp.probe_plain(vt, variant, width=width))
         if variant in fp.EXACT:
@@ -288,20 +286,17 @@ def test_radix_select_flags_equal_k1_on_nan_and_inf_rows():
 
 def test_variants_and_probes_cover_each_other():
     named = [v for variants in fp.PROBES.values() for v in variants]
-    assert sorted(named + list(fp.STRIDED)) == sorted(fp.VARIANTS + ("amp_pairs",))
-    assert (set(fp.launches)
-            == set(named) | set(fp.STRIDED) | set(fp.MEASUREMENT) | set(fp.AMP_KERNELS))
-    assert set(fp.EXACT) <= set(fp.VARIANTS + fp.MEASUREMENT)
-    # K11, K13, K9 and K12's in-place K1 on K1's run layout; K1's strided
-    # design, k1_ab's "before", on the strided one.
-    assert fp.RUN_LAYOUT == (fp.PROBES["stage_ablate"] + fp.PROBES["rankpair"]
-                             + fp.PROBES["rollchain"] + fp.INPLACE)
+    assert sorted(named) == sorted(fp.VARIANTS + ("amp_pairs",))
+    assert set(fp.launches) == set(named)
+    assert set(fp.EXACT) <= set(fp.VARIANTS)
+    # K11, K13, K9 and K12's in-place K1, all on K1's run layout.
+    assert fp.VARIANTS == (fp.PROBES["stage_ablate"] + fp.PROBES["rankpair"]
+                           + fp.PROBES["rollchain"] + fp.INPLACE)
     assert fp.PROBES["deinterleave"] == ("amp_pairs",) + fp.INPLACE
     assert set(fp.INPLACE) <= set(fp.EXACT) and fp.CLUSTER in fp.CLUSTERS
     assert fp.PROBES["rollchain"] == fp.MEDIANS and set(fp.MEDIANS) <= set(fp.EXACT)
-    assert fp.STRIDED == ("strided_full",)
-    assert fp.VARIANTS == fp.RUN_LAYOUT + fp.STRIDED
     assert rollchain_ab.RUNS == ("full",) + fp.MEDIANS
+    assert list(rankpair_ab.RUNS.values()) == ["full"] + list(fp.RANK_SEARCHES)
 
 
 def test_probe_validation():
@@ -349,18 +344,6 @@ def test_build_key_hashes_every_shared_header(tmp_path, monkeypatch):
                              {"ff_network.h": ff._network_header(15)}) != kernels.build_key(*args)
 
 
-def test_build_key_hashes_the_macro_definitions():
-    args = ("fused_flagger", ["fused_flagger.cu"], {"ff_network.h": ff._network_header(13)})
-    keys = {kernels.build_key(*args)} | {kernels.build_key(*args, (d,))
-                                         for d in k1_ab.BUILDS.values()}
-    assert len(keys) == 1 + len(k1_ab.BUILDS)
-    assert kernels.build_key(*args, ()) == kernels.build_key(*args)
-    # K11 took the place of K1's stage-ablation builds: one measurement macro is left.
-    source = (kernels.CSRC_DIR / "fused_flagger.cu").read_text()
-    assert "FF_RUNS_ABLATE" not in source
-    assert list(k1_ab.BUILDS.values()) == ["FF_RUNS_SELECT_MINMAX"]
-
-
 def _small_dump(channels=64, rows=6):
     return torch.from_numpy(jdev.to_planar(common.meerkat_dump(channels, rows)))  # (C, rows, 2)
 
@@ -377,14 +360,14 @@ def test_probe_tools_run_on_cpu_tensors(capsys):
     dein = deinterleave_probe.run(vis, iters=1, reps=1, card="cpu")
     assert set(dein) == ({f"K12 g{g}" for g in fp.CLUSTERS}
                          | {f"channel_major g{g}" for g in fp.CLUSTERS}
-                         | {"K12 strided", "K12 baseline-major", "K5 + baseline-major",
-                            "K5 alone", "K1", "K5 + K1"})
+                         | {"K12 baseline-major", "K5 + baseline-major", "K5 alone", "K1",
+                            "K5 + K1"})
     out = capsys.readouterr().out
     assert "parity: all variants == binary (bit-exact)" in out
     assert "parity: all variants == full (bit-exact)" in out
     assert "window_median - full = " in out and "shfl_median - full = " in out
     assert "stage rank" in out and "[cpu]" in out
-    assert " - (K5 + K1) = " in out and " - (K1) = " in out and "K12 fastest build" in out
+    assert " - (K5 + K1) = " in out and " - (K1) = " in out and "K12 fastest cluster" in out
 
 
 def test_parity_mismatch_raises(monkeypatch):
@@ -400,32 +383,7 @@ def test_parity_mismatch_raises(monkeypatch):
         rankpair_ab.run(vis_t, iters=1, reps=1)
 
 
-def test_k1_ab_runs_on_cpu_tensors(capsys):
-    """The A/B tool's calls on CPU tensors: K1, `strided_full`, K5 + K1, the
-    measurement build (its plain version K1's) and K11's run-layout variants,
-    whose differences are the run layout's stage costs."""
-    vis = _small_dump(channels=96)
-    vis_t = vis.transpose(0, 1).contiguous()
-    before = dict(k1_ab.launches)
-    out, stages = k1_ab.run(vis_t, vis, iters=1, reps=2, card="cpu")
-    assert set(out) == ({"k1", "strided_full", "k5 + k1", "full", "no_median", "no_rank",
-                         "no_thresh"} | set(k1_ab.BUILDS))
-    assert all(lo <= med <= hi for med, lo, hi in out.values())
-    assert stages == {label: out["full"][0] - out[name][0] for label, name in stage_ablate.STAGES}
-    k1 = ff.flag_transposed(vis_t, **fp.PARAMS)
-    assert torch.equal(k1_ab.build(vis_t, "select_minmax"), k1)
-    assert torch.equal(k1_ab.build_plain(vis_t, "select_minmax"), k1)
-    assert k1_ab.launches == before  # no kernel on the CPU
-    text = capsys.readouterr().out
-    assert "k1 / strided_full" in text and "K11 full - k1" in text
-    assert "run-layout stage costs (K11 full less the stand-in)" in text
-    for name in ("full", "no_median"):
-        with pytest.raises(ValueError, match="unknown build"):
-            k1_ab.build(vis_t, name)
-
-
-@pytest.mark.parametrize("tool", [stage_ablate, rankpair_ab, rollchain_ab, deinterleave_probe,
-                                  k1_ab])
+@pytest.mark.parametrize("tool", [stage_ablate, rankpair_ab, rollchain_ab, deinterleave_probe])
 def test_probe_tools_refuse_to_run_without_a_card(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):

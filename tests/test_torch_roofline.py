@@ -158,7 +158,7 @@ def test_emitted_table_reads_back(tmp_path):
     results = {name: 10.0 + i for i, name in enumerate(prim_cost.BODIES)}
     results["select"] = 1.0  # below the floor: dropped
     path = tmp_path / "prim_ns.json"
-    out = prim_cost.emit_json(results, "NVIDIA H100 80GB HBM3, 700.00 W", "k1", str(path))
+    out = prim_cost.emit_json(results, "NVIDIA H100 80GB HBM3, 700.00 W", str(path))
     assert "select" not in out and out["__launch__"] == "k1"
     assert json.loads(path.read_text()) == out
     t = roofline.prim_ns(str(path))
@@ -166,7 +166,7 @@ def test_emitted_table_reads_back(tmp_path):
     assert t["__measured__"] == 1.0
 
 
-# K8's chains at the widths only K1's launch takes.
+# K8's chains at the widths K1's launch takes.
 
 
 @pytest.fixture(scope="module")
@@ -181,7 +181,7 @@ def test_k8_k1_launch_chain_matches_the_tpu_kernel(jax_prim_cost, body):
     jax_body = None if body is None else jax_prim_cost.BODIES[body][0]
     want = np.asarray(jax_prim_cost.make_kernel(jax_body, 2, 2, rows, width, 1, True)(
         jnp.asarray(x)))
-    got = prim_cost.chain(torch.from_numpy(x), body, 2, 2, "k1")
+    got = prim_cost.chain(torch.from_numpy(x), body, 2, 2)
     assert got.dtype == torch.float32 and got.shape == x.shape
     rtol = TOLERANCE.get(body, 0)
     if rtol:
@@ -197,30 +197,30 @@ def test_k8_shift_reg_rolls_inside_pieces():
         pieces = y.reshape(3, 16, 8)
         x, y = (np.roll(pieces, -1, axis=2).reshape(3, 128) + x).astype(np.float32), x
     got = prim_cost.chain(torch.from_numpy(np.random.RandomState(3).uniform(
-        0.25, 0.75, (3, 128)).astype(np.float32)), "shift_reg", 3, 1, "k1")
+        0.25, 0.75, (3, 128)).astype(np.float32)), "shift_reg", 3, 1)
     np.testing.assert_array_equal(got.numpy(), x + y)
-    with pytest.raises(ValueError, match="unknown body"):
-        prim_cost.chain(torch.zeros((2, 64)), "shift_reg", 1, 1, "strided")
+    assert "shift_reg" not in prim_cost.BODIES  # beside the table, never in it
 
 
-@pytest.mark.parametrize("launch,width,ok", [("k1", 64, True), ("k1", 32768, True),
-                                             ("k1", 96, False), ("k1", 32832, False),
-                                             ("strided", 96, True), ("strided", 2048, False)])
-def test_k8_widths_of_each_launch(launch, width, ok):
+# The ids name K1's launch, the one launch K8 runs at.
+@pytest.mark.parametrize("width,ok", [pytest.param(64, True, id="k1-64-True"),
+                                      pytest.param(32768, True, id="k1-32768-True"),
+                                      pytest.param(96, False, id="k1-96-False"),
+                                      pytest.param(32832, False, id="k1-32832-False")])
+def test_k8_widths_of_each_launch(width, ok):
     x = torch.zeros((2, width))
     if ok:
-        assert prim_cost.chain(x, "add", 1, 1, launch).shape == x.shape
+        assert prim_cost.chain(x, "add", 1, 1).shape == x.shape
     else:
         with pytest.raises(ValueError, match="width"):
-            prim_cost.chain(x, "add", 1, 1, launch)
+            prim_cost.chain(x, "add", 1, 1)
 
 
 def test_k8_launches_are_named():
-    with pytest.raises(ValueError, match="launch"):
-        prim_cost.chain(torch.zeros((2, 64)), "add", 1, 1, "k2")
-    assert set(prim_cost.launches) == set(prim_cost.LAUNCHES)
-    assert set(prim_cost.launches["k1"]) == {None, *prim_cost.BODIES, "shift_reg"}
-    assert set(prim_cost.launches["strided"]) == {None, *prim_cost.BODIES}
+    with pytest.raises(ValueError, match="unknown body"):
+        prim_cost.chain(torch.zeros((2, 64)), "k2", 1, 1)
+    assert set(prim_cost.launches) == {None, *prim_cost.ALL_BODIES}
+    assert set(prim_cost.ALL_BODIES) == {*prim_cost.BODIES, "shift_reg"}
 
 
 def test_k8_measure_normalises_to_the_tables_unit(capsys):
@@ -234,7 +234,7 @@ def test_k8_measure_normalises_to_the_tables_unit(capsys):
         times.update(med)
         return med, {}
 
-    got = prim_cost.measure(x, steps=1, unroll=2, card="cpu", timer=timer, launch="k1")
+    got = prim_cost.measure(x, steps=1, unroll=2, card="cpu", timer=timer)
     # add: (2 - 0.5) ms / (2 reps x 2 ops) over 256 elements, scaled to 262144.
     assert got["add"] == pytest.approx(1.5e6 / 4 * 262144 / 256)
     assert set(got) == set(prim_cost.BODIES)
@@ -242,17 +242,19 @@ def test_k8_measure_normalises_to_the_tables_unit(capsys):
 
 
 def test_k10_run_prices_the_model_three_ways(capsys):
+    """The model priced by the shipped table and by K8 at K1's launch (the
+    third pricing, K8 at its earlier launch, went with that launch)."""
     rs = np.random.RandomState(4)
     vis_t = torch.from_numpy(rs.standard_normal((4, 64, 2)).astype(np.float32))
     block = torch.from_numpy(np.random.RandomState(1).uniform(0.25, 0.75, (4, 256))
                              .astype(np.float32))
     result = rsk.run(vis_t, iters=1, reps=1, card="cpu", prim_block=block, prim_steps=1,
                      prim_unroll=1)
-    assert set(result["models_ms"]) == {"shipped table", "K8 at K1's launch", "K8 strided"}
+    assert set(result["models_ms"]) == {"shipped table", "K8 at K1's launch"}
     assert set(result["k11_stages_ms"]) == {"median", "rank", "threshold", "load + store"}
     for stages in result["stages_ms"].values():
         assert set(stages) == {"amplitude", "median", "rank", "threshold", "output"}
     shipped = roofline.compute_roofline(4, 64)["seconds_per_dump"] * 1e3
     assert result["models_ms"]["shipped table"] == shipped
     out = capsys.readouterr().out
-    assert "priced three ways" in out and "K11" in out
+    assert "priced two ways" in out and "K11" in out
