@@ -102,21 +102,32 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
 10. the 2-D and FFT paths and ``FusedFlaggerTemplate``: the 2-D path is
    plain PyTorch as XLA computes it in JAX, but for its masked Gaussian
    filter, which on the card is the box-filter kernels
-   (``csrc/box_filter.cu``).  First those, ``masked_gaussian_filter`` on
+   (``csrc/box_filter.cu``), and SumThreshold's window chain, the kernel
+   of ``csrc/sum_threshold.cu``.  First those, ``masked_gaussian_filter`` on
    card tensors at a calibrator scan's batch shapes, 2016 baselines x 75
    dumps x 1024 channels, baselines innermost as the flagger's averaged
    data lies (sigma (0, 12.5, 10): ``box_strided_kernel`` twice), and its
    spectrum, (2016, 1, 1024) contiguous (sigma (0, 0, 10):
    ``box_rows_kernel``), each with unflagged NaN and inf and 80 channels all
    flagged, bit for bit the plain version (``masked_gaussian_filter_plain``)
-   on the same tensors, then both timed.  Then the 2-D
+   on the same tensors, then both timed; the SumThreshold kernel's spill
+   report (none allowed), then ``sum_threshold_cuda`` at the same batch,
+   baselines innermost, on the time lines (one chunk) and the frequency
+   lines (8 chunks), windows 1, 2, 4, 8, unflagged NaN and inf, flag for
+   flag its plain version (``sum_threshold_plain``) on the same tensors
+   and noise estimates, and its spectrum, (2016, 1, 1024) contiguous, in
+   8 chunks, one launch a call; then the three calls timed together
+   against 5 B a sample a call at :data:`HBM_BYTES_PER_S` and
+   :func:`sum_threshold_ops` at :data:`F32_OPS_PER_S`.  Then the 2-D
    ``SumThresholdFlagger`` at ``bench.py`` config 1 (3000 times x 1024
    channels x 1 baseline, seed 1) and on ``rfiflagtest``'s spiked data
    (3000 x 1024 x 16, one chunk of ``get_flags``), each equal flag for
    flag to the port's run on the CPU and, on one baseline, to the numpy
-   oracle ``tests/rfi/twodflag_oracle.py``, with ``twodflag.box_filters``
-   and ``twodflag.launches`` set to 0 just before the card's run and read
-   just after (every filter on the kernels, the launches its plan gives),
+   oracle ``tests/rfi/twodflag_oracle.py``, with ``twodflag.box_filters``,
+   ``twodflag.sum_thresholds`` and ``twodflag.launches`` set to 0 just
+   before the card's run and read just after (every filter on the kernels,
+   the launches its plan gives; 3 SumThreshold chains a batch, each one
+   launch of its kernel),
    timed; ``fftflagtest``'s pipeline at config 4 (256 x 32768 float32):
    the ``Fft`` r2c and c2r operations against the CPU run, each row's
    relative error within ``tests/test_fft.py``'s rtol, and the flags
@@ -193,6 +204,7 @@ SOURCES = {
     "prim_cost": "katsdpsigproc_tpu_torch/csrc/prim_cost.cu",
     "roofline_skeleton": "katsdpsigproc_tpu_torch/csrc/roofline_skeleton.cu",
     "box_filter": "katsdpsigproc_tpu_torch/csrc/box_filter.cu",
+    "sum_threshold": "katsdpsigproc_tpu_torch/csrc/sum_threshold.cu",
 }
 ROUTES = {"triple": "triton"}  # the others are CUDA C++
 REPLACES = {
@@ -210,6 +222,8 @@ REPLACES = {
     "roofline_skeleton": "scripts/roofline_skeleton.py:64",
     # No Pallas kernel: XLA's reduce_window computes the filter in JAX.
     "box_filter": "katsdpsigproc_tpu/models/rfi/twodflag.py:235",
+    # No Pallas kernel: XLA computes SumThreshold's window chain in JAX.
+    "sum_threshold": "katsdpsigproc_tpu/models/rfi/twodflag.py:291",
 }
 # The H100 SXM's HBM3 rate, and its float32 instruction rate outside the
 # tensor cores.  The data sheet's 67 TFLOP/s (132 SMs x 128 lanes x 1.98
@@ -1609,6 +1623,88 @@ def phase_box_filter(twodflag, dev, card: str, check: Check) -> tuple:
     return next(iter(times.values()))
 
 
+def sum_threshold_ops(windows) -> int:
+    """The SumThreshold chain's float32 operations a sample: per window of w, the
+    two clamping compares, w - 1 ordered adds, two products and two compares."""
+    return sum(w - 1 + 6 for w in windows)
+
+
+def phase_sum_threshold(twodflag, dev, card: str, check: Check) -> dict:
+    """The SumThreshold kernel's three calls of a calibrator scan's batch (its
+    spectrum, both axes) against its plain version on the same card tensors, and
+    timed; its spill report.  Returns its ``kernels``-line record: the three calls
+    together."""
+    from katsdpsigproc_tpu_torch.utils import kernels
+    from katsdpsigproc_tpu_torch.utils.profiling import time_fn
+
+    twodflag._st_library()
+    log = kernels.build_info[kernels.build_key("sum_threshold", ["sum_threshold.cu"], {})]["log"]
+    report = ptxas_report(log)
+    for name, r in report.items():
+        print(f"  sum_threshold {name}: {r.get('registers')} registers, {r['stack']} B stack "
+              f"frame, {r['spill_stores']} B spill stores, {r['spill_loads']} B spill loads")
+    if not report or any(r["spill_stores"] or r["spill_loads"] for r in report.values()):
+        raise AssertionError(f"the SumThreshold kernel spills or is missing from the report: "
+                             f"{report}")
+    n_bl, n_time, n_freq = BASELINES, 75, 1024
+    windows, nsigma, rho = [1, 2, 4, 8], 4.5, 1.3
+    g = torch.Generator(device=dev).manual_seed(3)
+    # (B, T, F) views of (T, F, B) residuals: baselines innermost, as the flagger holds them
+    data = torch.randn((n_time, n_freq, n_bl), device=dev, generator=g)
+    spikes = torch.rand(data.shape, device=dev, generator=g) < 0.02
+    data = torch.where(spikes, data * (torch.rand(data.shape, device=dev, generator=g) * 40 - 15),
+                       data)
+    flat = data.view(-1)
+    picks = torch.randint(0, flat.numel(), (16,), device=dev, generator=g)
+    flat[picks[:8]] = torch.nan  # unflagged NaN and inf
+    flat[picks[8:]] = torch.inf
+    flags = torch.rand(data.shape, device=dev, generator=g) < 0.05
+    data, flags = data.permute(2, 0, 1), flags.permute(2, 0, 1)
+    # the spectrum, (B, 1, F) contiguous, with its own unflagged NaN and inf
+    spectrum, spectrum_flags = data[:, :1].contiguous(), flags[:, :1].contiguous()
+    nan_at, inf_at = picks[:4] % spectrum.numel(), picks[8:12] % spectrum.numel()
+    spectrum.view(-1)[nan_at] = torch.nan
+    spectrum.view(-1)[inf_at] = torch.inf
+    spectrum_flags.view(-1)[torch.cat((nan_at, inf_at))] = False
+    axes = {}
+    for label, lines, line_flags, n_chunks in (
+            (f"time lines of {n_bl} x {n_time} x {n_freq}", data, flags, 1),
+            ("frequency lines, 8 chunks", data.transpose(1, 2), flags.transpose(1, 2), 8),
+            (f"spectrum ({n_bl}, 1, {n_freq}) contiguous, 8 chunks", spectrum.transpose(1, 2),
+             spectrum_flags.transpose(1, 2), 8)):
+        chunks = np.linspace(0, lines.shape[1], n_chunks + 1).astype(np.int_)
+        threshold = twodflag._chunk_thresholds(lines, line_flags, nsigma, chunks)
+        before = twodflag.launches["sum_threshold"]
+        got = twodflag.sum_threshold_cuda(lines, threshold, windows, rho, chunks)
+        torch.cuda.synchronize()
+        ran = twodflag.launches["sum_threshold"] - before
+        print(f"SumThreshold, {label}, windows {windows}: {ran} launch")
+        if ran != 1:
+            raise AssertionError(f"{label}: {ran} launches, want 1")
+        want = twodflag.sum_threshold_plain(lines, threshold, windows, rho, chunks)
+        check.flags("sum_threshold", f"{label}: kernel vs plain version on the card", got, want)
+        del got, want
+        axes[label] = (lines, threshold, chunks)
+    card_state("before the SumThreshold kernel's timings")
+
+    def calls(fn):
+        return lambda: [fn(lines, threshold, windows, rho, chunks)
+                        for lines, threshold, chunks in axes.values()]
+
+    ms = time_fn(calls(twodflag.sum_threshold_cuda), warmup=1, iters=10)
+    plain_ms = time_fn(calls(twodflag.sum_threshold_plain), warmup=1, iters=3)
+    samples = 2 * data.numel() + spectrum.numel()
+    nbytes = samples * (4 + 1)  # each call: the data read, the flags written
+    ops = samples * sum_threshold_ops(windows)
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    print(f"  the batch's 3 calls: kernel {ms:.3f} ms (3 launches; CUDA events, 1 warm-up, "
+          f"median of 10), plain version {plain_ms:.3f} ms (median of 3); bound {bound:.3f} ms "
+          f"({nbytes / 1e9:.2f} GB, {ops / 1e9:.2f} G operations) [{card}]")
+    del data, flags, spikes, spectrum, spectrum_flags, axes
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "nbytes": nbytes, "ops": ops}
+
+
 def phase_twod_fft(ff, device, vis_np: np.ndarray, card: str, check: Check) -> dict:
     """The box-filter kernels, the 2-D flagger (configs 1 and rfiflagtest's 16
     baselines), the FFT path (config 4) and FusedFlaggerTemplate on the card."""
@@ -1621,6 +1717,7 @@ def phase_twod_fft(ff, device, vis_np: np.ndarray, card: str, check: Check) -> d
 
     dev = torch.device("cuda", 0)
     box_ms, box_plain_ms, box_bytes, box_adds = phase_box_filter(twodflag, dev, card, check)
+    st = phase_sum_threshold(twodflag, dev, card, check)
     oracle = rfiflagtest.load_twodflag_oracle()
     times, channels = 3000, 1024
     rs = np.random.RandomState(seed=1)  # bench.py config 1
@@ -1629,12 +1726,12 @@ def phase_twod_fft(ff, device, vis_np: np.ndarray, card: str, check: Check) -> d
     spiked = np.abs(rfiflagtest.generate_data(times, channels, 16))
     flagger = twodflag.SumThresholdFlagger()
     calls_per_batch, launches_per_batch = box_filter_calls(flagger)
-    box_launches = 0
+    box_launches = st_launches = 0
     for label, amp in (("config 1, 3000 x 1024 x 1 (seed 1)", config1),
                        ("rfiflagtest's spiked data, 3000 x 1024 x 16 (one chunk)", spiked)):
         print(f"the 2-D flagger (SumThresholdFlagger()), {label}:")
         zeros = np.zeros(amp.shape, bool)
-        for counts in (twodflag.box_filters, twodflag.launches):
+        for counts in (twodflag.box_filters, twodflag.sum_thresholds, twodflag.launches):
             counts.update(dict.fromkeys(counts, 0))
         n_batches = twodflag.batches["batches"]
         t0 = time.perf_counter()
@@ -1642,15 +1739,23 @@ def phase_twod_fft(ff, device, vis_np: np.ndarray, card: str, check: Check) -> d
         t1 = time.perf_counter()
         n_batches = twodflag.batches["batches"] - n_batches
         filters, launched = dict(twodflag.box_filters), dict(twodflag.launches)
+        chains = dict(twodflag.sum_thresholds)
+        st_launched = launched.pop("sum_threshold")
         print(f"  {n_batches} batch(es): masked Gaussian filters by route {filters}, "
-              f"box-filter launches {launched}")
+              f"box-filter launches {launched}; SumThreshold chains by route {chains}, "
+              f"{st_launched} launches")
         if filters != {"kernel": calls_per_batch * n_batches, "plain": 0}:
             raise AssertionError(f"{label}: filters {filters}, want {calls_per_batch} a batch, "
                                  f"all on the kernels")
         if sum(launched.values()) != launches_per_batch * n_batches:
             raise AssertionError(f"{label}: {launched} box-filter launches, want "
                                  f"{launches_per_batch} a batch")
+        # the spectrum's, time's and frequency's chains: 3 launches a batch
+        if chains != {"kernel": 3 * n_batches, "plain": 0} or st_launched != 3 * n_batches:
+            raise AssertionError(f"{label}: SumThreshold chains {chains} and {st_launched} "
+                                 f"launches, want 3 a batch, all on the kernel")
         box_launches += sum(launched.values())
+        st_launches += st_launched
         on_cpu = flagger.get_flags(amp, zeros, device="cpu")
         t2 = time.perf_counter()
         expected = oracle.get_flags(amp[..., :1], zeros[..., :1])
@@ -1742,8 +1847,10 @@ def phase_twod_fft(ff, device, vis_np: np.ndarray, card: str, check: Check) -> d
           f"({int(want.count_nonzero())} flagged)")
     if bad:
         raise AssertionError(f"FusedFlaggerTemplate: {bad} flags differ from flag_transposed")
-    # The calibrator-scan batch's call; the launches, the flagger's counted runs'.
-    return {"box_filter": record(box_launches, box_ms, box_plain_ms, box_bytes, box_adds)}
+    # The calibrator-scan batch's calls; the launches, the flagger's counted runs'.
+    return {"box_filter": record(box_launches, box_ms, box_plain_ms, box_bytes, box_adds),
+            "sum_threshold": record(st_launches, st["ms"], st["plain_ms"], st["nbytes"],
+                                    st["ops"])}
 
 
 def phase_stream(ff, device, vis_np: np.ndarray, card: str, check: Check) -> None:

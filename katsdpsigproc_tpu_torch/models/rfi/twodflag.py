@@ -23,15 +23,24 @@ exception: as in JAX they take a sigma or an axis for every dimension, and
 the callers give the baseline axis sigma 0.
 
 No Pallas kernel lies on this path (XLA computes all of it in the JAX
-package).  It is PyTorch on the caller's device, but for the masked
-Gaussian filter: on a CUDA tensor :func:`masked_gaussian_filter` runs the
-two hand-written kernels of ``csrc/box_filter.cu`` (one sweep through
-shared memory an axis, :func:`masked_gaussian_filter_cuda`), and on the
-CPU their plain version, the eager box filters
-(:func:`masked_gaussian_filter_plain`), whose bits they equal.  Its
-float32 arithmetic is the JAX module's, operation for operation, on the
-CPU and on the card alike (``tests/rfi/twodflag_oracle.py:14-42`` lists
-the conventions):
+package).  It is PyTorch on the caller's device, but for two stages that
+run as hand-written kernels on a CUDA tensor and as their plain versions,
+whose bits they equal, on the CPU:
+
+* the masked Gaussian filter: :func:`masked_gaussian_filter` runs the two
+  kernels of ``csrc/box_filter.cu`` (one sweep through shared memory an
+  axis, :func:`masked_gaussian_filter_cuda`), or the eager box filters
+  (:func:`masked_gaussian_filter_plain`);
+* SumThreshold's window chain: :func:`_sum_threshold1d` runs the kernel of
+  ``csrc/sum_threshold.cu`` (every window of up to 128 chunks in one
+  launch, :func:`sum_threshold_cuda`), or the eager chain
+  (:func:`sum_threshold_plain`).  Its noise estimates, the eager medians
+  of :func:`_chunk_thresholds`, feed both.
+
+The background's NaN interpolation, the frequency average, the medians and
+the finish are eager PyTorch on either device.  The float32 arithmetic is
+the JAX module's, operation for operation, on the CPU and on the card
+alike (``tests/rfi/twodflag_oracle.py:14-42`` lists the conventions):
 
 * window sums (the box filter's and SumThreshold's) and the frequency
   average are ordered float32 adds in ascending offset, never a library
@@ -63,8 +72,9 @@ baseline), and inside a batch ``ksp.twod.average``, ``ksp.twod.spectrum``
 and un-average; then the NaN flags, a second span of that name).
 :data:`batches` counts the calls, batches and baselines of
 :meth:`~SumThresholdFlagger.get_flags`; :data:`box_filters` the calls of
-:func:`masked_gaussian_filter` by route, :data:`launches` the box-filter
-kernels' launches.
+:func:`masked_gaussian_filter` by route, :data:`sum_thresholds` the window
+chains of :func:`_sum_threshold1d` by route, :data:`launches` each
+kernel's launches.
 """
 
 import ctypes
@@ -84,9 +94,13 @@ batches = {"calls": 0, "batches": 0, "baselines": 0}
 # The calls of masked_gaussian_filter since the counts were last reset, by
 # route: "kernel" (a CUDA tensor, csrc/box_filter.cu) and "plain" (the CPU).
 box_filters = {"kernel": 0, "plain": 0}
-# Launches of each box-filter kernel since the counts were last reset; the
-# wrapper adds one where it launches, and nowhere else.
-launches = {"box_strided": 0, "box_rows": 0}
+# The calls of _sum_threshold1d's window chain since the counts were last
+# reset, by route: "kernel" (a CUDA tensor, csrc/sum_threshold.cu) and
+# "plain" (the CPU).
+sum_thresholds = {"kernel": 0, "plain": 0}
+# Launches of each kernel since the counts were last reset; its wrapper adds
+# one where it launches, and nowhere else.
+launches = {"box_strided": 0, "box_rows": 0, "sum_threshold": 0}
 
 # The card's memory a batch takes at its peak, per baseline: the caching
 # allocator's peak over a batch less what it held before, on an H100 at 8
@@ -579,45 +593,216 @@ def _sum_threshold1d(data, flags, windows, outlier_nsigma, rho, chunks: np.ndarr
     """SumThreshold along axis 0 of (N, M) with per-chunk noise estimates.
 
     Port of ``katsdpsigproc_tpu/models/rfi/twodflag.py::_sum_threshold1d``:
-    per chunk, an MAD noise estimate over the chunk, then for each window
-    size: clamp previously flagged samples to +-threshold, compare
+    per chunk, an MAD noise estimate over the chunk
+    (:func:`_chunk_thresholds`), then the window chain: for each window
+    size, clamp previously flagged samples to +-threshold, compare
     full-window means (ordered sums times ``float32(1 / window)``) against
     the falloff-scaled threshold, and dilate outlier windows; positive and
     negative excursions are tracked apart.  Chunks overlap by
-    ``max(windows) - 1`` samples.
+    ``max(windows) - 1`` samples.  The chain of a CUDA tensor runs the
+    kernel of ``csrc/sum_threshold.cu`` (:func:`sum_threshold_cuda`, one
+    launch for up to 128 chunks), or the call raises; on the CPU it is its
+    plain version
+    (:func:`sum_threshold_plain`).  The two give the same bits.
+    """
+    threshold = _chunk_thresholds(data, flags, outlier_nsigma, chunks)
+    if data.device.type == "cuda":
+        return sum_threshold_cuda(data, threshold, windows, rho, chunks)
+    sum_thresholds["plain"] += 1
+    return sum_threshold_plain(data, threshold, windows, rho, chunks)
+
+
+def _chunk_thresholds(data, flags, outlier_nsigma, chunks: np.ndarray):
+    """Each chunk's ``threshold0`` of (B, N, M) `data`: (chunks, B, M) float32.
+
+    ``float32(outlier_nsigma * MAD_NORMAL)`` times the median of ``|data|``
+    over the chunk's unflagged samples of each line, inf where it has none
+    (and for a zero-length chunk, whose value nothing reads).
+    """
+    scale = _f32(outlier_nsigma * MAD_NORMAL)
+    parts = []
+    for ci in range(len(chunks) - 1):
+        lo, hi = int(chunks[ci]), int(chunks[ci + 1])
+        if hi == lo:  # zero-length chunk (freq_chunks > channels)
+            parts.append(torch.full(data.shape[:1] + data.shape[2:], torch.inf,
+                                    dtype=data.dtype, device=data.device))
+            continue
+        threshold0 = _median_abs_axis0(data[:, lo:hi], flags[:, lo:hi])[:, 0]  # (B, M)
+        parts.append(torch.where(torch.isnan(threshold0), torch.inf, threshold0 * scale))
+    return torch.stack(parts)
+
+
+def _window_constants(windows, rho) -> tuple:
+    """Per window: the threshold's divisor ``float32(rho ** log2(w))`` (1 for w = 1)
+    and ``float32(1 / w)``."""
+    return ([_f32(rho ** math.log2(w)) if w > 1 else 1.0 for w in windows],
+            [_f32(1.0 / w) for w in windows])
+
+
+def sum_threshold_plain(data, threshold, windows, rho, chunks: np.ndarray):
+    """The plain PyTorch version of the SumThreshold kernel: the eager window chain.
+
+    `data` (B, N, M), `threshold` each chunk's ``threshold0``
+    (:func:`_chunk_thresholds`); bool (B, N, M) flags.
     """
     n = data.shape[1]
     wmax = int(max(windows))
-    scale = _f32(outlier_nsigma * MAD_NORMAL)
+    divisors, inv_ws = _window_constants(windows, rho)
     out_parts = []
     for ci in range(len(chunks) - 1):
         lo, hi = int(chunks[ci]), int(chunks[ci + 1])
         if hi == lo:  # zero-length chunk (freq_chunks > channels)
             continue
-        threshold0 = _median_abs_axis0(data[:, lo:hi], flags[:, lo:hi])[:, 0]  # (B, M)
-        threshold0 = torch.where(torch.isnan(threshold0), torch.inf, threshold0 * scale)
-
+        threshold0 = threshold[ci]  # (B, M)
         plo = max(lo - wmax + 1, 0)
         phi = min(hi + wmax - 1, n)
         pdata = data[:, plo:phi]
         p = phi - plo
         fpos = torch.zeros(pdata.shape, dtype=torch.bool, device=data.device)
         fneg = torch.zeros(pdata.shape, dtype=torch.bool, device=data.device)
-        for window in [int(w) for w in windows]:
+        for window, divisor, inv_w in zip([int(w) for w in windows], divisors, inv_ws):
             if window > p:
                 continue
-            tf = _f32(rho ** math.log2(window)) if window > 1 else 1.0
-            th = _div(threshold0, tf)[:, None]  # (B, 1, M)
+            th = _div(threshold0, divisor)[:, None]  # (B, 1, M)
             clamped = torch.where(fpos & (pdata > th), th, pdata)
             clamped = torch.where(fneg & (clamped < -th), -th, clamped)
             sums = clamped[:, :p - window + 1].clone()
             for j in range(1, window):
                 sums += clamped[:, j:p - window + 1 + j]
-            inv_w = _f32(1.0 / window)
             fpos = fpos | _dilate_full_windows(sums * inv_w > th, window, p)
             fneg = fneg | _dilate_full_windows(sums * -inv_w > th, window, p)
         out_parts.append((fpos | fneg)[:, lo - plo:hi - plo])
     return torch.cat(out_parts, dim=1)
+
+
+# The limits of csrc/sum_threshold.cu's arguments: windows and chunks a
+# launch, and the rows of a chunk's padded range (or of a tile of it, with
+# its halo of sum(w - 1) each side) that a CTA's 48 KB of shared memory holds.
+ST_MAX_WINDOWS = 32
+ST_MAX_CHUNKS = 128
+ST_MAX_ROWS = 324
+
+
+def sum_threshold_axes(shape, strides) -> tuple:
+    """The kernel's axis order (outer, line, column) for (B, N, M) `shape` and `strides`.
+
+    The line is axis 1; the column, across which a CTA owns 32 lines, is
+    the other axis of least stride (never one of size 1 where the other is
+    longer).
+    """
+    col = min((2, 0), key=lambda a: (shape[a] == 1, abs(strides[a])))
+    return (2 - col, 1, col)
+
+
+class _StArgs(ctypes.Structure):
+    """``StArgs`` of ``csrc/sum_threshold.cu``."""
+
+    _fields_ = [
+        ("data", ctypes.c_void_p), ("threshold", ctypes.c_void_p), ("out", ctypes.c_void_p),
+        ("sd", ctypes.c_longlong * 3), ("so", ctypes.c_longlong * 3),
+        ("st", ctypes.c_longlong * 3), ("st_chunk", ctypes.c_longlong),
+        ("n", ctypes.c_int * 3), ("n_chunks", ctypes.c_int),
+        ("chunk_ends", ctypes.c_int * (ST_MAX_CHUNKS + 1)), ("n_windows", ctypes.c_int),
+        ("windows", ctypes.c_int * ST_MAX_WINDOWS), ("divisors", ctypes.c_float * ST_MAX_WINDOWS),
+        ("inv_w", ctypes.c_float * ST_MAX_WINDOWS),
+    ]
+
+
+@functools.lru_cache(maxsize=None)
+def _st_library() -> ctypes.CDLL:
+    from ...utils import kernels
+
+    lib = kernels.load("sum_threshold", ["sum_threshold.cu"], {})
+    lib.st_error_string.argtypes = [ctypes.c_int]
+    lib.st_error_string.restype = ctypes.c_char_p
+    lib.st_sum_threshold.argtypes = [ctypes.POINTER(_StArgs), ctypes.c_void_p]
+    lib.st_sum_threshold.restype = ctypes.c_int
+    return lib
+
+
+def _st_args(data, threshold, windows, rho, chunks, out) -> _StArgs:
+    """The kernel's :class:`_StArgs` for :func:`sum_threshold_cuda`'s checked arguments."""
+    order = sum_threshold_axes(tuple(data.shape), data.stride())
+    # threshold (chunks, B, M) as a (B, N, M) view whose line stride is 0
+    t_strides = (threshold.stride(1), 0, threshold.stride(2))
+    divisors, inv_ws = _window_constants(windows, rho)
+    n_win, n_chunks = len(windows), len(chunks) - 1
+
+    def along(strides):
+        return (ctypes.c_longlong * 3)(*(strides[a] for a in order))
+
+    return _StArgs(
+        data=data.data_ptr(), threshold=threshold.data_ptr(), out=out.data_ptr(),
+        sd=along(data.stride()), so=along(out.stride()), st=along(t_strides),
+        st_chunk=threshold.stride(0), n=(ctypes.c_int * 3)(*(data.shape[a] for a in order)),
+        n_chunks=n_chunks,
+        chunk_ends=(ctypes.c_int * (ST_MAX_CHUNKS + 1))(*(int(c) for c in chunks)),
+        n_windows=n_win, windows=(ctypes.c_int * ST_MAX_WINDOWS)(*windows),
+        divisors=(ctypes.c_float * ST_MAX_WINDOWS)(*divisors),
+        inv_w=(ctypes.c_float * ST_MAX_WINDOWS)(*inv_ws),
+    )
+
+
+def sum_threshold_cuda(data, threshold, windows, rho, chunks: np.ndarray):
+    """:func:`sum_threshold_plain` of a CUDA tensor by the kernel of ``csrc/sum_threshold.cu``.
+
+    `data` float32 (B, N, M) on one card, any strides; `threshold` float32
+    (chunks, B, M) on the same card; `chunks` from 0 to N, not decreasing;
+    at most :data:`ST_MAX_WINDOWS` windows, each at least 1.  Where a
+    chunk's padded range passes :data:`ST_MAX_ROWS`, the kernel tiles it
+    with a halo of ``sum(w - 1)`` each side, so the windows' halo must be
+    below half of :data:`ST_MAX_ROWS`.  It raises ``ValueError`` on what
+    the kernel does not take, before it launches.  One launch for each
+    :data:`ST_MAX_CHUNKS` chunks; the flags take the data's layout.
+    """
+    if not (isinstance(data, torch.Tensor) and isinstance(threshold, torch.Tensor)):
+        raise TypeError("data and threshold must be tensors")
+    if data.dtype != torch.float32 or threshold.dtype != torch.float32:
+        raise TypeError(f"the SumThreshold kernel takes float32 data and thresholds; got "
+                        f"{data.dtype} and {threshold.dtype}")
+    if data.ndim != 3:
+        raise ValueError(f"the SumThreshold kernel takes (B, N, M) data; got {tuple(data.shape)}")
+    chunks = [int(c) for c in np.asarray(chunks).ravel()]
+    if (len(chunks) < 2 or chunks[0] != 0 or chunks[-1] != data.shape[1]
+            or any(b < a for a, b in zip(chunks, chunks[1:]))):
+        raise ValueError(f"the SumThreshold kernel takes chunks from 0 to {data.shape[1]}, "
+                         f"not decreasing; got {chunks}")
+    if threshold.shape != (len(chunks) - 1, data.shape[0], data.shape[2]):
+        raise ValueError(f"threshold must be (chunks, B, M) = "
+                         f"{(len(chunks) - 1, data.shape[0], data.shape[2])}; "
+                         f"got {tuple(threshold.shape)}")
+    windows = [int(w) for w in windows]
+    if not 1 <= len(windows) <= ST_MAX_WINDOWS or min(windows) < 1:
+        raise ValueError(f"the SumThreshold kernel takes 1 to {ST_MAX_WINDOWS} windows of at "
+                         f"least 1; got {windows}")
+    n, wmax, halo = data.shape[1], max(windows), sum(w - 1 for w in windows)
+    padded = max((min(hi + wmax - 1, n) - max(lo - wmax + 1, 0)
+                  for lo, hi in zip(chunks, chunks[1:]) if hi > lo), default=0)
+    if padded > ST_MAX_ROWS and 2 * halo >= ST_MAX_ROWS:
+        raise ValueError(f"the SumThreshold kernel tiles a padded chunk of {padded} positions "
+                         f"in {ST_MAX_ROWS} rows with a halo of sum(w - 1) each side; windows "
+                         f"{windows} (halo {halo}) leave no room")
+    if max(data.shape) >= 2 ** 31:
+        raise ValueError(f"the SumThreshold kernel takes axes below 2**31; got {tuple(data.shape)}")
+    if data.device.type != "cuda" or threshold.device != data.device:
+        raise ValueError(f"the SumThreshold kernel takes data and thresholds on one card; got "
+                         f"{data.device} and {threshold.device}")
+    out = torch.empty_like(data, dtype=torch.bool)
+    sum_thresholds["kernel"] += 1
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(data.device):
+        lib = _st_library()
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        for c0 in range(0, len(chunks) - 1, ST_MAX_CHUNKS):
+            c1 = min(c0 + ST_MAX_CHUNKS, len(chunks) - 1)
+            args = _st_args(data, threshold[c0:c1], windows, rho, chunks[c0:c1 + 1], out)
+            err = lib.st_sum_threshold(ctypes.byref(args), stream)
+            if err != 0:
+                raise RuntimeError(f"sum_threshold launch failed: cudaError {err} "
+                                   f"({lib.st_error_string(err).decode()})")
+            launches["sum_threshold"] += 1
+    return out
 
 
 def _sum_threshold(input_data, input_flags, axis: int, windows, outlier_nsigma, rho,
@@ -789,6 +974,15 @@ class SumThresholdFlagger:
     It uses the SumThreshold method (Offringa, A., MNRAS, 405, 155-167,
     2010).  Parameters are those of the JAX class (and the reference,
     twodflag.py:951-984); see the module docstring for the algorithm.
+
+    On a card every SumThreshold call runs the kernel of
+    ``csrc/sum_threshold.cu`` (:func:`sum_threshold_cuda`), which takes
+    at most :data:`ST_MAX_WINDOWS` windows an axis and, where a chunk of a
+    line padded by ``max(w) - 1`` each side passes :data:`ST_MAX_ROWS`
+    positions (3000 dumps; 32768 channels in 10 chunks), only windows
+    whose ``sum(w - 1)`` is below half of it: [1, 2, 4, ..., 64] gives
+    120 of at most 161.  :meth:`get_flags` on a card raises
+    ``ValueError`` on other windows; on the CPU the plain chain takes any.
     """
 
     def __init__(self, outlier_nsigma=4.5, windows_time=[1, 2, 4, 8],

@@ -29,6 +29,7 @@ BINDINGS = {
     "percentile": lambda: percentile._library.__wrapped__(),
     "prim_cost": lambda: prim_cost._library.__wrapped__(),
     "roofline_skeleton": lambda: roofline_skeleton._library.__wrapped__(13),
+    "sum_threshold": lambda: twodflag._st_library.__wrapped__(),
     "transpose": lambda: transpose._library.__wrapped__(),
 }
 
