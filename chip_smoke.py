@@ -5,8 +5,9 @@ Usage, from the root of a checkout, on a machine with a CUDA card::
 
     python3 chip_smoke.py
 
-It imports only torch, numpy and ``katsdpsigproc_tpu_torch`` (never jax),
-builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
+It imports only torch, numpy, ``katsdpsigproc_tpu_torch`` and, in phase
+13, the benchmark's ``flagbench`` (never jax), builds the kernels from
+``katsdpsigproc_tpu_torch/csrc`` and runs:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: builds the kernel libraries with one ``nvcc`` each, all
@@ -159,7 +160,16 @@ builds the kernels from ``katsdpsigproc_tpu_torch/csrc`` and runs:
    the shipped record; ``utils/regions`` on CUDA tensors (a 3072 x 8320
    complex64 region copied, read and written, bit for bit numpy's); and
    the ``test.test_accel`` decorators ``device_test`` and ``cuda_test``
-   resolving to ``cuda:0``.
+   resolving to ``cuda:0``;
+13. one dump of the benchmark's ``l32k-fullflags`` cell, 32768 channels x
+   8064 rows with the per-sample flags its loop makes from the seed
+   (``flagbench/loops/fullflags.py``): ``flag_dump(vis.transpose(0, 1),
+   flags.transpose(0, 1), flag_value=16)`` (K5 turns both, K1 in FULL
+   mode) flag for flag ``flagbench/reference_ingest.py``, with one K1
+   launch in FULL mode (``k1_modes``) and two of K5; then K1's FULL mode
+   and K5's 1-byte turn of the flags timed each alone (CUDA events) beside
+   their bounds (``flagbench/counts_ingest.py``), with K5's turn of the
+   dump and the whole call.
 
 Any failure raises and exits non-zero before the result lines.  The
 second-to-last line is a JSON record of each kernel, with its bound: the
@@ -2141,6 +2151,69 @@ def phase_support(card: str) -> None:
     print(f"  the phase took {time.perf_counter() - t0:.1f} s")
 
 
+# The benchmark's cell of ingest's flagging with per-sample flags, and its seed here.
+FULLFLAGS_CELL, FULLFLAGS_SEED = "l32k-fullflags", 2 ** 32 + 27
+
+
+def phase_fullflags(card: str, check: Check) -> dict:
+    """Phase 13: one dump of the l32k-fullflags cell against its reference, and K1's and K5's times.
+
+    Alone, after phase 1: ``python3 -c 'import chip_smoke as c; c.phase_fullflags(c.phase_device(),
+    c.Check())'``.
+    """
+    from flagbench import counts_ingest, harness, reference_ingest
+    from flagbench.loops import fullflags
+    from katsdpsigproc_tpu_torch.models.rfi import fused_flagger as ff
+    from katsdpsigproc_tpu_torch.ops import transpose as tr
+    from katsdpsigproc_tpu_torch.utils.profiling import time_fn
+
+    t0 = time.perf_counter()
+    cuda = torch.device("cuda", 0)
+    spec = harness.load_spec(ROOT)
+    entry, = [w for w in spec["workloads"] if w["name"] == FULLFLAGS_CELL]
+    config = harness.load_config(spec, entry["config"], ROOT)
+    traffic = dict(harness.load_traffic(entry["traffic"]), ring=1)
+    flagger = config["flagger"]
+    (vis,), (flags,) = fullflags.make_ring(FULLFLAGS_SEED, config, traffic, cuda)
+    channels, rows = flags.shape
+    n_vis = channels * rows
+    print(f"the {FULLFLAGS_CELL} dump, {channels} x {rows}, seed {FULLFLAGS_SEED}: "
+          f"{float((flags != 0).float().mean()) * 100:.2f}% of samples flagged on input [{card}]")
+
+    def call():
+        return ff.flag_dump(vis.transpose(0, 1), flags.transpose(0, 1), **flagger)
+
+    modes, turns = dict(ff.k1_modes), tr.launches["transpose"]
+    got = call()
+    torch.cuda.synchronize()
+    launched = {m: ff.k1_modes[m] - modes[m] for m in ff.K1_MODES}
+    print(f"  K1 launches by mode {launched}, K5 launches {tr.launches['transpose'] - turns}")
+    if launched != {"none": 0, "full": 1, "channel": 0} or tr.launches["transpose"] != turns + 2:
+        raise AssertionError("flag_dump with FULL flags is not K5 twice and K1 once in FULL mode")
+    want = reference_ingest.flag_dump(vis, flags, flagger)
+    check.flags("flagger", f"{FULLFLAGS_CELL} dump: flag_dump (K5 x 2, K1 FULL) vs reference_ingest",
+                got, want)
+    del got, want
+    vis_rows, flags_rows = tr.transpose_cuda(vis), tr.transpose_cuda(flags)
+    times = {
+        "K1 FULL mode (flag_transposed on the turned dump and flags)": (
+            time_fn(lambda: ff.flag_transposed(vis_rows, flags_rows, **flagger)),
+            counts_ingest.k1_full_bound_s(n_vis, flagger["width"], flagger["n_windows"])),
+        "K5 1-byte turn of the flags": (
+            time_fn(lambda: tr.transpose_cuda(flags)), counts_ingest.k5_flags_bound_s(n_vis)),
+        "K5 float2 turn of the dump": (time_fn(lambda: tr.transpose_cuda(vis)),
+                                       16 * n_vis / HBM_BYTES_PER_S),
+        "the whole call (K5 x 2 + K1)": (time_fn(call), None),
+    }
+    print(f"  times on {card} (CUDA events, each alone, median of 10 calls after 2):")
+    for label, (ms, bound_s) in times.items():
+        share = "" if bound_s is None else (f", bound {bound_s * 1e3:.4f} ms, "
+                                             f"{100 * bound_s * 1e3 / ms:.2f}% of it")
+        print(f"    {label}: {ms:.3f} ms{share}")
+    print(f"  the phase took {time.perf_counter() - t0:.1f} s")
+    return {label: ms for label, (ms, _) in times.items()}
+
+
 def main() -> None:
     card = phase_device()
     sys.path.insert(0, str(ROOT))
@@ -2174,6 +2247,7 @@ def main() -> None:
     phase_parallel(ff, device, vis_np, card, check)
     del vis_np
     phase_support(card)
+    phase_fullflags(card, check)
     print(json.dumps({"kernels": [
         {"name": name, "route": ROUTES.get(name, "cuda"), "source": SOURCES[name],
          "replaces": REPLACES[name], "max_abs_err": check.max_abs_err[name], **numbers}

@@ -42,12 +42,14 @@ A tensor on the CPU goes to the plain version beside each kernel
 (:func:`flag_transposed_plain`, :func:`madnz_threshold_plain`), composed
 of the :mod:`.device` stages; a CUDA tensor goes to the kernel, or the
 call raises.  :data:`launches` counts the kernel launches,
-:data:`k1_ctas` K1's by the threads of its CTAs, and :data:`row_major`
-how their rows were made contiguous.  While a profiler
-session records, :func:`flag_transposed` (and so :func:`flag_dump` and
-:func:`flag_transposed_dma`) records its host work as spans
-(:func:`..utils.profiling.annotate`): ``ksp.flag_dump`` the whole call,
-``ksp.flag_dump.check`` its checks and the flags' allocation, and
+:data:`k1_ctas` K1's by the threads of its CTAs, :data:`k1_modes` K1's
+by its input-flag mode, and :data:`row_major` how their rows were made
+contiguous.  While a profiler session records, :func:`flag_transposed`
+(and so :func:`flag_dump` and :func:`flag_transposed_dma`) records its
+host work as spans (:func:`..utils.profiling.annotate`): ``ksp.flag_dump``
+the whole call, ``ksp.flag_dump.check`` its checks and the flags'
+allocation, ``ksp.flag_dump.input_flags`` the FULL flags' checks and their
+turn to row-major (only where ``input_flags`` is given), and
 ``ksp.launch.k1`` (``ksp.launch.k1_wide``) K1's launch alone.
 """
 
@@ -72,6 +74,10 @@ wide_launches = {"flagger": 0, "madnz_threshold": 0}
 K1_THREADS = (128, 256, 512, 1024)
 # K1's launches, wide-row path included, by the threads of their CTAs.
 k1_ctas = {threads: 0 for threads in K1_THREADS}
+# K1's input-flag modes by the kernel's code (kMode 0, 1, 2).
+K1_MODES = ("none", "full", "channel")
+# K1's launches, wide-row path included, by mode.
+k1_modes = {mode: 0 for mode in K1_MODES}
 # How :func:`_row_major` gave the kernels their rows since the counts were
 # last reset: corner-turned by K5, or copied whole by ``contiguous()``.
 row_major = {"turned": 0, "copied": 0}
@@ -367,7 +373,8 @@ def _prepare(vis_t, input_flags, channel_flags, width: int, n_windows: int, flag
     Returns the (rows, channels, 2) view of `vis_t`, the (rows, channels)
     uint8 flags to fill, the library and whether the rows take the
     wide-row path.  On the CPU the last three are None, None, False, and
-    so are the last two for a dump with no rows or no channels.
+    so are the last two for a dump with no rows or no channels.  FULL
+    flags are checked after, by :func:`_full_flags`.
     """
     _check_rank_radix(rank_radix)
     if input_flags is not None and channel_flags is not None:
@@ -381,8 +388,6 @@ def _prepare(vis_t, input_flags, channel_flags, width: int, n_windows: int, flag
         raise TypeError(f"vis_t must be torch.float32, got {vis_t.dtype}")
     if layout == "leading":
         vis_t = vis_t.permute(1, 2, 0)
-    if input_flags is not None:
-        _check_tensor("input_flags", input_flags, torch.uint8, (rows, channels), vis_t.device)
     if channel_flags is not None:
         _check_tensor("channel_flags", channel_flags, torch.uint8, (channels,), vis_t.device)
     if vis_t.device.type == "cpu":
@@ -394,6 +399,20 @@ def _prepare(vis_t, input_flags, channel_flags, width: int, n_windows: int, flag
         return vis_t, out, None, False
     lib = _library(width)
     return vis_t, out, lib, _wide_path(channels, lib.ff_max_channels(), width)
+
+
+def _full_flags(input_flags, vis_t):
+    """FULL mode's (rows, channels) uint8 flags, checked against the (rows, channels, 2) `vis_t`.
+
+    On the card they are returned row-major, as K1 reads them: the
+    transposed view of channel-major flags is corner-turned by K5's 1-byte
+    instance (:func:`_row_major`).
+    """
+    _check_tensor("input_flags", input_flags, torch.uint8, vis_t.shape[:2], vis_t.device)
+    if vis_t.device.type != "cuda" or input_flags.numel() == 0:
+        return input_flags
+    with torch.cuda.device(vis_t.device):
+        return _row_major(input_flags)
 
 
 def flag_transposed(vis_t, input_flags=None, width: int = 13, n_sigma: float = 11.0,
@@ -452,6 +471,9 @@ def flag_transposed(vis_t, input_flags=None, width: int = 13, n_sigma: float = 1
         with profiling.annotate("ksp.flag_dump.check"):
             vis_t, out, lib, wide = _prepare(vis_t, input_flags, channel_flags, width, n_windows,
                                              flag_value, layout, ingest, nref, rank_radix)
+        if input_flags is not None:
+            with profiling.annotate("ksp.flag_dump.input_flags"):
+                input_flags = _full_flags(input_flags, vis_t)
         kw = dict(n_sigma=n_sigma, n_windows=n_windows, falloff=falloff, flag_value=flag_value)
         if vis_t.device.type == "cpu":
             return flag_transposed_plain(vis_t, input_flags, channel_flags=channel_flags,
@@ -494,6 +516,7 @@ def _k1(vis_t, input_flags, channel_flags, out, lib, wide: bool, threads: int, *
     launches["flagger"] += 1
     wide_launches["flagger"] += wide
     k1_ctas[threads] += 1
+    k1_modes[K1_MODES[mode]] += 1
     return out
 
 
@@ -507,6 +530,8 @@ def _flag_at(vis_t, threads: int, input_flags=None, channel_flags=None, width: i
     """
     vis_t, out, lib, wide = _prepare(vis_t, input_flags, channel_flags, width, n_windows,
                                      flag_value, "trailing", "planar", 1, 1)
+    if input_flags is not None:
+        input_flags = _full_flags(input_flags, vis_t)
     if lib is None or wide:
         raise ValueError("K1's instances need a CUDA dump whose rows fit the run layout")
     return _k1(vis_t, input_flags, channel_flags, out, lib, wide, threads, n_sigma=n_sigma,
