@@ -19,8 +19,10 @@ It imports only torch, numpy, ``katsdpsigproc_tpu_torch`` and, in phase
    ``percentile5_radix_kernel``, every K9, K11, K13 and ``channel_major``
    instance of ``flagger_probe.cu``'s ``probe_kernel``, each instance of
    K12 (clusters of 1, 2, 4 and 8 rows, baseline-major),
-   K10's ``skeleton_kernel`` and every instance of K8 at K1's launch
-   (``k1_prim_kernel``) must spill no bytes, and the SASS local loads and
+   K10's ``skeleton_kernel``, every instance of K8 at K1's launch
+   (``k1_prim_kernel``) and the 2-D flagger's ``masked_median_kernel``
+   (``median_lines_kernel`` and both ``median_block_kernel``s, with no
+   SASS local load or store either) must spill no bytes, and the SASS local loads and
    stores of each are counted (``cuobjdump -sass``), with the SASS
    instructions a rep of each K8 body costs an element;
 3. each kernel against its plain PyTorch version on the card, exact on
@@ -103,8 +105,9 @@ It imports only torch, numpy, ``katsdpsigproc_tpu_torch`` and, in phase
 10. the 2-D and FFT paths and ``FusedFlaggerTemplate``: the 2-D path is
    plain PyTorch as XLA computes it in JAX, but for its masked Gaussian
    filter, which on the card is the box-filter kernels
-   (``csrc/box_filter.cu``), and SumThreshold's window chain, the kernel
-   of ``csrc/sum_threshold.cu``.  First those, ``masked_gaussian_filter`` on
+   (``csrc/box_filter.cu``), SumThreshold's window chain, the kernel
+   of ``csrc/sum_threshold.cu``, and its masked medians, the kernel of
+   ``csrc/masked_median.cu``.  First those, ``masked_gaussian_filter`` on
    card tensors at a calibrator scan's batch shapes, 2016 baselines x 75
    dumps x 1024 channels, baselines innermost as the flagger's averaged
    data lies (sigma (0, 12.5, 10): ``box_strided_kernel`` twice), and its
@@ -119,16 +122,23 @@ It imports only torch, numpy, ``katsdpsigproc_tpu_torch`` and, in phase
    and noise estimates, and its spectrum, (2016, 1, 1024) contiguous, in
    8 chunks, one launch a call; then the three calls timed together
    against 5 B a sample a call at :data:`HBM_BYTES_PER_S` and
-   :func:`sum_threshold_ops` at :data:`F32_OPS_PER_S`.  Then the 2-D
+   :func:`sum_threshold_ops` at :data:`F32_OPS_PER_S`; the median kernel's
+   six calls of the same batch (the time median, the spectrum's background
+   and thresholds, the 2-D background's blocks of 75 x 128, the time and
+   the frequency thresholds, 8 chunks in frequency, in the flagger's
+   layouts), bit for bit its plain version (``masked_median_plain``, a
+   sort a chunk), one launch a call, then each call timed and the six
+   together against 5 B a sample and the 34 sorts.  Then the 2-D
    ``SumThresholdFlagger`` at ``bench.py`` config 1 (3000 times x 1024
    channels x 1 baseline, seed 1) and on ``rfiflagtest``'s spiked data
    (3000 x 1024 x 16, one chunk of ``get_flags``), each equal flag for
    flag to the port's run on the CPU and, on one baseline, to the numpy
    oracle ``tests/rfi/twodflag_oracle.py``, with ``twodflag.box_filters``,
-   ``twodflag.sum_thresholds`` and ``twodflag.launches`` set to 0 just
-   before the card's run and read just after (every filter on the kernels,
-   the launches its plan gives; 3 SumThreshold chains a batch, each one
-   launch of its kernel),
+   ``twodflag.sum_thresholds``, ``twodflag.medians`` and
+   ``twodflag.launches`` set to 0 just before the card's run and read just
+   after (every filter on the kernels, the launches its plan gives; 3
+   SumThreshold chains a batch, each one launch of its kernel; 6 medians a
+   batch, each one launch of its kernel),
    timed; ``fftflagtest``'s pipeline at config 4 (256 x 32768 float32):
    the ``Fft`` r2c and c2r operations against the CPU run, each row's
    relative error within ``tests/test_fft.py``'s rtol, and the flags
@@ -215,6 +225,7 @@ SOURCES = {
     "roofline_skeleton": "katsdpsigproc_tpu_torch/csrc/roofline_skeleton.cu",
     "box_filter": "katsdpsigproc_tpu_torch/csrc/box_filter.cu",
     "sum_threshold": "katsdpsigproc_tpu_torch/csrc/sum_threshold.cu",
+    "masked_median": "katsdpsigproc_tpu_torch/csrc/masked_median.cu",
 }
 ROUTES = {"triple": "triton"}  # the others are CUDA C++
 REPLACES = {
@@ -234,6 +245,8 @@ REPLACES = {
     "box_filter": "katsdpsigproc_tpu/models/rfi/twodflag.py:235",
     # No Pallas kernel: XLA computes SumThreshold's window chain in JAX.
     "sum_threshold": "katsdpsigproc_tpu/models/rfi/twodflag.py:291",
+    # No Pallas kernel: XLA's bitwise rank search computes the medians in JAX.
+    "masked_median": "katsdpsigproc_tpu/models/rfi/twodflag.py:50",
 }
 # The H100 SXM's HBM3 rate, and its float32 instruction rate outside the
 # tensor cores.  The data sheet's 67 TFLOP/s (132 SMs x 128 lanes x 1.98
@@ -395,6 +408,7 @@ def kernel_label(mangled: str) -> str:
 
 def phase_build(ff, pct, tr, fp, kernels) -> None:
     from katsdpsigproc_tpu_torch.examples import triple, triple_pallas
+    from katsdpsigproc_tpu_torch.models.rfi import twodflag
     from katsdpsigproc_tpu_torch.scripts import prim_cost, roofline_skeleton
 
     def triton_kernel():
@@ -410,7 +424,7 @@ def phase_build(ff, pct, tr, fp, kernels) -> None:
                   pool.submit(tr._library), pool.submit(fp._library, 13),
                   *(pool.submit(ff._library, w) for w in WIDE_WIDTHS),
                   pool.submit(triple._library), pool.submit(prim_cost._library),
-                  pool.submit(roofline_skeleton._library, 13)]
+                  pool.submit(roofline_skeleton._library, 13), pool.submit(twodflag._mm_library)]
         triton_s = pool.submit(triton_kernel)
         for b in builds:
             b.result()
@@ -529,6 +543,23 @@ def phase_build(ff, pct, tr, fp, kernels) -> None:
     if ("madnz_threshold_kernel" not in checked or len(checked) < 2
             or any(r["spill_stores"] or r["spill_loads"] for r in checked.values())):
         raise AssertionError(f"K2 or K4 spills or is missing from the report: {checked}")
+    # The 2-D flagger's median kernels (masked_median_kernel: the line and
+    # the block kernels): no spills, no local loads or stores.
+    mm_key = kernels.build_key("masked_median", ["masked_median.cu"], {})
+    report = {name: r for name, r in ptxas_report(kernels.build_info[mm_key]["log"]).items()
+              if "median_" in name}
+    sass = subprocess.run([cuobjdump, "-sass", str(kernels.BUILD_DIR / mm_key /
+                                                   "libmasked_median.so")],
+                          capture_output=True, text=True).stdout
+    local = len(re.findall(r"\b(?:LDL|STL)\b", sass))
+    for name, r in sorted(report.items()):
+        print(f"  masked_median_kernel {name}: {r.get('registers')} registers, {r['stack']} B "
+              f"stack frame, {r['spill_stores']} B spill stores, {r['spill_loads']} B spill loads")
+    print(f"  masked_median_kernel: SASS {local} local loads and stores in all")
+    if len(report) != 3 or local or any(r["spill_stores"] or r["spill_loads"]
+                                        for r in report.values()):
+        raise AssertionError(f"the median kernels spill, use local memory or are missing from "
+                             f"the report: {report}, {local} LDL/STL")
     # K8 at K1's launch, __launch_bounds__(1024, 1) as K1: no spills; and the
     # SASS instructions one rep of each body costs an element: the kernel
     # unrolled 16 times less 8 times, 8 reps (16 for rank_round and reduce,
@@ -1715,6 +1746,75 @@ def phase_sum_threshold(twodflag, dev, card: str, check: Check) -> dict:
     return {"ms": ms, "plain_ms": plain_ms, "nbytes": nbytes, "ops": ops}
 
 
+def phase_masked_median(twodflag, dev, card: str, check: Check) -> dict:
+    """The median kernel on a calibrator scan's batch: the flagger's six calls (its
+    populations in the layouts it holds them in, 8 chunks in frequency) against the
+    plain version on the same card tensors, then timed beside their bound and the
+    plain version (a sort a chunk: the batch's 34 sorts).  Returns its ``kernels``-line
+    record: the six calls together."""
+    from katsdpsigproc_tpu_torch.utils.profiling import time_fn
+
+    n_bl, n_time, n_freq = BASELINES, 75, 1024
+    chunks = np.linspace(0, n_freq, 9).astype(np.int_)
+    whole = np.array([0, n_time])
+    g = torch.Generator(device=dev).manual_seed(4)
+    cube = (n_time, n_freq, n_bl)
+    # (B, T, F) views of (T, F, B) cubes: baselines innermost, as the flagger holds them
+    amp = torch.randn(cube, device=dev, generator=g).abs_().permute(2, 0, 1)
+    residual = torch.randn(cube, device=dev, generator=g).permute(2, 0, 1)
+    flags = (torch.rand(cube, device=dev, generator=g) < 0.05).permute(2, 0, 1)
+    flags[:, :, 400:480] = True  # channels all flagged: the time median's empty value
+    # the 2-D background's |residual| and flags in (B, T, F) order, and the spectrum's
+    dense, dense_flags = residual.abs().contiguous(), flags.contiguous()
+    spectrum, spectrum_flags = dense[:, :1].contiguous(), dense_flags[:, :1].contiguous()
+    calls = {
+        "time median": (amp, flags, whole, {"empty_value": 0.0}),
+        "spectrum's background": (spectrum.transpose(1, 2), spectrum_flags.transpose(1, 2),
+                                  chunks, {"empty_value": np.nan, "blocks": True}),
+        "spectrum's thresholds": (spectrum.transpose(1, 2), spectrum_flags.transpose(1, 2),
+                                  chunks, {"empty_value": np.nan, "take_abs": True}),
+        "2-D background": (dense.transpose(1, 2), dense_flags.transpose(1, 2), chunks,
+                           {"empty_value": np.nan, "blocks": True}),
+        "time thresholds": (residual, flags, whole, {"empty_value": np.nan, "take_abs": True}),
+        "frequency thresholds": (residual.transpose(1, 2), flags.transpose(1, 2), chunks,
+                                 {"empty_value": np.nan, "take_abs": True}),
+    }
+    print(f"the masked medians of a batch, {n_bl} x {n_time} x {n_freq}:")
+    nbytes = 0
+    for label, (d, f, c, kw) in calls.items():
+        before = twodflag.launches["median"]
+        got = twodflag.masked_median(d, f, c, **kw)
+        torch.cuda.synchronize()
+        ran = twodflag.launches["median"] - before
+        if ran != 1:
+            raise AssertionError(f"{label}: {ran} launches, want 1")
+        want = twodflag.masked_median_plain(d, f, c, **kw)
+        check.exact("masked_median", f"{label}: kernel vs plain version on the card", got, want)
+        if not bool(torch.isfinite(got).any()):
+            raise AssertionError(f"{label}: no finite median to compare")
+        del got, want
+        nbytes += d.numel() * (4 + 1) + 4 * (len(c) - 1) * d.shape[0] * (
+            1 if kw.get("blocks") else d.shape[2])  # data and flags read, medians written
+    card_state("before the median kernel's timings")
+    for label, (d, f, c, kw) in calls.items():
+        ms = time_fn(lambda: twodflag.masked_median(d, f, c, **kw), warmup=1, iters=10)
+        print(f"  {label}: kernel {ms:.3f} ms ({d.numel() * 5 / HBM_BYTES_PER_S * 1e3:.3f} ms "
+              f"of bytes)")
+
+    def batch(fn):
+        return lambda: [fn(d, f, c, **kw) for d, f, c, kw in calls.values()]
+
+    ms = time_fn(batch(twodflag.masked_median), warmup=1, iters=10)
+    plain_ms = time_fn(batch(twodflag.masked_median_plain), warmup=1, iters=3)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  the batch's 6 calls: kernel {ms:.3f} ms (6 launches; CUDA events, 1 warm-up, "
+          f"median of 10), plain version {plain_ms:.3f} ms (34 sorts; median of 3); bound "
+          f"{bound:.3f} ms ({nbytes / 1e9:.2f} GB) [{card}]")
+    del amp, residual, flags, dense, dense_flags, spectrum, spectrum_flags, calls
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "nbytes": nbytes}
+
+
 def phase_twod_fft(ff, device, vis_np: np.ndarray, card: str, check: Check) -> dict:
     """The box-filter kernels, the 2-D flagger (configs 1 and rfiflagtest's 16
     baselines), the FFT path (config 4) and FusedFlaggerTemplate on the card."""
@@ -1728,6 +1828,7 @@ def phase_twod_fft(ff, device, vis_np: np.ndarray, card: str, check: Check) -> d
     dev = torch.device("cuda", 0)
     box_ms, box_plain_ms, box_bytes, box_adds = phase_box_filter(twodflag, dev, card, check)
     st = phase_sum_threshold(twodflag, dev, card, check)
+    mm = phase_masked_median(twodflag, dev, card, check)
     oracle = rfiflagtest.load_twodflag_oracle()
     times, channels = 3000, 1024
     rs = np.random.RandomState(seed=1)  # bench.py config 1
@@ -1736,12 +1837,13 @@ def phase_twod_fft(ff, device, vis_np: np.ndarray, card: str, check: Check) -> d
     spiked = np.abs(rfiflagtest.generate_data(times, channels, 16))
     flagger = twodflag.SumThresholdFlagger()
     calls_per_batch, launches_per_batch = box_filter_calls(flagger)
-    box_launches = st_launches = 0
+    box_launches = st_launches = mm_launches = 0
     for label, amp in (("config 1, 3000 x 1024 x 1 (seed 1)", config1),
                        ("rfiflagtest's spiked data, 3000 x 1024 x 16 (one chunk)", spiked)):
         print(f"the 2-D flagger (SumThresholdFlagger()), {label}:")
         zeros = np.zeros(amp.shape, bool)
-        for counts in (twodflag.box_filters, twodflag.sum_thresholds, twodflag.launches):
+        for counts in (twodflag.box_filters, twodflag.sum_thresholds, twodflag.medians,
+                       twodflag.launches):
             counts.update(dict.fromkeys(counts, 0))
         n_batches = twodflag.batches["batches"]
         t0 = time.perf_counter()
@@ -1749,11 +1851,11 @@ def phase_twod_fft(ff, device, vis_np: np.ndarray, card: str, check: Check) -> d
         t1 = time.perf_counter()
         n_batches = twodflag.batches["batches"] - n_batches
         filters, launched = dict(twodflag.box_filters), dict(twodflag.launches)
-        chains = dict(twodflag.sum_thresholds)
-        st_launched = launched.pop("sum_threshold")
+        chains, medians = dict(twodflag.sum_thresholds), dict(twodflag.medians)
+        st_launched, mm_launched = launched.pop("sum_threshold"), launched.pop("median")
         print(f"  {n_batches} batch(es): masked Gaussian filters by route {filters}, "
               f"box-filter launches {launched}; SumThreshold chains by route {chains}, "
-              f"{st_launched} launches")
+              f"{st_launched} launches; medians by route {medians}, {mm_launched} launches")
         if filters != {"kernel": calls_per_batch * n_batches, "plain": 0}:
             raise AssertionError(f"{label}: filters {filters}, want {calls_per_batch} a batch, "
                                  f"all on the kernels")
@@ -1764,8 +1866,14 @@ def phase_twod_fft(ff, device, vis_np: np.ndarray, card: str, check: Check) -> d
         if chains != {"kernel": 3 * n_batches, "plain": 0} or st_launched != 3 * n_batches:
             raise AssertionError(f"{label}: SumThreshold chains {chains} and {st_launched} "
                                  f"launches, want 3 a batch, all on the kernel")
+        # the time median, the spectrum's background and thresholds, the 2-D
+        # background, the time and the frequency thresholds: 6 a batch
+        if medians != {"kernel": 6 * n_batches, "plain": 0} or mm_launched != 6 * n_batches:
+            raise AssertionError(f"{label}: medians {medians} and {mm_launched} launches, want "
+                                 f"6 a batch, all on the kernel")
         box_launches += sum(launched.values())
         st_launches += st_launched
+        mm_launches += mm_launched
         on_cpu = flagger.get_flags(amp, zeros, device="cpu")
         t2 = time.perf_counter()
         expected = oracle.get_flags(amp[..., :1], zeros[..., :1])
@@ -1860,7 +1968,8 @@ def phase_twod_fft(ff, device, vis_np: np.ndarray, card: str, check: Check) -> d
     # The calibrator-scan batch's calls; the launches, the flagger's counted runs'.
     return {"box_filter": record(box_launches, box_ms, box_plain_ms, box_bytes, box_adds),
             "sum_threshold": record(st_launches, st["ms"], st["plain_ms"], st["nbytes"],
-                                    st["ops"])}
+                                    st["ops"]),
+            "masked_median": record(mm_launches, mm["ms"], mm["plain_ms"], mm["nbytes"], 0)}
 
 
 def phase_stream(ff, device, vis_np: np.ndarray, card: str, check: Check) -> None:

@@ -23,7 +23,7 @@ exception: as in JAX they take a sigma or an axis for every dimension, and
 the callers give the baseline axis sigma 0.
 
 No Pallas kernel lies on this path (XLA computes all of it in the JAX
-package).  It is PyTorch on the caller's device, but for two stages that
+package).  It is PyTorch on the caller's device, but for three stages that
 run as hand-written kernels on a CUDA tensor and as their plain versions,
 whose bits they equal, on the CPU:
 
@@ -34,11 +34,15 @@ whose bits they equal, on the CPU:
 * SumThreshold's window chain: :func:`_sum_threshold1d` runs the kernel of
   ``csrc/sum_threshold.cu`` (every window of up to 128 chunks in one
   launch, :func:`sum_threshold_cuda`), or the eager chain
-  (:func:`sum_threshold_plain`).  Its noise estimates, the eager medians
-  of :func:`_chunk_thresholds`, feed both.
+  (:func:`sum_threshold_plain`);
+* the masked medians (the time median, the backgrounds' and the noise
+  estimates' medians of ``|x|``): :func:`masked_median` runs the kernel of
+  ``csrc/masked_median.cu`` (a radix select of every chunk of up to 128
+  in one launch, :func:`masked_median_cuda`), or a sort
+  (:func:`masked_median_plain`).
 
-The background's NaN interpolation, the frequency average, the medians and
-the finish are eager PyTorch on either device.  The float32 arithmetic is
+The background's NaN interpolation, the frequency average and the finish
+are eager PyTorch on either device.  The float32 arithmetic is
 the JAX module's, operation for operation, on the CPU and on the card
 alike (``tests/rfi/twodflag_oracle.py:14-42`` lists the conventions):
 
@@ -73,8 +77,8 @@ and un-average; then the NaN flags, a second span of that name).
 :data:`batches` counts the calls, batches and baselines of
 :meth:`~SumThresholdFlagger.get_flags`; :data:`box_filters` the calls of
 :func:`masked_gaussian_filter` by route, :data:`sum_thresholds` the window
-chains of :func:`_sum_threshold1d` by route, :data:`launches` each
-kernel's launches.
+chains of :func:`_sum_threshold1d` by route, :data:`medians` the calls of
+:func:`masked_median` by route, :data:`launches` each kernel's launches.
 """
 
 import ctypes
@@ -98,9 +102,12 @@ box_filters = {"kernel": 0, "plain": 0}
 # reset, by route: "kernel" (a CUDA tensor, csrc/sum_threshold.cu) and
 # "plain" (the CPU).
 sum_thresholds = {"kernel": 0, "plain": 0}
+# The calls of masked_median since the counts were last reset, by route:
+# "kernel" (a CUDA tensor, csrc/masked_median.cu) and "plain" (the CPU).
+medians = {"kernel": 0, "plain": 0}
 # Launches of each kernel since the counts were last reset; its wrapper adds
 # one where it launches, and nowhere else.
-launches = {"box_strided": 0, "box_rows": 0, "sum_threshold": 0}
+launches = {"box_strided": 0, "box_rows": 0, "sum_threshold": 0, "median": 0}
 
 # The card's memory a batch takes at its peak, per baseline: the caching
 # allocator's peak over a batch less what it held before, on an H100 at 8
@@ -160,31 +167,194 @@ def _masked_median_axis0(data, valid, *, empty_value):
     Port of ``katsdpsigproc_tpu/models/rfi/twodflag.py::_masked_median_axis0``
     (tensor axis 1, below the baseline axis).  The two central values of
     an even count are averaged in float32, ``(upper + lower) * 0.5``, as
-    np.median does.  Returns ``data.shape[:1] + data.shape[2:]``.
+    np.median does.  Returns ``data.shape[:1] + data.shape[2:]``.  It is
+    :func:`masked_median` of one chunk, the trailing axes as one.
 
     The JAX function takes the order statistics by the bitwise rank search
     (``find_rank_float(..., radix_bits=4)``), which on a TPU avoids a
-    sorted intermediate; here they come from a sort along the axis, with
-    masked entries as NaN, which sorts last.  The two give the same bits:
-    the rank search returns the sorted value of the target rank, averaged
-    with its predecessor exactly when the predecessor is smaller, and so
-    does this (``tests/test_torch_twodflag.py`` holds the two to each
-    other on ties, zeros, infinities and masked entries).  A sort costs a
-    tenth of the rank search's 8 rounds of 15 candidate counts on the CPU.
+    sorted intermediate.  The two give the same bits: the rank search
+    returns the sorted value of the target rank, averaged with its
+    predecessor exactly when the predecessor is smaller, and so do both
+    routes here (``tests/test_torch_twodflag.py`` holds them to each other
+    on ties, zeros, infinities and masked entries).
     """
     out_shape = data.shape[:1] + data.shape[2:]
-    if data.shape[1] == 0:
-        # Empty population (e.g. a zero-length frequency chunk when
-        # freq_chunks > channels): every output is the empty value.
-        return torch.full(out_shape, empty_value, dtype=data.dtype, device=data.device)
-    vals = torch.where(valid, data, torch.nan)
-    ordered = torch.sort(torch.movedim(vals, 1, -1), dim=-1).values
-    n = torch.sum(valid, dim=1, dtype=torch.int32)
-    k = (n // 2).to(torch.int64)[..., None]
-    upper = torch.gather(ordered, -1, k)[..., 0]
-    lower = torch.gather(ordered, -1, (k - 1).clamp(min=0))[..., 0]
-    med = torch.where(((n & 1) == 0) & (lower < upper), (upper + lower) * 0.5, upper)
-    return torch.where(n > 0, med, empty_value)
+    n_b, n = data.shape[:2]
+    lines = math.prod(data.shape[2:])
+    med = masked_median(data.reshape(n_b, n, lines), ~valid.reshape(n_b, n, lines),
+                        np.array([0, n]), empty_value=empty_value)
+    return med[0].reshape(out_shape)
+
+
+def masked_median(data, flags, chunks, *, empty_value, take_abs=False, blocks=False):
+    """The median of each chunk of the unflagged entries of (B, N, M) `data`.
+
+    A population is the positions ``chunks[c] <= n < chunks[c + 1]`` of a
+    line (b, :, m) where `flags` is clear, or with `blocks` those of every
+    line of baseline b together; of ``|data|`` with `take_abs`.  Its median
+    is the order statistic at rank ``k = n // 2`` of its ``n`` entries,
+    averaged in float32 with rank ``k - 1`` where ``n`` is even and that is
+    less, ``(upper + lower) * 0.5``, and `empty_value` where ``n`` is 0.  A
+    NaN entry ranks above +inf and reads as the canonical NaN; -0 ranks and
+    reads as +0.  Returns (chunks, B, M) float32, or (chunks, B, 1) with
+    `blocks`.
+
+    A CUDA tensor goes to the kernel (:func:`masked_median_cuda`) or the
+    call raises; a tensor on the CPU takes the sort
+    (:func:`masked_median_plain`).  The two give the same bits.
+    """
+    if data.device.type == "cuda":
+        return masked_median_cuda(data, flags, chunks, empty_value=empty_value,
+                                  take_abs=take_abs, blocks=blocks)
+    medians["plain"] += 1
+    return masked_median_plain(data, flags, chunks, empty_value=empty_value,
+                               take_abs=take_abs, blocks=blocks)
+
+
+def masked_median_plain(data, flags, chunks, *, empty_value, take_abs=False, blocks=False):
+    """The plain PyTorch version of the median kernel: a sort of each chunk.
+
+    Masked entries become NaN, which sorts last; the two central values are
+    gathered from the sorted chunk.  Every NaN is made the canonical NaN
+    and -0 is made +0 first, so that the result does not depend on the
+    order the sort leaves equal keys in.
+    """
+    n_b, _, n_m = data.shape
+    parts = []
+    for lo, hi in zip(chunks[:-1], chunks[1:]):
+        lo, hi = int(lo), int(hi)
+        if hi == lo:
+            parts.append(torch.full((n_b, 1 if blocks else n_m), empty_value, dtype=data.dtype,
+                                    device=data.device))
+            continue
+        d, f = data[:, lo:hi], flags[:, lo:hi]
+        if blocks:
+            d, f = d.reshape(n_b, -1, 1), f.reshape(n_b, -1, 1)
+        if take_abs:
+            d = torch.abs(d)
+        valid = ~_asbool(f)
+        vals = torch.where(valid & ~torch.isnan(d), d + 0.0, torch.nan)
+        ordered = torch.sort(torch.movedim(vals, 1, -1), dim=-1).values
+        n = torch.sum(valid, dim=1, dtype=torch.int32)
+        k = (n // 2).to(torch.int64)[..., None]
+        upper = torch.gather(ordered, -1, k)[..., 0]
+        lower = torch.gather(ordered, -1, (k - 1).clamp(min=0))[..., 0]
+        med = torch.where(((n & 1) == 0) & (lower < upper), (upper + lower) * 0.5, upper)
+        parts.append(torch.where(n > 0, med, empty_value))
+    return torch.stack(parts)
+
+
+# The chunks csrc/masked_median.cu takes a launch.
+MM_MAX_CHUNKS = 128
+
+
+def masked_median_axes(shape, strides, blocks: bool) -> tuple:
+    """The kernel's (outer, column, line, row) axes of a (B, N, M) input; None is an axis of 1.
+
+    The line is axis 1.  With `blocks` the rows are axis 2 and the columns
+    the baselines; else there are no rows, and the column, across which a
+    warp owns 32 lines, is the other axis of least stride (never one of
+    size 1 where the other is longer).
+    """
+    if blocks:
+        return (None, 0, 1, 2)
+    col = min((2, 0), key=lambda a: (shape[a] == 1, abs(strides[a])))
+    return (2 - col, col, 1, None)
+
+
+class _MmArgs(ctypes.Structure):
+    """``MmArgs`` of ``csrc/masked_median.cu``."""
+
+    _fields_ = [
+        ("data", ctypes.c_void_p), ("flags", ctypes.c_void_p), ("out", ctypes.c_void_p),
+        ("sd", ctypes.c_longlong * 4), ("sf", ctypes.c_longlong * 4),
+        ("so", ctypes.c_longlong * 3), ("n", ctypes.c_int * 4), ("n_chunks", ctypes.c_int),
+        ("chunk_ends", ctypes.c_int * (MM_MAX_CHUNKS + 1)), ("take_abs", ctypes.c_int),
+        ("empty_value", ctypes.c_float),
+    ]
+
+
+@functools.lru_cache(maxsize=None)
+def _mm_library() -> ctypes.CDLL:
+    from ...utils import kernels
+
+    lib = kernels.load("masked_median", ["masked_median.cu"], {})
+    lib.mm_error_string.argtypes = [ctypes.c_int]
+    lib.mm_error_string.restype = ctypes.c_char_p
+    lib.mm_masked_median.argtypes = [ctypes.POINTER(_MmArgs), ctypes.c_void_p]
+    lib.mm_masked_median.restype = ctypes.c_int
+    return lib
+
+
+def _mm_args(data, flags, chunks, out, *, empty_value, take_abs, blocks) -> _MmArgs:
+    """The kernel's :class:`_MmArgs` for :func:`masked_median_cuda`'s checked arguments;
+    `out` the (chunks, B, M or 1) result of these chunks."""
+    axes = masked_median_axes(tuple(data.shape), data.stride(), blocks)
+    # out's axes: (chunk, outer, column), each an axis of the (B, N, M) input
+    out_axes = {0: 1, 2: 2}
+
+    def along(t):
+        return (ctypes.c_longlong * 4)(*(0 if a is None else t.stride(a) for a in axes))
+
+    so = [out.stride(0)] + [0 if a is None else out.stride(out_axes[a]) for a in axes[:2]]
+    return _MmArgs(
+        data=data.data_ptr(), flags=flags.data_ptr(), out=out.data_ptr(),
+        sd=along(data), sf=along(flags), so=(ctypes.c_longlong * 3)(*so),
+        n=(ctypes.c_int * 4)(*(1 if a is None else data.shape[a] for a in axes)),
+        n_chunks=len(chunks) - 1,
+        chunk_ends=(ctypes.c_int * (MM_MAX_CHUNKS + 1))(*chunks),
+        take_abs=int(take_abs), empty_value=empty_value,
+    )
+
+
+def masked_median_cuda(data, flags, chunks, *, empty_value, take_abs=False, blocks=False):
+    """:func:`masked_median_plain` of a CUDA tensor by the kernel of ``csrc/masked_median.cu``.
+
+    `data` float32 (B, N, M) on one card, `flags` bool or uint8 of its
+    shape on the same card, any strides; `chunks` from 0 to N, not
+    decreasing.  It raises on what the kernel does not take, before it
+    launches.  One launch for each :data:`MM_MAX_CHUNKS` chunks; the
+    result is contiguous.
+    """
+    if not (isinstance(data, torch.Tensor) and isinstance(flags, torch.Tensor)):
+        raise TypeError("data and flags must be tensors")
+    if data.dtype != torch.float32 or flags.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"the median kernel takes float32 data and bool or uint8 flags; got "
+                        f"{data.dtype} and {flags.dtype}")
+    if data.ndim != 3 or flags.shape != data.shape:
+        raise ValueError(f"the median kernel takes (B, N, M) data and flags of its shape; got "
+                         f"{tuple(data.shape)} and {tuple(flags.shape)}")
+    chunks = [int(c) for c in np.asarray(chunks).ravel()]
+    if (len(chunks) < 2 or chunks[0] != 0 or chunks[-1] != data.shape[1]
+            or any(b < a for a, b in zip(chunks, chunks[1:]))):
+        raise ValueError(f"the median kernel takes chunks from 0 to {data.shape[1]}, not "
+                         f"decreasing; got {chunks}")
+    longest = max(b - a for a, b in zip(chunks, chunks[1:]))
+    if max(data.shape) >= 2 ** 31 or longest * (data.shape[2] if blocks else 1) >= 2 ** 31:
+        raise ValueError(f"the median kernel takes axes and populations below 2**31; got "
+                         f"{tuple(data.shape)}")
+    if data.device.type != "cuda" or flags.device != data.device:
+        raise ValueError(f"the median kernel takes data and flags on one card; got "
+                         f"{data.device} and {flags.device}")
+    n_b, _, n_m = data.shape
+    out = torch.empty((len(chunks) - 1, n_b, 1 if blocks else n_m), dtype=torch.float32,
+                      device=data.device)
+    medians["kernel"] += 1
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(data.device):
+        lib = _mm_library()
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        for c0 in range(0, len(chunks) - 1, MM_MAX_CHUNKS):
+            c1 = min(c0 + MM_MAX_CHUNKS, len(chunks) - 1)
+            args = _mm_args(data, flags, chunks[c0:c1 + 1], out[c0:c1],
+                            empty_value=empty_value, take_abs=take_abs, blocks=blocks)
+            err = lib.mm_masked_median(ctypes.byref(args), stream)
+            if err != 0:
+                raise RuntimeError(f"masked_median launch failed: cudaError {err} "
+                                   f"({lib.mm_error_string(err).decode()})")
+            launches["median"] += 1
+    return out
 
 
 def _average_freq(in_data, in_flags, factor: int):
@@ -220,7 +390,7 @@ def _average_freq(in_data, in_flags, factor: int):
 def _time_median(data, flags):
     """Per-channel median of unflagged values over time; all-flagged channels
     give 0 and a flag (``katsdpsigproc_tpu/models/rfi/twodflag.py::_time_median``)."""
-    med = _masked_median_axis0(data, ~flags, empty_value=0.0)
+    med = masked_median(data, flags, np.array([0, data.shape[1]]), empty_value=0.0)[0]
     out_flags = torch.all(flags, dim=1)
     return med[:, None], out_flags[:, None]
 
@@ -229,15 +399,17 @@ def _median_abs(data, flags):
     """Median of |data| over non-flagged entries, NaN if none, per baseline
     (``katsdpsigproc_tpu/models/rfi/twodflag.py::_median_abs``)."""
     n_bl = data.shape[0]
-    flat = torch.abs(data).reshape(n_bl, -1, 1)
-    valid = (~flags).reshape(n_bl, -1, 1)
-    return _masked_median_axis0(flat, valid, empty_value=torch.nan)[:, 0]
+    if data.ndim != 3:
+        data, flags = data.reshape(n_bl, -1, 1), flags.reshape(n_bl, -1, 1)
+    return masked_median(data, flags, np.array([0, data.shape[1]]), empty_value=torch.nan,
+                         take_abs=True, blocks=True)[0, :, 0]
 
 
 def _median_abs_axis0(data, flags):
     """Median of |data| along axis 0 over non-flagged entries, NaN if none,
     keeping axis 0 as size 1 (``katsdpsigproc_tpu/models/rfi/twodflag.py::_median_abs_axis0``)."""
-    return _masked_median_axis0(torch.abs(data), ~flags, empty_value=torch.nan)[:, None]
+    return masked_median(data, flags, np.array([0, data.shape[1]]), empty_value=torch.nan,
+                         take_abs=True)[0][:, None]
 
 
 def _fill_hillis(data, idx0, *, reverse: bool):
@@ -559,17 +731,24 @@ def _get_background2d(data, flags, iterations: int, spike_width, reject_threshol
     """
     spike_width = np.asarray(spike_width, np.float64)
     scale = _f32(MAD_NORMAL * reject_threshold)
+    spans = [(c, int(hi) - int(lo)) for c, (lo, hi)
+             in enumerate(zip(freq_chunk_ends[:-1], freq_chunk_ends[1:])) if hi > lo]
     for extend_factor in range(iterations, 0, -1):
         sigma = np.concatenate([[0.0], extend_factor * spike_width])
         background = masked_gaussian_filter(data, flags, sigma)
-        new_flags = []
-        for c in range(len(freq_chunk_ends) - 1):
-            lo, hi = int(freq_chunk_ends[c]), int(freq_chunk_ends[c + 1])
-            sub_residual = torch.abs(data[:, :, lo:hi] - background[:, :, lo:hi])
-            threshold = _median_abs(sub_residual, flags[:, :, lo:hi]) * scale
-            # NaN residuals (under existing flags) compare False: unflagged.
-            new_flags.append(sub_residual > threshold[:, None, None])
-        flags = flags | torch.cat(new_flags, dim=2)
+        # |residual| in (B, T, F) order, so that each chunk of a baseline is
+        # rows of neighbouring values for the median kernel; every chunk's
+        # _median_abs in one call
+        residual = torch.empty(data.shape, dtype=data.dtype, device=data.device)
+        torch.abs(torch.sub(data, background, out=residual), out=residual)
+        med = masked_median(residual.transpose(1, 2), flags.contiguous().transpose(1, 2),
+                            freq_chunk_ends, empty_value=torch.nan, blocks=True)[:, :, 0]
+        threshold = med * scale  # (chunks, B)
+        # each chunk's threshold over its frequencies, (B, 1, F), by views
+        # (no index tensor to copy to the card)
+        spread = torch.cat([threshold[c, :, None].expand(-1, width) for c, width in spans], 1)
+        # NaN residuals (under existing flags) compare False: unflagged.
+        flags = flags | (residual > spread[:, None, :])
     background = masked_gaussian_filter(data, flags, np.concatenate([[0.0], spike_width]))
     return _linearly_interpolate_nans(background).to(torch.float32)
 
@@ -620,16 +799,9 @@ def _chunk_thresholds(data, flags, outlier_nsigma, chunks: np.ndarray):
     (and for a zero-length chunk, whose value nothing reads).
     """
     scale = _f32(outlier_nsigma * MAD_NORMAL)
-    parts = []
-    for ci in range(len(chunks) - 1):
-        lo, hi = int(chunks[ci]), int(chunks[ci + 1])
-        if hi == lo:  # zero-length chunk (freq_chunks > channels)
-            parts.append(torch.full(data.shape[:1] + data.shape[2:], torch.inf,
-                                    dtype=data.dtype, device=data.device))
-            continue
-        threshold0 = _median_abs_axis0(data[:, lo:hi], flags[:, lo:hi])[:, 0]  # (B, M)
-        parts.append(torch.where(torch.isnan(threshold0), torch.inf, threshold0 * scale))
-    return torch.stack(parts)
+    # a zero-length chunk (freq_chunks > channels) has no entries: NaN, so inf
+    threshold0 = masked_median(data, flags, chunks, empty_value=torch.nan, take_abs=True)
+    return torch.where(torch.isnan(threshold0), torch.inf, threshold0 * scale)
 
 
 def _window_constants(windows, rho) -> tuple:

@@ -26,6 +26,7 @@ BINDINGS = {
     "examples": lambda: triple._library.__wrapped__(),
     "flagger_probe": lambda: flagger_probe._library.__wrapped__(13),
     "fused_flagger": lambda: fused_flagger._library.__wrapped__(13),
+    "masked_median": lambda: twodflag._mm_library.__wrapped__(),
     "percentile": lambda: percentile._library.__wrapped__(),
     "prim_cost": lambda: prim_cost._library.__wrapped__(),
     "roofline_skeleton": lambda: roofline_skeleton._library.__wrapped__(13),

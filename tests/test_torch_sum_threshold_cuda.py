@@ -62,10 +62,12 @@ def _both_routes(data, flags, axis, windows, n_chunks=None, launches=1):
     got = twodflag._sum_threshold(data, flags, axis, windows, 4.5, 1.3, chunks)
     torch.cuda.synchronize()
     ran = {k: twodflag.launches[k] - before[k] for k in before}
-    assert ran == {"box_strided": 0, "box_rows": 0, "sum_threshold": launches}
+    chunks = np.array([0, n]) if chunks is None else chunks
+    # the noise estimates: one launch of the median kernel for each 128 chunks
+    medians = -(-(len(chunks) - 1) // twodflag.MM_MAX_CHUNKS)
+    assert ran == {"box_strided": 0, "box_rows": 0, "sum_threshold": launches, "median": medians}
     lines, line_flags = (data, flags) if axis == 0 else (data.transpose(1, 2),
                                                          flags.transpose(1, 2))
-    chunks = np.array([0, n]) if chunks is None else chunks
     threshold = twodflag._chunk_thresholds(lines, line_flags, 4.5, chunks)
     want = twodflag.sum_threshold_plain(lines, threshold, windows, 1.3, chunks)
     want = want if axis == 0 else want.transpose(1, 2)
@@ -135,7 +137,7 @@ def test_windows_in_no_order(cuda):
 def test_the_flagger_takes_the_kernel(cuda, monkeypatch):
     monkeypatch.setattr(twodflag, "sum_thresholds", {"kernel": 0, "plain": 0})
     monkeypatch.setattr(twodflag, "launches", {"box_strided": 0, "box_rows": 0,
-                                               "sum_threshold": 0})
+                                               "sum_threshold": 0, "median": 0})
     g = torch.Generator(device=cuda).manual_seed(7)
     scan = torch.randn((30, 64, 8), dtype=torch.complex64, device=cuda, generator=g) + 4
     flags = torch.zeros(scan.shape, dtype=torch.uint8, device=cuda)
