@@ -19,6 +19,7 @@ These stages are also the plain versions that the CUDA kernels of
 :mod:`.fused_flagger` are held against.
 """
 
+import contextlib
 import enum
 from typing import Any, Mapping, Optional, Type, Union
 
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from ...ops import base, rank as rank_ops, transpose as transpose_ops
-from ...utils import backend, numerics, tune
+from ...utils import backend, numerics, profiling, tune
 from . import MAD_NORMAL, host
 
 
@@ -321,6 +322,14 @@ def make_flagger_fn(
     background's edge-fill fast path where it applies (no input flags,
     visibilities rather than amplitudes); it is bit-identical to the
     general path on finite input.
+
+    While a profiler session records, the hybrid engine's flagger records
+    its host work as spans (:func:`...utils.profiling.annotate`):
+    ``ksp.hybrid`` the whole call and, for each slab, keyed by its first
+    baseline, ``ksp.hybrid.background`` (the background pass),
+    ``ksp.hybrid.turn`` (the deviations made baseline-major) and
+    ``ksp.hybrid.store`` (the slab's flags written into the output); K2's
+    launch is ``ksp.launch.k2`` inside :func:`.fused_flagger.madnz_threshold`.
     """
     use_flags = BackgroundFlags.NONE if use_flags is None else use_flags
     if engine not in ("torch", "hybrid"):
@@ -334,17 +343,23 @@ def make_flagger_fn(
     if baseline_block is not None and block_impl not in ("slice", "scan", "unroll", "pad"):
         raise ValueError(f"unknown block_impl {block_impl!r}")
     background_fast = bool(background_fast)
+    hybrid = engine == "hybrid"
 
-    def block_fn(vis, input_flags=None):
-        deviations = background_median_filter(
-            vis, input_flags, width, is_amplitude, use_flags, fast_path=background_fast)
-        if engine == "hybrid":
+    def span(name, key=None):
+        return profiling.annotate(name, key) if hybrid else contextlib.nullcontext()
+
+    def block_fn(vis, input_flags=None, key=None):
+        with span("ksp.hybrid.background", key):
+            deviations = background_median_filter(
+                vis, input_flags, width, is_amplitude, use_flags, fast_path=background_fast)
+        if hybrid:
             from . import fused_flagger
 
+            with span("ksp.hybrid.turn", key):
+                deviations_t = deviations.transpose(0, 1).contiguous()
             flags_t = fused_flagger.madnz_threshold(
-                deviations.transpose(0, 1).contiguous(), n_sigma=n_sigma,
-                n_windows=n_windows, falloff=threshold_falloff, flag_value=flag_value,
-                **(pallas_kw or {}))
+                deviations_t, n_sigma=n_sigma, n_windows=n_windows, falloff=threshold_falloff,
+                flag_value=flag_value, **(pallas_kw or {}))
             return flags_t.transpose(0, 1)
         noise = madnz(deviations, axis=0)
         if threshold == "simple":
@@ -353,16 +368,20 @@ def make_flagger_fn(
                              flag_value, transposed=False)
 
     def flagger(vis, input_flags=None):
-        c, b = vis.shape[:2]
-        block = b if baseline_block is None else baseline_block
-        out = torch.empty((c, b), dtype=torch.uint8, device=vis.device)
-        for start in range(0, b, block):
-            stop = min(start + block, b)
-            f = input_flags
-            if use_flags == BackgroundFlags.FULL and input_flags is not None:
-                f = input_flags[:, start:stop]
-            out[:, start:stop] = block_fn(vis[:, start:stop], f)
-        return out
+        with span("ksp.hybrid"):
+            c, b = vis.shape[:2]
+            block = b if baseline_block is None else baseline_block
+            out = torch.empty((c, b), dtype=torch.uint8, device=vis.device)
+            for start in range(0, b, block):
+                stop = min(start + block, b)
+                f = input_flags
+                if use_flags == BackgroundFlags.FULL and input_flags is not None:
+                    f = input_flags[:, start:stop]
+                flags = block_fn(vis[:, start:stop], f, start)
+                with span("ksp.hybrid.store", start):
+                    out[:, start:stop] = flags
+                del flags  # not held through the next slab's work
+            return out
 
     return flagger
 

@@ -50,7 +50,9 @@ host work as spans (:func:`..utils.profiling.annotate`): ``ksp.flag_dump``
 the whole call, ``ksp.flag_dump.check`` its checks and the flags'
 allocation, ``ksp.flag_dump.input_flags`` the FULL flags' checks and their
 turn to row-major (only where ``input_flags`` is given), and
-``ksp.launch.k1`` (``ksp.launch.k1_wide``) K1's launch alone.
+``ksp.launch.k1`` (``ksp.launch.k1_wide``) K1's launch alone;
+:func:`madnz_threshold` records K2's launch alone as ``ksp.launch.k2``
+(``ksp.launch.k2_wide``).
 """
 
 import ctypes
@@ -622,9 +624,11 @@ def madnz_threshold(dev_t, n_sigma: float = 11.0, n_windows: int = 4, falloff: f
                 len(scales), flag_value)
         if wide:
             ctas, scratch = _wide_scratch(lib, rows, channels, dev_t.device)
-            err = lib.ff_madnz_threshold_wide(*args, scratch.data_ptr(), ctas, stream)
+            with profiling.annotate("ksp.launch.k2_wide"):
+                err = lib.ff_madnz_threshold_wide(*args, scratch.data_ptr(), ctas, stream)
         else:
-            err = lib.ff_madnz_threshold(*args, stream)
+            with profiling.annotate("ksp.launch.k2"):
+                err = lib.ff_madnz_threshold(*args, stream)
     _raise_on(lib, err, "madnz_threshold")
     launches["madnz_threshold"] += 1
     wide_launches["madnz_threshold"] += wide
