@@ -39,16 +39,18 @@ It imports only torch, numpy, ``katsdpsigproc_tpu_torch`` and, in phase
    over the seed-1 dump of 65536 channels x 2016 rows, against their
    plain versions and each other, timed;
 4. the numpy host oracle on the 512 x 64 subsample of the seed-1 dump,
-   through K1 and through the hybrid engine (plain background, then K2);
+   through K1 and through the hybrid engine (the background kernel, then
+   K2);
 5. the main path at full size: the MeerKAT 4-pol dump (32768 channels x
    2016 baselines x 4 pols = 8064 rows, channel-major planar float32)
    through ``flag_dump(vis.transpose(0, 1))``, the bench's call (K5's
    corner turn, then K1), the plain version, ``flag_transposed_dma`` on
    the view and on a
    (2, rows, channels) copy (``layout="leading"``), and the hybrid engine
-   (K2) on its general and its fast background (``background_fast=True``),
-   which must agree flag for flag, with one K1 launch per call; then
-   CUDA-event timings, both hybrid paths among them;
+   (the background kernel and K2 a slab) on its general and its fast
+   background (``background_fast=True``), which must agree flag for flag,
+   with one K1 launch per call; then CUDA-event timings, both hybrid paths
+   among them;
 6. the ops path: K4 (percentile5) and K5 (transpose) against their plain
    versions, exact, at every size below, K4 also on rows of NaN, +-inf,
    -0, negatives, denormals and equal values, at rows below and above the
@@ -179,7 +181,19 @@ It imports only torch, numpy, ``katsdpsigproc_tpu_torch`` and, in phase
    launch in FULL mode (``k1_modes``) and two of K5; then K1's FULL mode
    and K5's 1-byte turn of the flags timed each alone (CUDA events) beside
    their bounds (``flagbench/counts_ingest.py``), with K5's turn of the
-   dump and the whole call.
+   dump and the whole call;
+14. the benchmark's ``l32k-hybrid`` cell, 32768 channels x 8064 rows from
+   its seed (``flagbench/data.py``): each 1008-row slab, read where it lies
+   in the dump, through the background kernel
+   (``fused_flagger.background_deviations``, the general path) bit for
+   bit the plain background and its turn
+   (``background_deviations_plain``); the whole dump through the cell's
+   ``make_flagger_fn(engine="hybrid", baseline_block=1008)``, one
+   background and one K2 launch a slab, flag for flag
+   ``flagbench/reference.py``; then, device-paced (``time_queued``), one
+   slab's background kernel beside the plain background and turn it
+   replaces, K2 and the flags' store, each beside its bound
+   (``flagbench/counts_hybrid.py``), and the whole dump (CUDA events).
 
 Any failure raises and exits non-zero before the result lines.  The
 second-to-last line is a JSON record of each kernel, with its bound: the
@@ -226,6 +240,7 @@ SOURCES = {
     "box_filter": "katsdpsigproc_tpu_torch/csrc/box_filter.cu",
     "sum_threshold": "katsdpsigproc_tpu_torch/csrc/sum_threshold.cu",
     "masked_median": "katsdpsigproc_tpu_torch/csrc/masked_median.cu",
+    "background": "katsdpsigproc_tpu_torch/csrc/fused_flagger.cu",
 }
 ROUTES = {"triple": "triton"}  # the others are CUDA C++
 REPLACES = {
@@ -247,6 +262,8 @@ REPLACES = {
     "sum_threshold": "katsdpsigproc_tpu/models/rfi/twodflag.py:291",
     # No Pallas kernel: XLA's bitwise rank search computes the medians in JAX.
     "masked_median": "katsdpsigproc_tpu/models/rfi/twodflag.py:50",
+    # No Pallas kernel: XLA computes the hybrid engine's background pass in JAX.
+    "background": "katsdpsigproc_tpu/models/rfi/device.py:218",
 }
 # The H100 SXM's HBM3 rate, and its float32 instruction rate outside the
 # tensor cores.  The data sheet's 67 TFLOP/s (132 SMs x 128 lanes x 1.98
@@ -473,6 +490,16 @@ def phase_build(ff, pct, tr, fp, kernels) -> None:
         if (len(k1) != 3 * len(ff.K1_THREADS) + 4
                 or any(r["spill_stores"] or r["spill_loads"] for r in k1.values())):
             raise AssertionError(f"K1 at width {width} spills or is missing from the report: {k1}")
+        # The background kernel: 6 general instances (3 flag modes x pairs or
+        # amplitudes), the fast path and its fallback; no spills.
+        bg = {name: r for name, r in ptxas_report(kernels.build_info[k1_key]["log"]).items()
+              if "background_kernel" in name}
+        print(f"  BG width {width} ({median}): {len(bg)} background_kernel instances, "
+              f"{max((r.get('registers', 0) for r in bg.values()), default=None)} registers at "
+              f"most, {sum(r['spill_stores'] + r['spill_loads'] for r in bg.values())} B spilled")
+        if len(bg) != 8 or any(r["spill_stores"] or r["spill_loads"] for r in bg.values()):
+            raise AssertionError(f"the background kernel at width {width} spills or is missing "
+                                 f"from the report: {bg}")
         if width == 13:
             k1_13 = k1_key
     if ff._library(13).ff_max_in_place_width() != ff.IN_PLACE_MAX_WIDTH:
@@ -809,9 +836,11 @@ def phase_main(ff, tr, device, vis_np: np.ndarray, card: str, check: Check) -> d
     for name, count in launches.items():
         if count < 1:
             raise AssertionError(f"kernel {name} was not launched on the main path")
-    # One K1 launch per flag_dump and flag_transposed_dma call, one K2 launch
-    # per block of each hybrid call; K5 turns the two views, not the leading copy.
-    want = {"flagger": 3, "madnz_threshold": 2 * -(-rows // block), "transpose": 2}
+    # One K1 launch per flag_dump and flag_transposed_dma call, one background
+    # and one K2 launch per block of each hybrid call; K5 turns the two views,
+    # not the leading copy.
+    want = {"flagger": 3, "madnz_threshold": 2 * -(-rows // block),
+            "background": 2 * -(-rows // block), "transpose": 2}
     if launches != want:
         raise AssertionError(f"main path launches {launches}, expected {want}")
     check.flags("flagger", "full dump: flag_transposed_dma (K5 + K1) vs flag_dump's K1",
@@ -879,8 +908,8 @@ def phase_main(ff, tr, device, vis_np: np.ndarray, card: str, check: Check) -> d
         "plain corner turn + K1 flag_dump": time_fn(
             lambda: ff.flag_dump(vis.transpose(0, 1).contiguous())),
         "K1 plain (flag_transposed_plain)": time_fn(plain_k1),
-        "hybrid engine (plain background + K2)": time_fn(lambda: hybrid_fn(vis)),
-        "hybrid engine, background_fast=True (fast plain background + K2)": time_fn(
+        "hybrid engine (background kernel + K2)": time_fn(lambda: hybrid_fn(vis)),
+        "hybrid engine, background_fast=True (the kernel's fast path + K2)": time_fn(
             lambda: hybrid_fast_fn(vis)),
         "K1 flag_transposed_dma(layout='leading'), copy to rows included": time_fn(
             lambda: ff.flag_transposed_dma(vis_leading, layout="leading")),
@@ -2323,6 +2352,105 @@ def phase_fullflags(card: str, check: Check) -> dict:
     return {label: ms for label, (ms, _) in times.items()}
 
 
+HYBRID_CELL, HYBRID_SEED = "l32k-hybrid", 2 ** 32 + 29
+
+
+def phase_hybrid(card: str, check: Check) -> dict:
+    """Phase 14: the l32k-hybrid dump's slabs through the background kernel, checked and timed.
+
+    Alone, after phase 1: ``python3 -c 'import chip_smoke as c; c.phase_hybrid(c.phase_device(),
+    c.Check())'``.  Returns the background kernel's record for the kernels line, over a whole
+    dump's slabs.
+    """
+    from flagbench import counts_hybrid, data, harness, reference
+    from katsdpsigproc_tpu_torch.models.rfi import device
+    from katsdpsigproc_tpu_torch.models.rfi import fused_flagger as ff
+    from katsdpsigproc_tpu_torch.utils.profiling import time_fn, time_queued
+
+    t0 = time.perf_counter()
+    cuda = torch.device("cuda", 0)
+    spec = harness.load_spec(ROOT)
+    entry, = [w for w in spec["workloads"] if w["name"] == HYBRID_CELL]
+    config = harness.load_config(spec, entry["config"], ROOT)
+    traffic = harness.load_traffic(entry["traffic"])
+    flagger, fn_kw = config["flagger"], config["flagger_fn"]
+    width, n_windows = flagger["width"], flagger["n_windows"]
+    block, fast = fn_kw["baseline_block"], fn_kw["background_fast"]
+    vis = data.make_dump(data.generator(HYBRID_SEED, cuda), config["channels"], config["rows"],
+                         traffic["data"], cuda)
+    channels, rows = vis.shape[:2]
+    starts = range(0, rows, block)
+    print(f"the {HYBRID_CELL} dump, {channels} x {rows}, seed {HYBRID_SEED}, slabs of {block} "
+          f"rows [{card}]")
+    none = device.BackgroundFlags.NONE
+    k2_kw = dict(n_sigma=flagger["n_sigma"], n_windows=n_windows, falloff=flagger["falloff"],
+                 flag_value=flagger["flag_value"])
+
+    def kernel(s):
+        return ff.background_deviations(vis[:, s:s + block], None, width, False, none,
+                                        fast_path=fast)
+
+    def plain(s):
+        return ff.background_deviations_plain(vis[:, s:s + block], None, width, False, none,
+                                              fast_path=fast)
+
+    for s in starts:
+        check.exact("background", f"slab {s}:{s + block}: background kernel vs the plain "
+                    f"background and turn", kernel(s), plain(s))
+    fn = device.make_flagger_fn(width, flagger["n_sigma"], n_windows=n_windows,
+                                threshold_falloff=flagger["falloff"],
+                                flag_value=flagger["flag_value"], **fn_kw)
+    before = dict(ff.launches)
+    got = fn(vis)
+    torch.cuda.synchronize()
+    launched = {name: ff.launches[name] - before[name] for name in ff.launches}
+    print(f"  launches during one dump of the cell's flagger: {launched}")
+    if launched != {"flagger": 0, "madnz_threshold": len(starts), "background": len(starts)}:
+        raise AssertionError("the hybrid engine is not one background and one K2 launch a slab")
+    check.flags("background", f"{HYBRID_CELL} dump: the hybrid engine vs flagbench's reference",
+                got.transpose(0, 1), reference.flag_dump(vis, flagger))
+    del got
+
+    # One slab, device-paced: the kernel, the stages it replaces, and the two after it.
+    s = 3 * block
+    dev_t = kernel(s)
+    flags_t = ff.madnz_threshold(dev_t, **k2_kw)
+    out = torch.empty((channels, rows), dtype=torch.uint8, device=cuda)
+    slab_vis = channels * block
+    bounds = {"background kernel": counts_hybrid.background_bound_s(slab_vis, width, n_windows),
+              "K2 madnz_threshold": counts_hybrid.k2_bound_s(slab_vis, width, n_windows),
+              "the flags' store": 2 * slab_vis / HBM_BYTES_PER_S}
+    card_state("before the hybrid cell's timings")
+    slab_ms, samples = time_queued({
+        "background kernel": lambda: kernel(s),
+        "plain background + torch's turn (the stages it replaces)": lambda: plain(s),
+        "K2 madnz_threshold": lambda: ff.madnz_threshold(dev_t, **k2_kw),
+        "the flags' store": lambda: out[:, s:s + block].copy_(flags_t.transpose(0, 1)),
+    }, reps=7, iters=3)
+    dump_ms = time_fn(lambda: [kernel(t) for t in starts][-1])
+    plain_dump_ms = time_fn(lambda: [plain(t) for t in starts][-1])
+    whole_ms = time_fn(lambda: fn(vis))
+    card_state("after them")
+    print(f"  one slab of {channels} x {block} on {card} (device-paced, median of 7 rounds of 3):")
+    for label, ms in slab_ms.items():
+        spread = max(samples[label]) - min(samples[label])
+        bound = bounds.get(label)
+        share = "" if bound is None else (f", bound {bound * 1e3:.4f} ms, "
+                                          f"{100 * bound * 1e3 / ms:.2f}% of it")
+        print(f"    {label}: {ms:.4f} ms (spread {spread:.4f}){share}")
+    dump_bound = counts_hybrid.background_bound_s(channels * rows, width, n_windows) * 1e3
+    print(f"  the background kernel over the dump's {len(starts)} slabs: {dump_ms:.3f} ms, bound "
+          f"{dump_bound:.4f} ms, {100 * dump_bound / dump_ms:.2f}% of it (CUDA events)")
+    print(f"  the plain background and turn over the same {len(starts)} slabs: "
+          f"{plain_dump_ms:.3f} ms (CUDA events)")
+    print(f"  the cell's flagger, one dump (background kernel, K2 and store a slab): "
+          f"{whole_ms:.3f} ms, {channels * rows / whole_ms / 1e6:.3f} Gvis/s")
+    print(f"  the phase took {time.perf_counter() - t0:.1f} s")
+    ops = counts_hybrid.stage_ops_per_vis(counts_hybrid.BACKGROUND_STAGES, width, n_windows)
+    return record(launched["background"], dump_ms, plain_dump_ms,
+                  counts_hybrid.BACKGROUND_BYTES_PER_VIS * channels * rows, ops * channels * rows)
+
+
 def main() -> None:
     card = phase_device()
     sys.path.insert(0, str(ROOT))
@@ -2357,6 +2485,7 @@ def main() -> None:
     del vis_np
     phase_support(card)
     phase_fullflags(card, check)
+    results["background"] = phase_hybrid(card, check)
     print(json.dumps({"kernels": [
         {"name": name, "route": ROUTES.get(name, "cuda"), "source": SOURCES[name],
          "replaces": REPLACES[name], "max_abs_err": check.max_abs_err[name], **numbers}

@@ -232,6 +232,254 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---- BG: the hybrid engine's background pass ----
+//
+// background_kernel replaces the eager background pass of the hybrid engine
+// (models/rfi/device.py::background_median_filter, then the turn of its
+// deviations to baseline-major); no Pallas kernel: XLA computes it in the
+// JAX package (katsdpsigproc_tpu/models/rfi/device.py:218).  It reads a
+// slab of the channel-major dump where it lies, (channels, rows) planar
+// pairs or amplitudes with any stride between channels, and writes the
+// slab's float32 deviations (rows, channels), K2's layout.
+//
+// What bounds it: bytes.  8 B read and 4 B written a visibility, 0.947 ms
+// for the 32768 x 8064 dump at 3.35 TB/s, against ~0.6 ms of the median's
+// operations at 33.5e12 a second.  A CTA takes a tile of kBgTC channels x
+// kBgTR rows and the kHalf channels beyond each end: the pairs are loaded
+// along rows (a channel's rows are contiguous), each amplitude and invalid
+// mark formed once into shared memory, a channel's rows kBgTR + 1 words
+// apart.  A warp's lanes then take 32 adjacent channels of one row: each
+// window member is one conflict-free load, and the deviations go out along
+// the channels of a row of the output, 128 B a warp.  A tile of 64 channels
+// computes 1.19 amplitudes (each a correctly rounded root) a visibility for
+// its halo, where 32 computed 1.38 and took 9% longer; 128 took 2% longer
+// (H100, 700 W, a 1008-row slab of the 32k dump).
+//
+// What it computes is background_median_filter's, bit for bit:
+//  * general path (kBgGeneral): a member is absent where its amplitude is
+//    NaN, flagged or (amplitudes) negative, or past the row's edge; the
+//    absent become +inf before the network, the rest are counted (n), ranks
+//    (n - 1) >> 1 and n >> 1 picked, their average taken from the picks
+//    plus +0 (the plain version sums them into zeros, which turns a -0 of
+//    an amplitude input into +0), and a NaN deviation written as 0;
+//  * kBgKeepNan: the same median, NaN deviations kept (the plain fast
+//    path's fallback on a row shorter than the window);
+//  * fast path (kBgFast, no flags, visibilities): K1's edge fills and
+//    fast_median, NaN propagating through the network.
+// A tile whose cells, halo included, all lie inside the row and hold no NaN
+// has every member of every window present (n = FF_WIDTH): its general
+// paths pick rank kHalf twice, which FF_NET_FAST, the shorter network, sorts
+// into place, with no count, no +inf fill and no rank select: 0.261 ms a
+// 1008-row slab of the 32k dump, 45% of its bound, where every window on the
+// general path took 0.385 ms.
+// K1's own median counts members by edges or by != +inf, which differ on a
+// NaN or a genuine +inf amplitude, so the general path counts NaN here.
+constexpr int kBgGeneral = 0;
+constexpr int kBgFast = 1;
+constexpr int kBgKeepNan = 2;
+constexpr int kBgTC = 64;                 // channels a tile: two groups of a warp's lanes
+constexpr int kBgWarps = 8;               // a CTA's warps, each a row at a time
+constexpr int kBgThreads = 32 * kBgWarps;
+constexpr int kBgTR = 64;                 // rows a tile
+constexpr int kBgLd = kBgTR + 1;          // words from a channel to the next: odd, so no conflicts
+constexpr int kBgChans = kBgTC + 2 * kHalf;  // channels in shared memory, the halo included
+constexpr int kBgLoads = 8;               // loads a thread keeps in flight
+constexpr int kBgMaxWidth = 255;          // the widest window a tile takes
+
+struct BgParams {
+  int channels;
+  int rows;
+  long long in_stride;    // elements (pairs or amplitudes) from a channel to the next
+  long long flag_stride;  // bytes from a channel's FULL flags to the next
+};
+
+// The median of a window of n members present from its picked ranks (NaN where n = 0).
+__device__ __forceinline__ float bg_median(float v_lo, float v_hi, int n) {
+  return n > 0 ? __fmul_rn(__fadd_rn(__fadd_rn(v_lo, v_hi), 0.f), 0.5f) : CUDART_NAN_F;
+}
+
+// The deviation of the channel whose members are at col[d * kBgLd],
+// d = -kHalf .. kHalf (NaN: absent), on the general paths.
+template <bool kZeroNan>
+__device__ __forceinline__ float bg_masked_deviation(const float* col) {
+  const float amp = col[0];
+  int n = 0;
+#ifdef FF_MEDIAN_COUNT
+  const auto member = [col](int k) {
+    const float x = col[(k - kHalf) * kBgLd];
+    return x != x ? CUDART_INF_F : x;
+  };
+  for (int k = 0; k < FF_WIDTH; ++k) {
+    const float x = col[(k - kHalf) * kBgLd];
+    n += x == x;
+  }
+  const int lo_rank = (n - 1) >> 1;  // -1 where n = 0 selects nothing: 0
+  const int hi_rank = n >> 1;
+  float v_lo = 0.f;
+  float v_hi = 0.f;
+  for (int i = 0; i < FF_WIDTH; ++i) {
+    const float x = member(i);
+    int lt = 0;
+    int le = 0;
+    for (int k = 0; k < FF_WIDTH; ++k) {
+      const float y = member(k);
+      lt += y < x;
+      le += y <= x;
+    }
+    if (lt <= lo_rank && lo_rank < le) v_lo = x;
+    if (lt <= hi_rank && hi_rank < le) v_hi = x;
+  }
+#else
+  float w[FF_WIDTH];
+#pragma unroll
+  for (int k = 0; k < FF_WIDTH; ++k) {
+    const float x = col[(k - kHalf) * kBgLd];
+    const bool present = x == x;
+    n += present;
+    w[k] = present ? x : CUDART_INF_F;
+  }
+  FF_NET_LOWER(w);
+  const int lo_rank = (n - 1) >> 1;
+  const int hi_rank = n >> 1;
+  float v_lo = 0.f;
+  float v_hi = 0.f;
+#pragma unroll
+  for (int k = 0; k <= kHalf; ++k) {
+    if (lo_rank == k) v_lo = w[k];
+    if (hi_rank == k) v_hi = w[k];
+  }
+#endif
+  const float dev = __fsub_rn(amp, bg_median(v_lo, v_hi, n));
+  return kZeroNan && dev != dev ? 0.f : dev;
+}
+
+#ifndef FF_MEDIAN_COUNT
+// The general paths' deviation where every member is present (no NaN, all
+// inside the row): n = FF_WIDTH, so both picked ranks are kHalf, which the
+// fast path's shorter network sorts into place.
+template <bool kZeroNan>
+__device__ __forceinline__ float bg_full_deviation(const float* col) {
+  float w[FF_WIDTH];
+#pragma unroll
+  for (int k = 0; k < FF_WIDTH; ++k) w[k] = col[(k - kHalf) * kBgLd];
+  const float amp = w[kHalf];
+  FF_NET_FAST(w);
+  const float dev = __fsub_rn(amp, bg_median(w[kHalf], w[kHalf], FF_WIDTH));
+  return kZeroNan && dev != dev ? 0.f : dev;
+}
+#endif
+
+// The fast path's deviation of channel c, its members at col[d * kBgLd].
+__device__ __forceinline__ float bg_fast_deviation(const float* col, int c, int C) {
+#ifdef FF_MEDIAN_COUNT
+  const auto get = [col, c](int j) { return col[(j - c) * kBgLd]; };
+  return count_deviation<true, false>(get, c, C);
+#else
+  const bool interior = c >= kHalf && c + kHalf < C;
+  float w[FF_WIDTH];
+#pragma unroll
+  for (int k = 0; k < FF_WIDTH; ++k) {
+    const int d = k - kHalf;
+    const int j = c + d;
+    w[k] = interior || (j >= 0 && j < C) ? col[d * kBgLd] : edge_fill(c, d, C);
+  }
+  const float amp = w[kHalf];
+  FF_NET_FAST(w);
+  return __fsub_rn(amp, interior ? w[kHalf] : fast_median(w, c, C));
+#endif
+}
+
+// kMode as K1's: 0 no flags, 1 FULL (a (channels, rows) u8 slab), 2 CHANNEL
+// ((channels,) u8).  kAmp: `in` holds amplitudes, else (re, im) pairs.
+template <int kMode, bool kAmp, int kPath>
+__global__ void __launch_bounds__(kBgThreads)
+    background_kernel(const void* __restrict__ in, const uint8_t* __restrict__ flags,
+                      float* __restrict__ out, BgParams p) {
+  extern __shared__ float amp_s[];  // [kBgChans][kBgLd]
+  const int C = p.channels;
+  const int tid = threadIdx.x + 32 * threadIdx.y;
+  const int c_base = blockIdx.x * kBgTC - kHalf;  // the channel at word 0
+  const int r0 = blockIdx.y * kBgTR;
+  constexpr int kCells = kBgChans * kBgTR;
+  // The tile's amplitudes, NaN where absent: kBgLoads loads in flight a
+  // thread.  `absent`: this thread stored a NaN in one of the tile's rows.
+  bool absent = false;
+  for (int i0 = 0; i0 < kCells; i0 += kBgLoads * kBgThreads) {
+    float2 v[kBgLoads];
+    uint8_t f[kBgLoads];
+#pragma unroll
+    for (int u = 0; u < kBgLoads; ++u) {
+      const int i = i0 + u * kBgThreads + tid;
+      const int c = c_base + i / kBgTR;
+      const int r = r0 + i % kBgTR;
+      v[u] = make_float2(CUDART_NAN_F, 0.f);
+      f[u] = 0;
+      if (i < kCells && c >= 0 && c < C && r < p.rows) {
+        const long long at = c * p.in_stride + r;
+        if (kAmp) {
+          v[u].x = static_cast<const float*>(in)[at];
+        } else {
+          v[u] = static_cast<const float2*>(in)[at];
+        }
+        if (kMode == 1) f[u] = flags[c * p.flag_stride + r];
+        if (kMode == 2) f[u] = flags[c];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBgLoads; ++u) {
+      const int i = i0 + u * kBgThreads + tid;
+      if (i < kCells) {
+        float a = kAmp ? v[u].x : amplitude(v[u]);
+        if ((kAmp && a < 0.f) || f[u] != 0) a = CUDART_NAN_F;
+        amp_s[(i / kBgTR) * kBgLd + i % kBgTR] = a;
+        absent |= a != a && r0 + i % kBgTR < p.rows;
+      }
+    }
+  }
+  // Every member of every window of the tile present: its channels, halo
+  // included, lie inside the row and hold no NaN.
+  const bool full = !__syncthreads_or(absent);
+  // A warp's lanes take 32 adjacent channels of a row, a group at a time.
+  for (int x = threadIdx.x; x < kBgTC; x += 32) {
+    const int c = blockIdx.x * kBgTC + x;
+    if (c >= C) return;
+    const float* col = amp_s + (x + kHalf) * kBgLd;
+#ifndef FF_MEDIAN_COUNT
+    if (kPath != kBgFast && full) {
+      for (int rr = threadIdx.y; rr < kBgTR && r0 + rr < p.rows; rr += kBgWarps) {
+        out[(size_t)(r0 + rr) * C + c] = bg_full_deviation<kPath == kBgGeneral>(col + rr);
+      }
+      continue;
+    }
+#endif
+    for (int rr = threadIdx.y; rr < kBgTR && r0 + rr < p.rows; rr += kBgWarps) {
+      const float dev = kPath == kBgFast ? bg_fast_deviation(col + rr, c, C)
+                                         : bg_masked_deviation<kPath == kBgGeneral>(col + rr);
+      out[(size_t)(r0 + rr) * C + c] = dev;
+    }
+  }
+}
+
+template <int kMode, bool kAmp, int kPath>
+int bg_launch(const void* in, const uint8_t* flags, float* out, const BgParams& p,
+              cudaStream_t s) {
+  const size_t smem = (size_t)kBgChans * kBgLd * sizeof(float);
+  if (int err = set_smem(background_kernel<kMode, kAmp, kPath>, smem)) return err;
+  const dim3 grid((p.channels + kBgTC - 1) / kBgTC, (p.rows + kBgTR - 1) / kBgTR);
+  background_kernel<kMode, kAmp, kPath><<<grid, dim3(32, kBgWarps), smem, s>>>(in, flags, out, p);
+  return (int)cudaGetLastError();
+}
+
+template <bool kAmp>
+int bg_launch_mode(int mode, const void* in, const uint8_t* flags, float* out, const BgParams& p,
+                   cudaStream_t s) {
+  switch (mode) {
+    case 0: return bg_launch<0, kAmp, kBgGeneral>(in, flags, out, p, s);
+    case 1: return bg_launch<1, kAmp, kBgGeneral>(in, flags, out, p, s);
+    default: return bg_launch<2, kAmp, kBgGeneral>(in, flags, out, p, s);
+  }
+}
+
 // The wide-row path's grid: SMs x the CTAs of `kernel` that fit one SM.
 template <typename Kernel>
 int wide_ctas(Kernel kernel) {
@@ -342,6 +590,33 @@ int ff_flagger(const void* vis, const void* in_flags, int mode, void* out, int r
     case 1024: return k1_launch<1024>(mode, v, f, o, rows, p, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// BG over a (channels, rows) slab `in` of planar (re, im) float32 pairs, or
+// of float32 amplitudes where is_amplitude, channel c's rows from element
+// c * in_stride: the (rows, channels) float32 deviations into `out`.  mode
+// as ff_flagger's: 0, or 1 with (channels, rows) u8 flags from byte
+// c * flag_stride, or 2 with (channels,) u8 flags.  path: 0 the general
+// median (NaN deviations written as 0), 1 the fast path (mode 0 and pairs
+// only, channels >= the width), 2 the general median keeping NaN (mode 0
+// and pairs only).
+int ff_background(const void* in, const void* flags, int mode, int is_amplitude, int path,
+                  void* out, int channels, int rows, long long in_stride,
+                  long long flag_stride, void* stream) {
+  if (channels < 1 || rows < 1 || (rows + kBgTR - 1) / kBgTR > 65535 || mode < 0 || mode > 2 ||
+      (mode != 0 && flags == nullptr) || path < 0 || path > 2 ||
+      (path != kBgGeneral && (mode != 0 || is_amplitude)) ||
+      (path == kBgFast && channels < FF_WIDTH) || FF_WIDTH > kBgMaxWidth) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const BgParams p{channels, rows, in_stride, flag_stride};
+  const uint8_t* f = static_cast<const uint8_t*>(flags);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_amplitude) return bg_launch_mode<true>(mode, in, f, o, p, s);
+  if (path == kBgFast) return bg_launch<0, false, kBgFast>(in, f, o, p, s);
+  if (path == kBgKeepNan) return bg_launch<0, false, kBgKeepNan>(in, f, o, p, s);
+  return bg_launch_mode<false>(mode, in, f, o, p, s);
 }
 
 // K2 over (rows, channels) float32 deviations.

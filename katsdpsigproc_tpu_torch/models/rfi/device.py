@@ -306,10 +306,16 @@ def make_flagger_fn(
 
     ``engine="torch"`` (the counterpart of ``"xla"``) runs every stage as
     tensor code.  ``engine="hybrid"`` (threshold ``"sum"`` only) runs the
-    background as tensor code, then MAD noise + SumThreshold in the CUDA
-    kernel :func:`.fused_flagger.madnz_threshold` (its plain version for a
-    tensor on the CPU); ``pallas_kw`` is passed on to that call, so its
-    TPU layout knobs (``bb``, ``fold``, ``interpret``, ``nref``,
+    background pass, then MAD noise + SumThreshold, as two CUDA kernels a
+    slab: :func:`.fused_flagger.background_deviations` (BG, the deviations
+    written baseline-major) and :func:`.fused_flagger.madnz_threshold`
+    (K2); a tensor on the CPU takes :func:`background_median_filter`, the
+    deviations' turn and K2's plain version.  On the card the hybrid
+    engine takes what BG takes: float32 input and an odd ``width`` from 3
+    to :data:`.fused_flagger.BACKGROUND_MAX_WIDTH` (255); another raises
+    ``ValueError`` or ``TypeError`` at the call, where the CPU route still
+    takes it.  ``pallas_kw`` is passed on to
+    K2's call, so its TPU layout knobs (``bb``, ``fold``, ``interpret``, ``nref``,
     ``pipeline``, ``rank_radix``) are taken and an unknown key raises
     ``TypeError``.  ``baseline_block`` processes the baseline axis in
     column slabs of that many baselines to bound peak memory.  The JAX
@@ -326,8 +332,9 @@ def make_flagger_fn(
     While a profiler session records, the hybrid engine's flagger records
     its host work as spans (:func:`...utils.profiling.annotate`):
     ``ksp.hybrid`` the whole call and, for each slab, keyed by its first
-    baseline, ``ksp.hybrid.background`` (the background pass),
-    ``ksp.hybrid.turn`` (the deviations made baseline-major) and
+    baseline, ``ksp.hybrid.background`` (the background pass; on the card
+    BG's launch, ``ksp.launch.bg``, inside it), on the CPU
+    ``ksp.hybrid.turn`` (the deviations made baseline-major), and
     ``ksp.hybrid.store`` (the slab's flags written into the output); K2's
     launch is ``ksp.launch.k2`` inside :func:`.fused_flagger.madnz_threshold`.
     """
@@ -344,23 +351,30 @@ def make_flagger_fn(
         raise ValueError(f"unknown block_impl {block_impl!r}")
     background_fast = bool(background_fast)
     hybrid = engine == "hybrid"
+    from . import fused_flagger  # it imports this module
 
     def span(name, key=None):
         return profiling.annotate(name, key) if hybrid else contextlib.nullcontext()
 
+    def k2(deviations_t):
+        flags_t = fused_flagger.madnz_threshold(
+            deviations_t, n_sigma=n_sigma, n_windows=n_windows, falloff=threshold_falloff,
+            flag_value=flag_value, **(pallas_kw or {}))
+        return flags_t.transpose(0, 1)
+
     def block_fn(vis, input_flags=None, key=None):
+        if hybrid and vis.device.type == "cuda":
+            with span("ksp.hybrid.background", key):
+                deviations_t = fused_flagger.background_deviations(
+                    vis, input_flags, width, is_amplitude, use_flags, fast_path=background_fast)
+            return k2(deviations_t)
         with span("ksp.hybrid.background", key):
             deviations = background_median_filter(
                 vis, input_flags, width, is_amplitude, use_flags, fast_path=background_fast)
         if hybrid:
-            from . import fused_flagger
-
             with span("ksp.hybrid.turn", key):
                 deviations_t = deviations.transpose(0, 1).contiguous()
-            flags_t = fused_flagger.madnz_threshold(
-                deviations_t, n_sigma=n_sigma, n_windows=n_windows, falloff=threshold_falloff,
-                flag_value=flag_value, **(pallas_kw or {}))
-            return flags_t.transpose(0, 1)
+            return k2(deviations_t)
         noise = madnz(deviations, axis=0)
         if threshold == "simple":
             return threshold_simple(deviations, noise, n_sigma, flag_value, False)

@@ -18,9 +18,15 @@ kernels live in ``csrc/fused_flagger.cu``:
   from deviations, for the hybrid engine, on K1's run layout up to K1's
   channel limit (:func:`max_channels`), and on the wide-row path beyond
   it.
+* **BG** (``background``, :func:`background_deviations`) replaces the
+  hybrid engine's eager background pass (no Pallas kernel: XLA's in the
+  JAX package): the masked median background of a (channels, rows) slab,
+  read where it lies in the channel-major dump, written as (rows,
+  channels) deviations, K2's layout; tiles of channels x rows in shared
+  memory, one launch a slab.
 
-Both run as one launch over all rows, which takes the place of the TPU's
-in-kernel DMA block loop (``_dma_block_loop``): :func:`flag_transposed`,
+K1 and K2 run as one launch over all rows, which takes the place of the
+TPU's in-kernel DMA block loop (``_dma_block_loop``): :func:`flag_transposed`,
 :func:`flag_transposed_dma` and :func:`flag_dump` are each one launch of
 K1, and :func:`madnz_threshold` one of K2.  A row longer than
 :func:`max_channels` does not fit one CTA's shared memory: it takes the
@@ -39,11 +45,12 @@ input forms give the same flags there, and are taken here: a
 amplitudes made outside the kernel) is K1 on the planar pairs.
 
 A tensor on the CPU goes to the plain version beside each kernel
-(:func:`flag_transposed_plain`, :func:`madnz_threshold_plain`), composed
-of the :mod:`.device` stages; a CUDA tensor goes to the kernel, or the
-call raises.  :data:`launches` counts the kernel launches,
-:data:`k1_ctas` K1's by the threads of its CTAs, :data:`k1_modes` K1's
-by its input-flag mode, and :data:`row_major` how their rows were made
+(:func:`flag_transposed_plain`, :func:`madnz_threshold_plain`,
+:func:`background_deviations_plain`), composed of the :mod:`.device`
+stages; a CUDA tensor goes to the kernel, or the call raises.
+:data:`launches` counts the kernel launches, :data:`k1_ctas` K1's by the
+threads of its CTAs, :data:`k1_modes` K1's by its input-flag mode, and
+:data:`row_major` how their rows were made
 contiguous.  While a profiler session records, :func:`flag_transposed`
 (and so :func:`flag_dump` and :func:`flag_transposed_dma`) records its
 host work as spans (:func:`..utils.profiling.annotate`): ``ksp.flag_dump``
@@ -52,7 +59,8 @@ allocation, ``ksp.flag_dump.input_flags`` the FULL flags' checks and their
 turn to row-major (only where ``input_flags`` is given), and
 ``ksp.launch.k1`` (``ksp.launch.k1_wide``) K1's launch alone;
 :func:`madnz_threshold` records K2's launch alone as ``ksp.launch.k2``
-(``ksp.launch.k2_wide``).
+(``ksp.launch.k2_wide``), :func:`background_deviations` BG's as
+``ksp.launch.bg``.
 """
 
 import ctypes
@@ -69,7 +77,7 @@ from .device import BackgroundFlags
 
 # Kernel launches since the counts were last reset, per kernel.  Each
 # wrapper adds one where it launches its kernel, and nowhere else.
-launches = {"flagger": 0, "madnz_threshold": 0}
+launches = {"flagger": 0, "madnz_threshold": 0, "background": 0}
 # Of those, the launches on the wide-row path.
 wide_launches = {"flagger": 0, "madnz_threshold": 0}
 # K1's CTA sizes, fewest threads first: the instances ``ff_flagger`` launches.
@@ -96,6 +104,10 @@ IN_PLACE_MAX_WIDTH = 65
 # The channels a thread of K1 holds in registers for its rank search
 # (``runs::kRankRegs``).
 RANK_REGS = 32
+# The widest window the background kernel's tile takes (``kBgMaxWidth``).
+BACKGROUND_MAX_WIDTH = 255
+# The background kernel's paths (``kBgGeneral``, ``kBgFast``, ``kBgKeepNan``).
+_BG_GENERAL, _BG_FAST, _BG_KEEP_NAN = 0, 1, 2
 
 
 def k1_threads(channels: int) -> int:
@@ -181,6 +193,12 @@ def _library(width: int) -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.ff_madnz_threshold.restype = ctypes.c_int
+    lib.ff_background.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_void_p,
+    ]
+    lib.ff_background.restype = ctypes.c_int
     return lib
 
 
@@ -632,6 +650,105 @@ def madnz_threshold(dev_t, n_sigma: float = 11.0, n_windows: int = 4, falloff: f
     _raise_on(lib, err, "madnz_threshold")
     launches["madnz_threshold"] += 1
     wide_launches["madnz_threshold"] += wide
+    return out
+
+
+def background_deviations_plain(vis, flags, width: int, is_amplitude: bool,
+                                use_flags: BackgroundFlags, fast_path=None):
+    """The plain PyTorch version of the background kernel: the background pass, then its turn.
+
+    :func:`.device.background_median_filter` of the (channels, rows) slab,
+    its deviations turned to (rows, channels) by ``transpose(0, 1).contiguous()``.
+    """
+    dev = device.background_median_filter(vis, flags, width, is_amplitude, use_flags,
+                                           fast_path=fast_path)
+    return dev.transpose(0, 1).contiguous()
+
+
+def _check_background(vis, flags, width: int, is_amplitude: bool, use_flags) -> None:
+    """:func:`background_deviations`' checks of what the kernel takes."""
+    if not isinstance(vis, torch.Tensor):
+        raise TypeError(f"vis must be a tensor, got {type(vis).__name__}")
+    if not isinstance(use_flags, BackgroundFlags):
+        raise TypeError(f"use_flags must be a BackgroundFlags, got {use_flags!r}")
+    if width % 2 != 1 or not 3 <= width <= BACKGROUND_MAX_WIDTH:
+        raise ValueError(f"width must be odd, from 3 to {BACKGROUND_MAX_WIDTH}, got {width}")
+    what = "amplitudes" if is_amplitude else "planar (re, im) pairs"
+    if vis.dtype != torch.float32:
+        raise TypeError(f"vis must be torch.float32 {what}, got {vis.dtype}")
+    if vis.ndim != (2 if is_amplitude else 3) or (not is_amplitude and vis.shape[-1] != 2):
+        raise ValueError(f"vis must be (channels, rows{'' if is_amplitude else ', 2'}) {what}, "
+                         f"got {tuple(vis.shape)}")
+    if use_flags == BackgroundFlags.NONE:
+        return
+    if not isinstance(flags, torch.Tensor):
+        raise ValueError(f"use_flags={use_flags.name} needs a flags tensor")
+    if flags.dtype not in (torch.uint8, torch.bool):
+        raise TypeError(f"flags must be torch.uint8 or torch.bool, got {flags.dtype}")
+    shape = tuple(vis.shape[:2]) if use_flags == BackgroundFlags.FULL else tuple(vis.shape[:1])
+    if tuple(flags.shape) != shape:
+        raise ValueError(f"{use_flags.name} flags must have shape {shape}, got "
+                         f"{tuple(flags.shape)}")
+    if flags.device != vis.device:
+        raise ValueError(f"flags are on {flags.device}, expected {vis.device}")
+
+
+def background_deviations(vis, flags, width: int, is_amplitude: bool,
+                          use_flags: BackgroundFlags, fast_path=None):
+    """The hybrid engine's background pass: (rows, channels) float32 deviations (BG).
+
+    Bit for bit :func:`background_deviations_plain`, the deviations of
+    :func:`.device.background_median_filter` on the (channels, rows) slab
+    `vis` (float32 ``(channels, rows, 2)`` planar pairs, or ``(channels,
+    rows)`` amplitudes where `is_amplitude`), turned to K2's layout.
+    `flags` are ``(channels, rows)`` (FULL) or ``(channels,)`` (CHANNEL)
+    uint8 or bool.  `fast_path` (None: True) takes the edge-fill fast
+    path where the plain version does (no flags, visibilities).
+
+    On the card this is one launch of ``csrc/fused_flagger.cu::background_kernel``
+    in K1's library: it reads the slab where it lies (a column range of a
+    channel-major dump included: only a channel's rows must be dense, or
+    the slab is copied first) and writes the deviations baseline-major.  It
+    counts its launches in :data:`launches` (``"background"``) and records
+    its launch as the span ``ksp.launch.bg``.  Any odd width from 3 to
+    :data:`BACKGROUND_MAX_WIDTH` is taken; other widths, complex or
+    non-float32 input and flags that do not fit raise ``ValueError`` or
+    ``TypeError``.
+    """
+    _check_background(vis, flags, width, is_amplitude, use_flags)
+    fast = True if fast_path is None else bool(fast_path)
+    if vis.device.type == "cpu":
+        return background_deviations_plain(vis, flags, width, is_amplitude, use_flags,
+                                           fast_path=fast)
+    if vis.device.type != "cuda":
+        raise ValueError(f"unsupported device {vis.device}")
+    channels, rows = vis.shape[:2]
+    out = torch.empty((rows, channels), dtype=torch.float32, device=vis.device)
+    if out.numel() == 0:
+        return out
+    path = _BG_GENERAL
+    if fast and not is_amplitude and use_flags == BackgroundFlags.NONE:
+        path = _BG_FAST if channels >= width else _BG_KEEP_NAN
+    mode = K1_MODES.index(use_flags.name.lower())  # K1's codes: none 0, full 1, channel 2
+    with torch.cuda.device(vis.device):
+        pair = 1 if is_amplitude else 2
+        if (vis.stride(1) != pair or vis.stride(-1) != 1 or vis.stride(0) % pair
+                or vis.data_ptr() % (4 * pair)):
+            vis = vis.contiguous()  # a channel's rows dense, whole pairs
+        f = None
+        if mode:
+            f = flags.view(torch.uint8)
+            if f.stride(-1) != 1:
+                f = f.contiguous()
+        lib = _library(width)
+        stream = torch.cuda.current_stream(vis.device).cuda_stream
+        with profiling.annotate("ksp.launch.bg"):
+            err = lib.ff_background(vis.data_ptr(), None if f is None else f.data_ptr(), mode,
+                                    int(is_amplitude), path, out.data_ptr(), channels, rows,
+                                    vis.stride(0) // pair, f.stride(0) if mode == 1 else 0,
+                                    stream)
+    _raise_on(lib, err, "background")
+    launches["background"] += 1
     return out
 
 
